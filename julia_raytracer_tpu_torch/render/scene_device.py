@@ -1,0 +1,293 @@
+"""Device-resident scene: every tensor the integrator touches, port of
+julia_raytracer_tpu/render/scene_device.py (the non-instanced build).
+
+Built from the host FlatScene (scene/flatten.py) + the BVH permutation
+of julia_raytracer_tpu.ops.bvh (numpy, imported as it is): primitive
+arrays are reordered to BVH leaf order once, on the host, so prim ids
+match the JAX package's. `DeviceScene` is a NamedTuple of tensors on one
+device; `SceneConfig` holds the static facts that prune the integrator.
+
+Not ported yet (NotImplementedError, see ROADMAP.md): two-level
+instancing and the hybrid instanced build, and the on-disk cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from julia_raytracer_tpu.ops.bvh import build_bvh, quad_bounds
+from julia_raytracer_tpu_torch.render.lights import (
+    DeviceLights, LightCounts, build_lights_np,
+)
+from julia_raytracer_tpu_torch.scene.flatten import (
+    FLAG_HAS_COLORS, FLAG_HAS_NORMALS, FLAG_HAS_TEXCOORDS, flatten_scene,
+)
+
+
+class DeviceMaterials(NamedTuple):
+    type: torch.Tensor  # i32 [M]
+    emission: torch.Tensor  # f32 [M, 3]
+    color: torch.Tensor  # f32 [M, 3]
+    roughness: torch.Tensor
+    metallic: torch.Tensor
+    ior: torch.Tensor
+    scattering: torch.Tensor  # [M, 3]
+    scanisotropy: torch.Tensor
+    trdepth: torch.Tensor
+    opacity: torch.Tensor
+    emission_tex: torch.Tensor  # i32
+    color_tex: torch.Tensor
+    roughness_tex: torch.Tensor
+    scattering_tex: torch.Tensor
+    normal_tex: torch.Tensor
+
+
+class DeviceTextures(NamedTuple):
+    data: torch.Tensor  # f32 [P, 4]
+    offset: torch.Tensor  # i32 [T]
+    width: torch.Tensor  # i32 [T]
+    height: torch.Tensor  # i32 [T]
+    linear: torch.Tensor  # bool [T]
+
+
+class DeviceScene(NamedTuple):
+    """All scene tensors, primitive arrays in BVH leaf order."""
+
+    prim_verts: torch.Tensor  # f32 [Q, 4, 3]
+    prim_vidx: torch.Tensor  # i32 [Q, 4]
+    prim_instance: torch.Tensor  # i32 [Q]
+    prim_flags: torch.Tensor  # i32 [Q]
+    nodes: torch.Tensor  # f32 [Nn, 16] packed BVH
+    vert_normals: torch.Tensor
+    vert_texcoords: torch.Tensor
+    vert_colors: torch.Tensor
+    inst_frame: torch.Tensor  # f32 [I, 4, 3]
+    inst_material: torch.Tensor  # i32 [I]
+    materials: DeviceMaterials
+    textures: DeviceTextures
+    env_frame: torch.Tensor  # f32 [E, 4, 3]
+    env_frame_inv: torch.Tensor
+    env_emission: torch.Tensor  # f32 [E, 3]
+    env_emission_tex: torch.Tensor  # i32 [E]
+    lights: DeviceLights
+    # per-instance material constants folded to one row: [I, 21] =
+    # [type, emission*3, color*3, roughness, metallic, ior,
+    #  scattering*3, scanisotropy, trdepth, opacity,
+    #  emission_tex, color_tex, roughness_tex, scattering_tex, normal_tex]
+    inst_mat_dense: torch.Tensor
+
+
+class SceneConfig(NamedTuple):
+    """Static facts about the scene. The feature flags let the integrator
+    drop material lobes, texture paths, normal mapping, opacity and volume
+    work the scene cannot exercise."""
+
+    n_prims: int
+    root_is_leaf: bool
+    n_envs: int
+    light_counts: LightCounts
+    has_normal_maps: bool
+    has_opacity: bool
+    present_types: tuple = tuple(range(8))  # sorted MaterialType ints present
+    n_instances: int = 0
+    has_textures: bool = True
+    has_vertex_normals: bool = True
+    has_texcoords: bool = True
+    has_colors: bool = True
+    has_volumes: bool = True
+    # host (numpy) copies of the sorted primitive arrays, from which
+    # build_intersector makes the dense kernel's prim table
+    host_prim_verts: object = None
+    host_prim_instance: object = None
+    # curve/point primitive counts (the port rejects scenes with any)
+    n_lines: int = 0
+    n_points: int = 0
+
+
+def _inst_mat_dense(g, m) -> np.ndarray:
+    """Fold the instance -> material indirection into one packed f32 row
+    per instance (texture-free constants + texture ids)."""
+    i_count = max(len(g.inst_material), 1)
+    out = np.zeros((i_count, 21), np.float32)
+    out[:, 16:21] = -1.0  # texture ids default to "none"
+    if len(m.type) == 0:
+        return out
+    mid = np.clip(g.inst_material, 0, len(m.type) - 1)
+    n = len(mid)
+    out[:n, 0] = m.type[mid]
+    out[:n, 1:4] = m.emission[mid]
+    out[:n, 4:7] = m.color[mid]
+    out[:n, 7] = m.roughness[mid]
+    out[:n, 8] = m.metallic[mid]
+    out[:n, 9] = m.ior[mid]
+    out[:n, 10:13] = m.scattering[mid]
+    out[:n, 13] = m.scanisotropy[mid]
+    out[:n, 14] = m.trdepth[mid]
+    out[:n, 15] = m.opacity[mid]
+    out[:n, 16] = m.emission_tex[mid]
+    out[:n, 17] = m.color_tex[mid]
+    out[:n, 18] = m.roughness_tex[mid]
+    out[:n, 19] = m.scattering_tex[mid]
+    out[:n, 20] = m.normal_tex[mid]
+    return out
+
+
+# expansion thresholds for automatic two-level instancing (the same rule
+# as the JAX package: flattening both huge AND mostly duplication)
+INSTANCING_MIN_FLAT = 4_000_000
+INSTANCING_MIN_RATIO = 4.0
+
+
+def _should_instance(scene_data) -> bool:
+    shape_prims = [
+        max(len(sh.quads), len(sh.triangles)) for sh in scene_data.shapes
+    ]
+    total = sum(shape_prims)
+    flat_total = 0
+    for inst in scene_data.instances:
+        if 0 <= inst.shape < len(shape_prims):
+            flat_total += shape_prims[inst.shape]
+    return (
+        flat_total >= INSTANCING_MIN_FLAT
+        and total > 0
+        and flat_total >= INSTANCING_MIN_RATIO * total
+    )
+
+
+def build_device_scene(scene_data, highquality_bvh: bool = False,
+                       instancing: bool | None = None, device="cpu",
+                       ) -> tuple[DeviceScene, SceneConfig]:
+    """Host SceneData -> (DeviceScene, SceneConfig) on `device`: flattens,
+    builds the BVH, reorders primitives, assembles the light table."""
+    if instancing is None:
+        instancing = _should_instance(scene_data)
+    if instancing:
+        raise NotImplementedError(
+            "instanced scenes are not ported yet (ROADMAP.md queue 1, item 11)"
+        )
+    flat = flatten_scene(scene_data)
+    g = flat.geometry
+    bb_min, bb_max = quad_bounds(g.prim_verts)
+    tree = build_bvh(bb_min, bb_max, sah=highquality_bvh)
+    order = tree.order
+
+    def sort(a):
+        return a[order] if len(order) else a
+
+    lights_np, light_counts = build_lights_np(flat, order)
+    m, t, e = flat.materials, flat.textures, flat.environments
+    flags_union = (
+        int(np.bitwise_or.reduce(g.prim_flags)) if len(g.prim_flags) else 0
+    )
+    # opacity can also come from a color texture's alpha channel
+    any_tex_alpha = bool((t.data[:, 3] < 1.0).any()) if len(t.data) else False
+    present = tuple(sorted(set(int(x) for x in m.type))) if len(m.type) else ()
+    arrays = dict(
+        prim_verts=sort(g.prim_verts),
+        prim_vidx=sort(g.prim_vidx),
+        prim_instance=sort(g.prim_instance),
+        prim_flags=sort(g.prim_flags),
+        nodes=tree.nodes,
+        vert_normals=g.vert_normals,
+        vert_texcoords=g.vert_texcoords,
+        vert_colors=g.vert_colors,
+        inst_frame=g.inst_frame,
+        inst_material=np.maximum(g.inst_material, 0),
+        materials={f: getattr(m, f) for f in DeviceMaterials._fields},
+        textures={f: getattr(t, f) for f in DeviceTextures._fields},
+        env_frame=e.frame,
+        env_frame_inv=e.frame_inv,
+        env_emission=e.emission,
+        env_emission_tex=e.emission_tex,
+        lights=lights_np,
+        inst_mat_dense=_inst_mat_dense(g, m),
+    )
+    config_fields = dict(
+        n_prims=tree.n_prims,
+        root_is_leaf=tree.root_is_leaf,
+        n_envs=len(e.emission),
+        light_counts=light_counts,
+        has_normal_maps=(
+            bool((m.normal_tex >= 0).any()) if len(m.normal_tex) else False
+        ),
+        has_opacity=(
+            bool((m.opacity < 1.0).any()) if len(m.opacity) else False
+        ) or any_tex_alpha,
+        present_types=present,
+        n_instances=flat.n_instances,
+        has_textures=len(t.data) > 0,
+        has_vertex_normals=bool(flags_union & FLAG_HAS_NORMALS),
+        has_texcoords=bool(flags_union & FLAG_HAS_TEXCOORDS),
+        has_colors=bool(flags_union & FLAG_HAS_COLORS),
+        has_volumes=bool(set(present) & {4, 5, 6}),
+    )
+    return device_scene_from_numpy(arrays, config_fields, device)
+
+
+# SceneConfig fields of the JAX package that describe features this port
+# rejects; device_scene_from_numpy refuses a config that sets any of them
+_UNPORTED_CONFIG = ("inst_tables", "hyb_world_verts", "world_bounds")
+
+
+def device_scene_from_numpy(arrays: dict, config_fields: dict, device="cpu",
+                            ) -> tuple[DeviceScene, SceneConfig]:
+    """Numpy scene arrays -> (DeviceScene, SceneConfig) on `device`: the
+    upload tail shared by build_device_scene (the JAX package's
+    `_assemble`) and the way to carry a JAX DeviceScene across.
+
+    `arrays` maps each DeviceScene field to a numpy array, and `materials`,
+    `textures` and `lights` to dicts of their fields: what `np.asarray` of
+    each leaf of a JAX DeviceScene gives. Extra keys (the JAX package's
+    line/point arrays and kernel tables) must be empty. `config_fields`
+    maps SceneConfig field names to values; `light_counts` may be any
+    object with LightCounts' attributes. `host_prim_verts` and
+    `host_prim_instance` default to the arrays' own."""
+    for key in _UNPORTED_CONFIG:
+        if config_fields.get(key) is not None:
+            raise NotImplementedError(
+                f"scene config sets {key}: instanced scenes are not ported "
+                "yet (ROADMAP.md queue 1, item 11)"
+            )
+    for key, value in arrays.items():
+        if key not in DeviceScene._fields and np.size(value):
+            raise NotImplementedError(
+                f"scene array {key} is not empty; line/point primitives "
+                "are not ported yet (ROADMAP.md queue 1, item 10)"
+            )
+
+    def put(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    nested = {
+        "materials": DeviceMaterials,
+        "textures": DeviceTextures,
+        "lights": DeviceLights,
+    }
+    dscene = DeviceScene(**{
+        f: (
+            nested[f](**{k: put(arrays[f][k]) for k in nested[f]._fields})
+            if f in nested else put(arrays[f])
+        )
+        for f in DeviceScene._fields
+    })
+    fields = {k: v for k, v in config_fields.items() if k in SceneConfig._fields}
+    lc = fields["light_counts"]
+    fields["light_counts"] = LightCounts(**{
+        f.name: int(getattr(lc, f.name)) for f in dataclasses.fields(LightCounts)
+    })
+    fields["present_types"] = tuple(int(x) for x in fields["present_types"])
+    if fields.get("host_prim_verts") is None:
+        fields["host_prim_verts"] = np.asarray(arrays["prim_verts"])
+    if fields.get("host_prim_instance") is None:
+        fields["host_prim_instance"] = np.asarray(arrays["prim_instance"])
+    config = SceneConfig(**fields)
+    if config.n_lines or config.n_points:
+        raise NotImplementedError(
+            "line/point primitives are not ported yet (ROADMAP.md queue 1, "
+            "item 10)"
+        )
+    return dscene, config

@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions on edge
+cases, on the card. Marked `cuda`: they skip where no CUDA device is
+available. Run them on a GPU machine with
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+
+(`--noconftest`: tests/conftest.py imports jax, which the GPU machine
+need not have; this file imports only the port.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from julia_raytracer_tpu_torch.ops import dense_intersect as di
+from julia_raytracer_tpu_torch.ops import lane_compact as lc
+from julia_raytracer_tpu_torch.render.renderer import (
+    Params, Renderer, make_trace_state,
+)
+from julia_raytracer_tpu_torch.testing import cornell_scene, image_close
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("q", [0, 1, 37, di.MAX_PRIMS])
+def test_dense_intersect_kernel_equals_plain(dev, q):
+    g = np.random.default_rng(q)
+    base = g.uniform(-1, 1, (q, 3)).astype(np.float32)
+    e1 = g.uniform(-0.5, 0.5, (q, 3)).astype(np.float32)
+    e2 = g.uniform(-0.5, 0.5, (q, 3)).astype(np.float32)
+    verts = np.stack([base, base + e1, base + e1 + e2, base + e2], axis=1)
+    verts[::2, 3] = verts[::2, 2]  # degenerate quads
+    table = torch.from_numpy(
+        di.build_prim_table(verts, g.integers(0, 50, q))).to(dev)
+    n = 5000  # not a multiple of the block size
+    ro = g.uniform(-2, 2, (n, 3)).astype(np.float32)
+    rd = (g.normal(size=(n, 3)) - 0.3 * ro).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.where(g.random(n) < 0.1, -1.0, 1e30).astype(np.float32)
+    args = [torch.from_numpy(x).to(dev) for x in
+            (ro, rd, np.full(n, 1e-4, np.float32), tmax)]
+    got = di.dense_intersect(table, *args)
+    want = di.dense_intersect_plain(table, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.01, 0.3, 1.0])
+def test_lane_compact_and_expand_kernels_equal_plain(dev, frac):
+    g = np.random.default_rng(int(frac * 100))
+    n, p = 64 * lc.TILE, 45
+    alive = torch.from_numpy(g.random(n) < frac).to(dev)
+    vals = torch.from_numpy(
+        g.integers(-(2**31), 2**31, (p, n), dtype=np.int64).astype(np.int32)
+    ).to(dev)
+    total = int(alive.sum())
+    for cap in (max(total, 1), n):
+        got = lc.compact_planes(vals, alive, cap)
+        want = lc.compact_planes_plain(vals, alive, cap)
+        assert torch.equal(got[:, :total], want[:, :total])
+        fallback = vals.flip(1).contiguous()
+        assert torch.equal(lc.expand_planes(got, alive, fallback),
+                           lc.expand_planes_plain(want, alive, fallback))
+
+
+def test_kernels_reject_bad_input(dev):
+    vals = torch.zeros((3, 1000), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # not a multiple of 1024 lanes
+        lc.compact_planes(vals, torch.zeros(1000, dtype=torch.bool, device=dev), 8)
+    table = torch.zeros((4, di.STRIDE), device=dev)
+    with pytest.raises(ValueError):  # strided rays
+        ro = torch.zeros((8, 6), device=dev)[:, :3]
+        di.dense_intersect(table, ro, ro, torch.zeros(8, device=dev),
+                           torch.zeros(8, device=dev))
+
+
+def test_render_on_card_matches_cpu(dev):
+    scene = cornell_scene()
+    params = Params(resolution=32, samples=2, batch=2, bounces=4, seed=1)
+    images = []
+    for device in (dev, "cpu"):
+        r = Renderer(scene, params, device=device)
+        st = make_trace_state(scene, params, device=device)
+        r.trace_samples(st)
+        images.append(r.get_image(st))
+    image_close(*images)
