@@ -3,10 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from julia_raytracer_tpu_torch/csrc
-with nvcc, checks each kernel against its plain PyTorch version on the card
-at the main path's shapes and times both, renders the main path (the
-512 x 512, 8-bounce path-traced Cornell box) through the kernels, and holds
-a 128 x 128 render on the card against the same render on the CPU.
+with nvcc (one process per source, all at once), checks each kernel against
+its plain PyTorch version on the card at the main paths' shapes and times
+both beside the card's bound and, where one exists, a single PyTorch call
+computing the same function. Then it drives both main paths through the
+kernels, each with the launch counters zeroed just before it:
+  - the 512 x 512, 8-bounce path-traced Cornell box (18 quads: the dense
+    intersector);
+  - the 512 x 512, 8-bounce sphere grid (102,406 quads: the worklist
+    cluster intersector);
+and holds small renders of both scenes on the card against the same
+renders on the CPU.
 
 Exits non-zero, printing no result, when no CUDA device is available or any
 phase fails. On success the last line is
@@ -24,35 +31,61 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops import cuda_build, dense_intersect as di
+from julia_raytracer_tpu_torch.ops.camera import sample_camera
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.integrator import trace_wavefront
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
 from julia_raytracer_tpu_torch.testing import (
-    check_hits, cornell_scene, image_close, require,
+    check_hits, cornell_scene, image_close, require, sphere_grid_scene,
 )
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from julia_raytracer_tpu_torch.utils.vecmath import normalize
 
 MAIN_RES, MAIN_BOUNCES, WARM_SPP, TIMED_SPP = 512, 8, 8, 32
+SPHERE_WARM_SPP, SPHERE_TIMED_SPP = 2, 8
 CHECK_RES, CHECK_SPP = 128, 4
+SPHERE_CHECK_RES, SPHERE_CHECK_SPP, SPHERE_CHECK_SEGMENTS = 64, 2, 16
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
 COMPACT_CAP = N_RAYS // 4  # first two-phase boundary of the main path
 STATE_PLANES = 45  # int32 planes of the integrator state (TraceVars)
 OUTPUT_PLANES = 11  # radiance 3, hit 1, albedo 3, normal 3, rng 1
 REPS = 20
+PLAIN_WORKLIST_REPS = 3  # its plain version reads counts back every step
+# H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# fp32 arithmetic of one Moller-Trumbore test in dense_intersect.cu
+# (6 edges, 9 pvec, 5 det, 1 divide, 3 tvec, 6 u, 9 qvec, 6 v, 6 t, 1 u+v)
+DENSE_OPS_PER_TRI_TEST = 52
+RAY_IN_BYTES = 32  # origin, direction, tmin, tmax
+HIT_OUT_BYTES = 44  # prim, u, v, t, position, normal, instance
+
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "dense_intersect": ("julia_raytracer_tpu_torch/csrc/dense_intersect.cu",
+                        "julia_raytracer_tpu/ops/pallas_intersect.py:82"),
+    "lane_compact": ("julia_raytracer_tpu_torch/csrc/lane_compact.cu",
+                     "julia_raytracer_tpu/ops/pallas_compact.py:105"),
+    "lane_expand": ("julia_raytracer_tpu_torch/csrc/lane_compact.cu",
+                    "julia_raytracer_tpu/ops/pallas_compact.py:174"),
+    "worklist_intersect": ("julia_raytracer_tpu_torch/csrc/worklist_intersect.cu",
+                           "julia_raytracer_tpu/ops/pallas_cluster.py:823"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn) -> float:
+def median_ms(fn, reps: int = REPS) -> float:
     """Median device time of one call of fn, by CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -63,8 +96,23 @@ def median_ms(fn) -> float:
     return float(np.median(times))
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the fp32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def int_max_abs_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def _bit_equal(got, ref) -> bool:
+    """Every field of two Hit tuples equal, bit for bit: the intersect
+    kernels repeat their plain versions' arithmetic in the same order
+    (built with -fmad=false), so they must agree exactly."""
+    return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
 
 
 def phase_intersect(dev, table) -> dict:
@@ -86,10 +134,15 @@ def phase_intersect(dev, table) -> dict:
     ref = di.dense_intersect_plain(table, *args)
     torch.cuda.synchronize()
     err = check_hits(ref, got)
+    require(_bit_equal(got, ref), "dense kernel and plain version differ")
     require(got.hit.float().mean() > 0.5, "too few intersect hits")
     plain_ms = median_ms(lambda: di.dense_intersect_plain(table, *args))
     ms = median_ms(lambda: di.dense_intersect(table, *args))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    q = table.shape[0]
+    tests = 2 * q - int((table[:, 6:9] == table[:, 9:12]).all(dim=1).sum())
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(N_RAYS * (RAY_IN_BYTES + HIT_OUT_BYTES) + table.numel() * 4,
+                        N_RAYS * tests * DENSE_OPS_PER_TRI_TEST))
 
 
 def _adversarial_planes(g, p, n, dev):
@@ -106,82 +159,211 @@ def _alive(g, dev):
 
 
 def phase_compact(dev) -> dict:
-    """Bit-exact pack of 45 adversarial planes, n=262,144 -> cap=65,536."""
+    """Bit-exact pack of 45 adversarial planes, n=262,144 -> cap=65,536.
+    Library call: boolean-mask indexing vals[:, alive]."""
     g = np.random.default_rng(1)
     vals = _adversarial_planes(g, STATE_PLANES, N_RAYS, dev)
     alive = _alive(g, dev)
     total = int(alive.sum())
     got = lc.compact_planes(vals, alive, COMPACT_CAP)
     ref = lc.compact_planes_plain(vals, alive, COMPACT_CAP)
+    lib = vals[:, alive]
     torch.cuda.synchronize()
     require(torch.equal(got[:, :total], ref[:, :total]), "compact not bit-exact")
+    require(torch.equal(lib, ref[:, :total]), "vals[:, alive] differs")
     plain_ms = median_ms(lambda: lc.compact_planes_plain(vals, alive, COMPACT_CAP))
     ms = median_ms(lambda: lc.compact_planes(vals, alive, COMPACT_CAP))
+    library_ms = median_ms(lambda: vals[:, alive])
+    n_bytes = vals.numel() * 4 + alive.numel() + STATE_PLANES * COMPACT_CAP * 4
     return dict(max_abs_err=int_max_abs_err(got[:, :total], ref[:, :total]),
-                ms=ms, plain_ms=plain_ms)
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **bound(n_bytes, 0))
 
 
 def phase_expand(dev) -> dict:
-    """Bit-exact scatter of 11 output planes from cap=65,536 to n=262,144."""
+    """Bit-exact scatter of 11 output planes from cap=65,536 to n=262,144.
+    Library call: fallback.masked_scatter(alive, narrow[:, :survivors])."""
     g = np.random.default_rng(2)
     narrow = _adversarial_planes(g, OUTPUT_PLANES, COMPACT_CAP, dev)
     fallback = _adversarial_planes(g, OUTPUT_PLANES, N_RAYS, dev)
     alive = _alive(g, dev)
+    total = int(alive.sum())
     got = lc.expand_planes(narrow, alive, fallback)
     ref = lc.expand_planes_plain(narrow, alive, fallback)
+
+    def library():
+        return fallback.masked_scatter(alive[None, :], narrow[:, :total])
+
+    lib = library()
     torch.cuda.synchronize()
     require(torch.equal(got, ref), "expand not bit-exact")
+    require(torch.equal(lib, ref), "masked_scatter differs")
     plain_ms = median_ms(lambda: lc.expand_planes_plain(narrow, alive, fallback))
     ms = median_ms(lambda: lc.expand_planes(narrow, alive, fallback))
-    return dict(max_abs_err=int_max_abs_err(got, ref), ms=ms, plain_ms=plain_ms)
+    library_ms = median_ms(library)
+    n_bytes = (narrow.numel() + 2 * fallback.numel()) * 4 + alive.numel()
+    return dict(max_abs_err=int_max_abs_err(got, ref), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, **bound(n_bytes, 0))
 
 
-def main_path(dev) -> tuple[dict, dict]:
-    """The 512 x 512, 8-bounce path-traced Cornell box through Renderer."""
-    scene = cornell_scene()
-    params = Params(resolution=MAIN_RES, samples=WARM_SPP + TIMED_SPP,
-                    batch=WARM_SPP, bounces=MAIN_BOUNCES, sampler="path")
-    renderer = Renderer(scene, params, device=dev)
-    state = make_trace_state(scene, params, device=dev)
+def _sphere_primary_rays(renderer, dev):
+    """The camera rays of sample 0 of the 512 x 512 frame."""
+    pix = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
+    rng = rng_mod.seed_state(pix, 0, 0)
+    puv, rng = rng_mod.rand2f(rng)
+    luv, rng = rng_mod.rand2f(rng)
+    ij = torch.stack([pix % MAIN_RES, pix // MAIN_RES], dim=-1)
+    ro, rd = sample_camera(renderer.cam_arrays, ij, (MAIN_RES, MAIN_RES),
+                           puv, luv, False)
+    n = ro.shape[0]
+    return (ro.contiguous(), rd.contiguous(),
+            torch.full((n,), 1e-4, device=dev),
+            torch.full((n,), 3.4e38, device=dev))
+
+
+def _bounce_rays(hit, rd, dev):
+    """Cosine-distributed rays from the primary hits about the normal that
+    faces the incoming ray; lanes that missed are dead (tmax = -1)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = rd.shape[0]
+    nrm = torch.where(((hit.gnormal * rd).sum(-1) > 0)[:, None],
+                      -hit.gnormal, hit.gnormal)
+    d = normalize(nrm + normalize(torch.randn((n, 3), generator=gen, device=dev)))
+    tmax = torch.where(hit.hit, 3.4e38, -1.0)
+    return (hit.position.contiguous(), d.contiguous(),
+            torch.full((n,), 1e-4, device=dev), tmax.contiguous())
+
+
+def _worklist_case(tables, rays) -> dict:
+    order, cnt = wl.precull(*rays, tables.sbbox)
+    got = wl.worklist_intersect_kernel(tables, *rays, order, cnt)
+    t0 = time.perf_counter()
+    ref, work = wl.worklist_intersect_plain(tables, *rays, order, cnt)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    err = check_hits(ref, got)
+    bit_equal = _bit_equal(got, ref)
+    same_prim = float((got.prim == ref.prim).float().mean())
+    require(bit_equal, f"worklist kernel and plain version differ (same prim "
+            f"{same_prim:.6f}, max |dt| {err})")
+    ms = median_ms(lambda: wl.worklist_intersect_kernel(tables, *rays, order, cnt))
+    plain_ms = median_ms(
+        lambda: wl.worklist_intersect_plain(tables, *rays, order, cnt),
+        PLAIN_WORKLIST_REPS)
+    precull_ms = median_ms(lambda: wl.precull(*rays, tables.sbbox))
+    n = rays[0].shape[0]
+    table_bytes = (tables.tab.numel() + tables.bbox.numel()
+                   + tables.sbbox.numel()) * 4
+    list_bytes = (order.numel() + cnt.numel()) * 4
+    return dict(
+        max_abs_err=err, bit_equal=bit_equal, same_prim=same_prim, ms=ms,
+        plain_ms=plain_ms, plain_wall_s=plain_wall, precull_ms=precull_ms,
+        library_ms=None, hit_rate=float(got.hit.float().mean()),
+        mean_list=float(cnt.float().mean()), **work,
+        **bound(n * (RAY_IN_BYTES + HIT_OUT_BYTES) + table_bytes + list_bytes,
+                work["pairs"] * wl.TRIS * wl.OPS_PER_TRI_TEST),
+    )
+
+
+def phase_worklist(dev, renderer) -> dict:
+    """The sphere grid (102,406 quads, 13 superclusters of 128 clusters) at
+    262,144 rays, twice: the 512 x 512 camera rays, then cosine bounce rays
+    from their hits (divergent, long work lists). Kernel vs plain version
+    on the card; no PyTorch call computes this function (library_ms null)."""
+    tables = renderer.intersect.tables
+    primary = _sphere_primary_rays(renderer, dev)
+    p = _worklist_case(tables, primary)
+    hit = wl.worklist_intersect(tables, *primary)
+    b = _worklist_case(tables, _bounce_rays(hit, primary[1], dev))
+    for name, c in (("primary", p), ("bounce", b)):
+        log(f"worklist {name}: {N_RAYS} rays, hit rate {c['hit_rate']:.4f}, "
+            f"bit-equal {c['bit_equal']}, same prim {c['same_prim']:.6f}, "
+            f"max |dt| {c['max_abs_err']}, mean work list {c['mean_list']:.3f} "
+            f"of {tables.sbbox.shape[0]}, (ray, cluster) pairs culled in "
+            f"{c['pairs']} (warp, cluster) {c['warp_pairs']} (block, cluster) "
+            f"{c['block_pairs']}, kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+            f"ms (one call {c['plain_wall_s']:.2f} s wall), precull "
+            f"{c['precull_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}), library call: none")
+    require(p["hit_rate"] > 0.5, "too few primary hits on the sphere grid")
+    return dict(b, primary={k: p[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "pairs",
+        "warp_pairs", "block_pairs", "mean_list", "precull_ms")})
+
+
+def no_host_sync(renderer, dev) -> None:
+    """One worklist intersect (precull + kernel) under
+    set_sync_debug_mode("error"): it must not synchronise with the host."""
+    rays = _sphere_primary_rays(renderer, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        renderer.intersect(*rays)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def _zero_counts() -> None:
     di.dense_intersect.launches = 0
     lc.compact_planes.launches = 0
     lc.expand_planes.launches = 0
+    wl.worklist_intersect_kernel.launches = 0
+
+
+def _read_counts() -> dict:
+    return {
+        "dense_intersect": di.dense_intersect.launches,
+        "lane_compact": lc.compact_planes.launches,
+        "lane_expand": lc.expand_planes.launches,
+        "worklist_intersect": wl.worklist_intersect_kernel.launches,
+    }
+
+
+def main_path(renderer, scene, dev) -> tuple[dict, dict]:
+    """512 x 512, 8 bounces through Renderer: one batch of warm-up
+    samples, then the rest timed; the launch counters are zeroed just
+    before."""
+    params = renderer.params
+    state = make_trace_state(scene, params, device=dev)
+    _zero_counts()
     renderer.trace_samples(state)  # warm-up
     torch.cuda.synchronize()
     syncs0 = trace_wavefront.host_syncs
+    timed = params.samples - state.samples
     t0 = time.perf_counter()
     while state.samples < params.samples:
         renderer.trace_samples(state)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {
-        "dense_intersect": di.dense_intersect.launches,
-        "lane_compact": lc.compact_planes.launches,
-        "lane_expand": lc.expand_planes.launches,
-    }
+    launches = _read_counts()
     syncs = trace_wavefront.host_syncs - syncs0
     img = renderer.get_image(state)
     require(img.shape == (MAIN_RES, MAIN_RES, 4), f"image shape {img.shape}")
     require(np.isfinite(img).all(), "non-finite pixels in the main-path image")
     require(img[..., :3].mean() > 0.0, "black main-path image")
-    for name, count in launches.items():
-        require(count > 0, f"the main path never launched {name}")
     stats = dict(
         seconds=seconds,
-        mpaths_per_s=N_RAYS * TIMED_SPP / seconds / 1e6,
-        ms_per_sample=1e3 * seconds / TIMED_SPP,
-        host_syncs_per_sample=syncs / TIMED_SPP,
+        mpaths_per_s=N_RAYS * timed / seconds / 1e6,
+        ms_per_sample=1e3 * seconds / timed,
+        host_syncs_per_sample=syncs / timed,
         image_mean=float(img[..., :3].mean()),
     )
+    log(f"main path {renderer.config.n_prims} quads: {MAIN_RES}x{MAIN_RES}, "
+        f"{params.bounces} bounces, {timed} timed samples after {params.batch} "
+        f"warm: {stats['mpaths_per_s']:.3f} Mpaths/s, "
+        f"{stats['ms_per_sample']:.2f} ms/sample, "
+        f"{stats['host_syncs_per_sample']:.1f} host syncs/sample, "
+        f"image mean {stats['image_mean']:.5f}, launches {launches}")
     return stats, launches
 
 
-def agreement(dev) -> dict:
-    """128 x 128 at 4 spp: kernels on the card vs plain versions on the
-    CPU, same seed. Image mean within 1e-3 relative, >= 99% of pixels
-    within 1e-3 absolute (testing.image_close, as in the CPU tests)."""
-    scene = cornell_scene()
-    params = Params(resolution=CHECK_RES, samples=CHECK_SPP, batch=CHECK_SPP,
+def agreement(dev, scene, res, spp) -> dict:
+    """res x res at spp samples, 8 bounces: kernels on the card vs plain
+    versions on the CPU, same seed. Image mean within 1e-3 relative,
+    >= 99% of pixels within 1e-3 absolute (testing.image_close, as in the
+    CPU tests)."""
+    params = Params(resolution=res, samples=spp, batch=spp,
                     bounces=MAIN_BOUNCES, sampler="path", seed=3)
     images = []
     for device in (dev, "cpu"):
@@ -208,8 +390,9 @@ def rng_agrees(dev) -> None:
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -221,46 +404,80 @@ def main() -> int:
         f"{torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    cuda_build.build_all({"dense_intersect": di.FLAGS,
+                          "lane_compact": lc.FLAGS,
+                          "worklist_intersect": wl.FLAGS})
     di._lib()
     lc._lib()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
+    wl._lib()
+    log(f"build: {time.perf_counter() - t0:.2f} s, in parallel "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.build_seconds.items())})")
+    for name, info in cuda_build.ptxas_info.items():
+        log(f"ptxas {name}:\n{info}")
 
-    scene_table = Renderer(cornell_scene(), Params(resolution=8),
-                           device=dev).intersect.table
+    cornell = Renderer(cornell_scene(), Params(
+        resolution=MAIN_RES, samples=WARM_SPP + TIMED_SPP, batch=WARM_SPP,
+        bounces=MAIN_BOUNCES, sampler="path"), device=dev)
+    t0 = time.perf_counter()
+    spheres_scene = sphere_grid_scene()
+    spheres = Renderer(spheres_scene, Params(
+        resolution=MAIN_RES, samples=SPHERE_WARM_SPP + SPHERE_TIMED_SPP,
+        batch=SPHERE_WARM_SPP, bounces=MAIN_BOUNCES, sampler="path"),
+        device=dev)
+    log(f"sphere grid: {spheres.config.n_prims} quads, "
+        f"{spheres.intersect.tables.tab.shape[0]} clusters (padded), "
+        f"{spheres.intersect.tables.sbbox.shape[0]} superclusters, table "
+        f"{spheres.intersect.tables.tab.numel() * 4 / 1e6:.2f} MB, set-up "
+        f"{time.perf_counter() - t0:.2f} s")
     rng_agrees(dev)
     phases = {
-        "dense_intersect": phase_intersect(dev, scene_table),
+        "dense_intersect": phase_intersect(dev, cornell.intersect.table),
         "lane_compact": phase_compact(dev),
         "lane_expand": phase_expand(dev),
+        "worklist_intersect": phase_worklist(dev, spheres),
     }
     for name, p in phases.items():
+        lib = "none" if p["library_ms"] is None else f"{p['library_ms']:.4f} ms"
         log(f"phase {name}: ok, max_abs_err {p['max_abs_err']}, kernel "
-            f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms (median of {REPS})")
+            f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
+            f"{p['bound_ms']:.4f} ms ({p['bound_by']}), library call {lib}")
+    no_host_sync(spheres, dev)
+    log("worklist intersect under set_sync_debug_mode('error'): no host sync")
 
-    stats, launches = main_path(dev)
-    log(f"main path: {MAIN_RES}x{MAIN_RES}, {MAIN_BOUNCES} bounces, "
-        f"{TIMED_SPP} timed samples after {WARM_SPP} warm: "
-        f"{stats['mpaths_per_s']:.3f} Mpaths/s, {stats['ms_per_sample']:.2f} "
-        f"ms/sample, {stats['host_syncs_per_sample']:.1f} host syncs/sample, "
-        f"image mean {stats['image_mean']:.5f}, launches {launches}")
-    agree = agreement(dev)
-    log(f"agreement {CHECK_RES}x{CHECK_RES} {CHECK_SPP} spp card vs cpu: {agree}")
+    c_stats, c_launch = main_path(cornell, cornell_scene(), dev)
+    for name in ("dense_intersect", "lane_compact", "lane_expand"):
+        require(c_launch[name] > 0, f"the Cornell path never launched {name}")
+    s_stats, s_launch = main_path(spheres, spheres_scene, dev)
+    for name in ("worklist_intersect", "lane_compact", "lane_expand"):
+        require(s_launch[name] > 0, f"the sphere path never launched {name}")
+    require(s_launch["dense_intersect"] == 0,
+            "the sphere path launched the dense intersector")
+    log(f"host syncs per sample: sphere grid {s_stats['host_syncs_per_sample']:.1f}"
+        f", Cornell box {c_stats['host_syncs_per_sample']:.1f}")
 
-    sources = {
-        "dense_intersect": ("julia_raytracer_tpu_torch/csrc/dense_intersect.cu",
-                            "julia_raytracer_tpu/ops/pallas_intersect.py:82"),
-        "lane_compact": ("julia_raytracer_tpu_torch/csrc/lane_compact.cu",
-                         "julia_raytracer_tpu/ops/pallas_compact.py:105"),
-        "lane_expand": ("julia_raytracer_tpu_torch/csrc/lane_compact.cu",
-                        "julia_raytracer_tpu/ops/pallas_compact.py:174"),
-    }
-    kernels = [
-        dict(name=name, route="cuda", source=sources[name][0],
-             replaces=sources[name][1], launches=launches[name],
-             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"])
-        for name, p in phases.items()
-    ]
+    agree = agreement(dev, cornell_scene(), CHECK_RES, CHECK_SPP)
+    log(f"agreement Cornell {CHECK_RES}x{CHECK_RES} {CHECK_SPP} spp card vs "
+        f"cpu: {agree}")
+    agree = agreement(dev, sphere_grid_scene(5, SPHERE_CHECK_SEGMENTS),
+                      SPHERE_CHECK_RES, SPHERE_CHECK_SPP)
+    log(f"agreement sphere grid (5, {SPHERE_CHECK_SEGMENTS}) "
+        f"{SPHERE_CHECK_RES}x{SPHERE_CHECK_RES} {SPHERE_CHECK_SPP} spp card "
+        f"vs cpu: {agree}")
+
+    kernels = []
+    for name, p in phases.items():
+        entry = dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1],
+            launches=c_launch[name] + s_launch[name],
+            max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
+            bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+            library_ms=p["library_ms"],
+        )
+        if "primary" in p:
+            entry["primary_rays"] = p["primary"]
+        kernels.append(entry)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

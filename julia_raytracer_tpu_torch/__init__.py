@@ -9,8 +9,11 @@ CUDA kernel under `csrc/`, built with nvcc on first use
 (`ops/cuda_build.py`). Each kernel's wrapper runs its plain PyTorch
 version for CPU tensors and launches the kernel for CUDA tensors.
 
-The package imports torch and numpy, never jax. From the JAX package it
-imports only `julia_raytracer_tpu.ops.bvh`, which is numpy-only.
+The package imports torch and numpy, never jax, and nothing of the JAX
+package: what it needs of its numpy-only host code (the BVH builder, the
+cluster tables, the PLY reader and the scene loader) it keeps as its own
+copies. Entry points run on the card unless the caller passes
+device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first
 use with nvcc for Hopper (`sm_90a`) into a shared library under
 `csrc/_build/` (listed in .gitignore), keyed by a hash of the source and
-the flags, then loaded with ctypes. Nothing here runs at import time:
+the flags, then loaded with ctypes. `build_all` starts one nvcc per
+source, all at once. Nothing here runs at import time:
 the CPU tests import every module on machines without nvcc or a card.
 """
 
@@ -20,12 +21,14 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds each library took to build in this process (0.0 when reused)
 build_seconds: dict[str, float] = {}
+# ptxas's register, shared-memory and spill report of each build
+ptxas_info: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -39,32 +42,51 @@ def _nvcc() -> str:
     )
 
 
-def load(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu if its library is missing, load it once."""
-    if name in _loaded:
-        return _loaded[name]
+def _lib_path(name: str, extra_flags: tuple) -> tuple[str, tuple, str]:
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as f:
         text = f.read()
     flags = BASE_FLAGS + tuple(extra_flags)
     key = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:16]
+    return src, flags, os.path.join(BUILD_DIR, f"{name}-{key}.so")
+
+
+def build_all(specs: dict[str, tuple]) -> None:
+    """Build csrc/<name>.cu for each {name: extra nvcc flags} whose library
+    is missing, one nvcc process per source, all started together."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"{name}-{key}.so")
     t0 = time.perf_counter()
-    if not os.path.exists(lib_path):
+    running = {}
+    for name, extra in specs.items():
+        src, flags, lib_path = _lib_path(name, extra)
+        if os.path.exists(lib_path):
+            build_seconds.setdefault(name, 0.0)
+            continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *flags, "-o", tmp, src]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        running[name] = (cmd, tmp, lib_path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, lib_path, proc) in running.items():
+        out, err = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_info[name] = "\n".join(
+            line for line in (out + err).splitlines()
+            if "ptxas info" in line or "spill" in line)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src}:\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(lib_path)
-    _loaded[name] = lib
-    return lib
+            failed.append(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu if its library is missing, load it once."""
+    if name not in _loaded:
+        build_all({name: tuple(extra_flags)})
+        _loaded[name] = ctypes.CDLL(_lib_path(name, extra_flags)[2])
+    return _loaded[name]
 
 
 def check(err: int, what: str) -> None:

@@ -185,15 +185,19 @@ def dense_intersect(table, ro, rd, tmin, tmax) -> Hit:
         cuda_build.stream_handle(dev),
     )
     cuda_build.check(err, "dense_intersect")
-    dense_intersect.launches += 1
+    if n:  # the launcher launches nothing for no rays
+        dense_intersect.launches += 1
     return Hit(prim >= 0, prim, u, v, t, pos, nrm, inst)
 
 
 dense_intersect.launches = 0
 
 
+FLAGS = ("-fmad=false",)
+
+
 def _lib():
-    lib = cuda_build.load("dense_intersect", ("-fmad=false",))
+    lib = cuda_build.load("dense_intersect", FLAGS)
     fn = lib.dense_intersect_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int

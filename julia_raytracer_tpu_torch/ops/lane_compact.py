@@ -115,7 +115,8 @@ def compact_planes(vals, alive, cap: int):
         out.data_ptr(), cuda_build.stream_handle(vals.device),
     )
     cuda_build.check(err, "lane_compact")
-    compact_planes.launches += 1
+    if n:  # the launcher launches nothing for no lanes
+        compact_planes.launches += 1
     return out
 
 
@@ -145,15 +146,19 @@ def expand_planes(narrow, alive, fallback):
         cuda_build.stream_handle(narrow.device),
     )
     cuda_build.check(err, "lane_expand")
-    expand_planes.launches += 1
+    if n:  # the launcher launches nothing for no lanes
+        expand_planes.launches += 1
     return out
 
 
 expand_planes.launches = 0
 
 
+FLAGS = ()
+
+
 def _lib():
-    lib = cuda_build.load("lane_compact")
+    lib = cuda_build.load("lane_compact", FLAGS)
     if not lib.lane_compact_launch.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lane_compact_launch.argtypes = [p, p, p, i, i, i, p, p]

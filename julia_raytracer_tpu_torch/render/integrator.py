@@ -28,9 +28,14 @@ bypass MIS; volume push/pop on transmission; in-volume scattering with
 the same MIS; weight zero/non-finite break; Russian roulette after
 bounce 3.
 
-Not ported yet (NotImplementedError, see ROADMAP.md): the BVH walk for
-scenes over 112 quads, instanced and hybrid intersectors, line/point
-primitives, the wavefront sort, and the fixed-trip differentiable loop.
+Intersectors: the dense kernel (ops/dense_intersect.py) for scenes of
+<= 112 quads, the worklist cluster kernel (ops/worklist_intersect.py) for
+every larger non-instanced scene.
+
+Not ported yet (NotImplementedError, see ROADMAP.md): the BVH walk
+(`intersect_bvh`), the regroup intersector and its kernel selection,
+instanced and hybrid intersectors, line/point primitives, the wavefront
+sort, and the fixed-trip differentiable loop.
 """
 
 from __future__ import annotations
@@ -45,13 +50,14 @@ from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
 from julia_raytracer_tpu_torch.ops.geometry import F32_MAX, RAY_EPS
 from julia_raytracer_tpu_torch.ops.traversal import intersect_bruteforce
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
 from julia_raytracer_tpu_torch.render.scene_device import DeviceScene, SceneConfig
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 from julia_raytracer_tpu_torch.utils.vecmath import dot
 
 # dense-kernel cutoff: scenes with more quads go to the worklist
-# intersector, which is not ported yet
+# intersector
 BRUTEFORCE_THRESHOLD = 112
 # narrowest wavefront that takes the two-phase dispatch
 COMPACT_MIN = 16384
@@ -117,37 +123,66 @@ def curve_wrap(intersect, dscene: DeviceScene, config: SceneConfig):
     return intersect
 
 
+def _host_prims(dscene: DeviceScene, config: SceneConfig):
+    """Host copies of the sorted primitive arrays (no device readback
+    when the config carries them)."""
+    verts = config.host_prim_verts
+    inst = config.host_prim_instance
+    if verts is None:
+        verts = dscene.prim_verts.cpu().numpy()
+    if inst is None:
+        inst = dscene.prim_instance.cpu().numpy()
+    return verts, inst
+
+
 def make_intersect(dscene: DeviceScene, config: SceneConfig):
-    """Closest-hit query with the dense reference intersector
-    (ops/traversal.py intersect_bruteforce)."""
-    if not (config.root_is_leaf or config.n_prims <= BRUTEFORCE_THRESHOLD):
-        raise NotImplementedError(
-            f"{config.n_prims} quads > {BRUTEFORCE_THRESHOLD}: the BVH walk is "
-            "not ported yet (ROADMAP.md queue 1, item 10)"
+    """Closest-hit query of the plain versions, the reference the tests
+    hold the intersectors to, for a scene on the CPU: the dense reference
+    intersector (ops/traversal.py intersect_bruteforce) for <= 112 quads,
+    else the worklist intersector's plain version. (The JAX package walks
+    its BVH there, `intersect_bvh`, which is not ported; both are exact
+    closest-hit queries.) A scene on the card takes build_intersector."""
+    if dscene.prim_verts.device.type != "cpu":
+        raise ValueError(
+            "make_intersect is the plain reference for a scene on the CPU; "
+            "use build_intersector for a scene on "
+            f"{dscene.prim_verts.device}"
         )
+    if config.root_is_leaf or config.n_prims <= BRUTEFORCE_THRESHOLD:
+        def intersect(ro, rd, tmin, tmax):
+            return intersect_bruteforce(
+                dscene.prim_verts, ro, rd, tmin, tmax,
+                prim_instance=dscene.prim_instance,
+            )
+    else:
+        tables = wl.pack_tables(*_host_prims(dscene, config))
 
-    def intersect(ro, rd, tmin, tmax):
-        return intersect_bruteforce(
-            dscene.prim_verts, ro, rd, tmin, tmax,
-            prim_instance=dscene.prim_instance,
-        )
-
+        def intersect(ro, rd, tmin, tmax):
+            order, cnt = wl.precull(ro, rd, tmin, tmax, tables.sbbox)
+            return wl.worklist_intersect_plain(tables, ro, rd, tmin, tmax,
+                                               order, cnt)[0]
     return curve_wrap(intersect, dscene, config)
 
 
 def build_intersector(dscene: DeviceScene, config: SceneConfig):
-    """The scene's intersector: the dense kernel (ops/dense_intersect.py)
-    for scenes of <= 112 quads, on the device the scene lives on."""
-    if config.n_prims > BRUTEFORCE_THRESHOLD:
-        raise NotImplementedError(
-            f"{config.n_prims} quads > {BRUTEFORCE_THRESHOLD}: the worklist "
-            "intersector is not ported yet (ROADMAP.md queue 2, item 4)"
-        )
-    return curve_wrap(
-        make_dense_intersect(config.host_prim_verts, config.host_prim_instance,
-                             dscene.prim_verts.device),
-        dscene, config,
-    )
+    """The scene's intersector, on the device the scene lives on: the
+    dense kernel (ops/dense_intersect.py) for <= 112 quads (or a leaf
+    root), else the worklist cluster kernel (ops/worklist_intersect.py;
+    its plain version for CPU tensors).
+
+    The JAX package also routes every non-instanced scene of 113 to
+    150,000 quads to its worklist kernel. At >= 150,000 quads it may pick
+    its regroup kernel instead when `kernel_select` predicts a decisive
+    win; regroup is only a speed choice over the same closest hits, and
+    neither it nor `kernel_select` is ported yet (ROADMAP.md queue 2,
+    item 5), so the port takes the worklist kernel at every size."""
+    verts, inst = _host_prims(dscene, config)
+    device = dscene.prim_verts.device
+    if config.root_is_leaf or config.n_prims <= BRUTEFORCE_THRESHOLD:
+        intersect = make_dense_intersect(verts, inst, device)
+    else:
+        intersect = wl.make_worklist_intersect(verts, inst, device)
+    return curve_wrap(intersect, dscene, config)
 
 
 def _vec(mask):
@@ -165,8 +200,9 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     """Trace a batch of rays to completion.
 
     Returns (radiance [N,3], hit [N] bool, albedo [N,3], normal [N,3],
-    rng_state [N] int32). `intersect` may be a prebuilt intersector
-    (build_intersector); by default the dense reference intersector."""
+    rng_state [N] int32). `intersect` may be a prebuilt intersector; by
+    default build_intersector's, on the scene's device (the kernels for a
+    scene on the card, their plain versions for one on the CPU)."""
     if options.fixed_iterations or options.sort_rays:
         raise NotImplementedError(
             "fixed_iterations and sort_rays are not ported yet (ROADMAP.md "
@@ -175,7 +211,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     n = ro.shape[0]
     dev = ro.device
     if intersect is None:
-        intersect = make_intersect(dscene, config)
+        intersect = build_intersector(dscene, config)
     is_path = options.sampler == "path"
     counts = config.light_counts
     has_lights = counts.total > 0

@@ -23,7 +23,9 @@ from julia_raytracer_tpu_torch.ops.camera import CameraArrays, sample_camera
 from julia_raytracer_tpu_torch.render.integrator import (
     TraceOptions, build_intersector, trace_wavefront,
 )
-from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
+from julia_raytracer_tpu_torch.render.scene_device import (
+    build_device_scene, resolve_device,
+)
 from julia_raytracer_tpu_torch.scene.loader import find_camera
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 
@@ -74,7 +76,9 @@ def image_size_for(camera, resolution: int) -> tuple[int, int]:
     return int(round(resolution * camera.aspect)), resolution
 
 
-def make_trace_state(scene_data, params: Params, device="cpu") -> TraceState:
+def make_trace_state(scene_data, params: Params, device=None) -> TraceState:
+    """Zeroed accumulation buffers on `device` (None: the card)."""
+    device = resolve_device(device)
     cam_id = max(find_camera(scene_data, params.camera), 0)
     width, height = image_size_for(scene_data.cameras[cam_id], params.resolution)
     p = width * height
@@ -89,7 +93,10 @@ def make_trace_state(scene_data, params: Params, device="cpu") -> TraceState:
     )
 
 
-def camera_arrays(camera, device="cpu") -> CameraArrays:
+def camera_arrays(camera, device=None) -> CameraArrays:
+    """The camera's constants as tensors on `device` (None: the card)."""
+    device = resolve_device(device)
+
     def f32(x):
         return torch.tensor(x, dtype=torch.float32, device=device)
 
@@ -128,15 +135,16 @@ def _scrub_compose(radiance, hit, albedo_s, normal_s, rd, clamp, envhidden,
 
 
 class Renderer:
-    """Owns the device scene, the intersector and the per-sample step."""
+    """Owns the device scene, the intersector and the per-sample step.
+    `device=None` means the card; pass device="cpu" for the CPU."""
 
-    def __init__(self, scene_data, params: Params, device="cpu"):
+    def __init__(self, scene_data, params: Params, device=None):
         if params.adaptive:
             raise NotImplementedError(
                 "adaptive sampling is not ported yet (ROADMAP.md queue 1, item 9)"
             )
         self.params = params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dscene, self.config = build_device_scene(
             scene_data, highquality_bvh=params.highqualitybvh, device=self.device
         )

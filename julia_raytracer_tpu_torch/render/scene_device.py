@@ -2,10 +2,14 @@
 julia_raytracer_tpu/render/scene_device.py (the non-instanced build).
 
 Built from the host FlatScene (scene/flatten.py) + the BVH permutation
-of julia_raytracer_tpu.ops.bvh (numpy, imported as it is): primitive
-arrays are reordered to BVH leaf order once, on the host, so prim ids
-match the JAX package's. `DeviceScene` is a NamedTuple of tensors on one
-device; `SceneConfig` holds the static facts that prune the integrator.
+of the port's ops/bvh.py (a numpy copy of the JAX package's builder):
+primitive arrays are reordered to BVH leaf order once, on the host, so
+prim ids match the JAX package's. `DeviceScene` is a NamedTuple of
+tensors on one device; `SceneConfig` holds the static facts that prune
+the integrator.
+
+Entry points take `device=None`, which means the card
+(`resolve_device`); the CPU only when the caller passes `device="cpu"`.
 
 Not ported yet (NotImplementedError, see ROADMAP.md): two-level
 instancing and the hybrid instanced build, and the on-disk cache.
@@ -19,13 +23,26 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from julia_raytracer_tpu.ops.bvh import build_bvh, quad_bounds
+from julia_raytracer_tpu_torch.ops.bvh import build_bvh, quad_bounds
 from julia_raytracer_tpu_torch.render.lights import (
     DeviceLights, LightCounts, build_lights_np,
 )
 from julia_raytracer_tpu_torch.scene.flatten import (
     FLAG_HAS_COLORS, FLAG_HAS_NORMALS, FLAG_HAS_TEXCOORDS, flatten_scene,
 )
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the card when it is None. Raises RuntimeError when the
+    card is asked for (explicitly or by default) and none is present:
+    there is no silent CPU fallback; pass device="cpu" for the CPU."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the card by "
+            "default, pass device=\"cpu\" to run on the CPU"
+        )
+    return dev
 
 
 class DeviceMaterials(NamedTuple):
@@ -100,7 +117,7 @@ class SceneConfig(NamedTuple):
     has_colors: bool = True
     has_volumes: bool = True
     # host (numpy) copies of the sorted primitive arrays, from which
-    # build_intersector makes the dense kernel's prim table
+    # build_intersector makes the intersector's tables
     host_prim_verts: object = None
     host_prim_instance: object = None
     # curve/point primitive counts (the port rejects scenes with any)
@@ -159,10 +176,12 @@ def _should_instance(scene_data) -> bool:
 
 
 def build_device_scene(scene_data, highquality_bvh: bool = False,
-                       instancing: bool | None = None, device="cpu",
+                       instancing: bool | None = None, device=None,
                        ) -> tuple[DeviceScene, SceneConfig]:
-    """Host SceneData -> (DeviceScene, SceneConfig) on `device`: flattens,
-    builds the BVH, reorders primitives, assembles the light table."""
+    """Host SceneData -> (DeviceScene, SceneConfig) on `device` (None: the
+    card): flattens, builds the BVH, reorders primitives, assembles the
+    light table."""
+    device = resolve_device(device)
     if instancing is None:
         instancing = _should_instance(scene_data)
     if instancing:
@@ -233,11 +252,11 @@ def build_device_scene(scene_data, highquality_bvh: bool = False,
 _UNPORTED_CONFIG = ("inst_tables", "hyb_world_verts", "world_bounds")
 
 
-def device_scene_from_numpy(arrays: dict, config_fields: dict, device="cpu",
+def device_scene_from_numpy(arrays: dict, config_fields: dict, device=None,
                             ) -> tuple[DeviceScene, SceneConfig]:
-    """Numpy scene arrays -> (DeviceScene, SceneConfig) on `device`: the
-    upload tail shared by build_device_scene (the JAX package's
-    `_assemble`) and the way to carry a JAX DeviceScene across.
+    """Numpy scene arrays -> (DeviceScene, SceneConfig) on `device` (None:
+    the card): the upload tail shared by build_device_scene (the JAX
+    package's `_assemble`) and the way to carry a JAX DeviceScene across.
 
     `arrays` maps each DeviceScene field to a numpy array, and `materials`,
     `textures` and `lights` to dicts of their fields: what `np.asarray` of
@@ -246,6 +265,7 @@ def device_scene_from_numpy(arrays: dict, config_fields: dict, device="cpu",
     maps SceneConfig field names to values; `light_counts` may be any
     object with LightCounts' attributes. `host_prim_verts` and
     `host_prim_instance` default to the arrays' own."""
+    device = resolve_device(device)
     for key in _UNPORTED_CONFIG:
         if config_fields.get(key) is not None:
             raise NotImplementedError(

@@ -128,8 +128,8 @@ def cornell_rays():
     """Camera rays of a 128 x 128 Cornell render (n = 16,384 lanes)."""
     scene = cornell_scene()
     params = Params(resolution=128, samples=1, bounces=6)
-    r = Renderer(scene, params)
-    st = make_trace_state(scene, params)
+    r = Renderer(scene, params, device="cpu")
+    st = make_trace_state(scene, params, device="cpu")
     n = st.width * st.height
     pix = torch.arange(n, dtype=torch.int32)
     rng = rng_mod.seed_state(pix, 0, 0)

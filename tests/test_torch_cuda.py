@@ -13,10 +13,14 @@ import torch
 
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
-from julia_raytracer_tpu_torch.testing import cornell_scene, image_close
+from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
+from julia_raytracer_tpu_torch.testing import (
+    check_hits, cornell_scene, image_close, sphere_grid_scene,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +84,37 @@ def test_kernels_reject_bad_input(dev):
                            torch.zeros(8, device=dev))
 
 
+@pytest.mark.parametrize("sup", [2, 8, wl.WL_SUPER])
+def test_worklist_kernel_equals_plain(dev, sup):
+    """Sphere grid (1,030 quads) at n = 5,000 rays (not a multiple of
+    1024): camera rays, rays from inside the room with zero direction
+    components, finite and dead (tmax = -1) lanes. Bit-equal expected."""
+    _, cfg = build_device_scene(sphere_grid_scene(2, 16), device="cpu")
+    tables = wl.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance,
+                            sup=sup, device=dev)
+    g = np.random.default_rng(sup)
+    n = 5000
+    ro = g.uniform([-0.95, 0.02, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    ro[: n // 2] = [0.0, 1.0, 3.9]
+    rd = g.normal(size=(n, 3))
+    rd[: n // 2, 2] = -np.abs(rd[: n // 2, 2]) - 2.0
+    rd[::7, 1] = 0.0
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.where(g.random(n) < 0.1, -1.0, 3.4e38)
+    tmax[::3] = g.uniform(0.2, 3.0, len(tmax[::3]))
+    args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in
+            (ro, rd, np.full(n, 1e-4), tmax)]
+    order, cnt = wl.precull(*args, tables.sbbox)
+    got = wl.worklist_intersect_kernel(tables, *args, order, cnt)
+    want, work = wl.worklist_intersect_plain(tables, *args, order, cnt)
+    torch.cuda.synchronize()
+    check_hits(want, got)
+    assert work["pairs"] > 0 and 0.3 < float(got.hit.float().mean()) < 1.0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(wl.worklist_intersect(tables, *args).prim, got.prim)
+
+
 def test_render_on_card_matches_cpu(dev):
     scene = cornell_scene()
     params = Params(resolution=32, samples=2, batch=2, bounces=4, seed=1)
@@ -90,3 +125,20 @@ def test_render_on_card_matches_cpu(dev):
         r.trace_samples(st)
         images.append(r.get_image(st))
     image_close(*images)
+
+
+def test_sphere_render_on_card_matches_cpu(dev):
+    """The worklist kernel's path on the card against its plain version
+    on the CPU, with the default device (the card) for the card side."""
+    scene = sphere_grid_scene(2, 16)
+    params = Params(resolution=32, samples=2, batch=2, bounces=4, seed=1)
+    r = Renderer(scene, params)
+    st = make_trace_state(scene, params)
+    assert st.image.device.type == "cuda"
+    wl.worklist_intersect_kernel.launches = 0
+    r.trace_samples(st)
+    assert wl.worklist_intersect_kernel.launches > 0
+    rc = Renderer(scene, params, device="cpu")
+    stc = make_trace_state(scene, params, device="cpu")
+    rc.trace_samples(stc)
+    image_close(r.get_image(st), rc.get_image(stc))

@@ -20,7 +20,7 @@ N = 4096
 
 
 def _cornell_case():
-    _, cfg = build_device_scene(cornell_scene())
+    _, cfg = build_device_scene(cornell_scene(), device="cpu")
     g = np.random.default_rng(0)
     ro = np.empty((N, 3), np.float32)
     ro[: N // 2] = [0.0, 1.0, 3.9]  # camera rays, some leave the open front

@@ -1,8 +1,8 @@
-"""The port imports without JAX: in a fresh interpreter whose import
-system refuses `jax`, every module of julia_raytracer_tpu_torch (and
-chip_smoke.py) imports, and the only module it loads from the JAX
-package is the numpy-only julia_raytracer_tpu.ops.bvh (with its parent
-packages)."""
+"""The port stands alone: in a fresh interpreter whose import system
+refuses both `jax` and the JAX package `julia_raytracer_tpu`, every module
+of julia_raytracer_tpu_torch (and chip_smoke.py) imports, and no module of
+either name is loaded. A source scan rejects any import of the two in the
+package and in chip_smoke.py."""
 
 import os
 import subprocess
@@ -13,22 +13,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, pkgutil, sys
 
-class BlockJax:
+def blocked(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "julia_raytracer_tpu")
+
+class Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
-            raise ImportError("jax is blocked in this test")
+        if blocked(name):
+            raise ImportError(f"{name} is blocked in this test")
         return None
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
 import julia_raytracer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
-ref = sorted(m for m in sys.modules if m.split(".")[0] == "julia_raytracer_tpu")
-assert ref == ["julia_raytracer_tpu", "julia_raytracer_tpu.ops",
-               "julia_raytracer_tpu.ops.bvh"], ref
+loaded = sorted(m for m in sys.modules if blocked(m))
+assert not loaded, loaded
 print(len(names))
 """
 
@@ -40,7 +42,7 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
 
 
 def test_no_jax_import_in_port_sources():
@@ -52,7 +54,9 @@ def test_no_jax_import_in_port_sources():
         with open(path) as f:
             for line in f:
                 s = line.strip()
-                assert not s.startswith(("import jax", "from jax")), path
-                if s.startswith(("from julia_raytracer_tpu.",
-                                 "import julia_raytracer_tpu.")):
-                    assert "julia_raytracer_tpu.ops.bvh" in s, (path, s)
+                assert not s.startswith(("import jax", "from jax")), (path, s)
+                assert not s.startswith((
+                    "from julia_raytracer_tpu.", "import julia_raytracer_tpu.",
+                    "from julia_raytracer_tpu import",
+                )), (path, s)
+                assert s != "import julia_raytracer_tpu", (path, s)

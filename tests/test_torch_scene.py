@@ -1,7 +1,9 @@
 """The port's host-side scene pipeline builds the same arrays as the JAX
-package's: flatten_scene, the BVH-sorted prim arrays and build_lights_np
-on the in-code Cornell box; device_scene_from_numpy round-trips a JAX
-DeviceScene; scenes outside the slice raise NotImplementedError."""
+package's: the port's own copy of the BVH builder (same `order` and
+`nodes`), flatten_scene, the BVH-sorted prim arrays and build_lights_np
+on the in-code Cornell box and sphere grid; device_scene_from_numpy
+round-trips a JAX DeviceScene; scenes outside the slice raise
+NotImplementedError."""
 
 import dataclasses
 
@@ -9,19 +11,29 @@ import numpy as np
 import pytest
 import torch
 
+from julia_raytracer_tpu.ops import bvh as jbvh
 from julia_raytracer_tpu.render import lights as jlights
 from julia_raytracer_tpu.render.scene_device import (
     build_device_scene as jax_build_device_scene,
 )
 from julia_raytracer_tpu.scene.flatten import flatten_scene as jax_flatten
+from julia_raytracer_tpu_torch.ops import bvh as tbvh
 from julia_raytracer_tpu_torch.render import lights as tlights
 from julia_raytracer_tpu_torch.render.scene_device import (
     build_device_scene, device_scene_from_numpy,
 )
 from julia_raytracer_tpu_torch.scene.flatten import flatten_scene
 from julia_raytracer_tpu_torch.scene.types import InstanceData, ShapeData
-from julia_raytracer_tpu_torch.testing import cornell_scene
-from torch_parity import cornell_scene_jax, jax_config_fields, jax_scene_arrays
+from julia_raytracer_tpu_torch.testing import cornell_scene, sphere_grid_scene
+from torch_parity import (
+    cornell_scene_jax, jax_config_fields, jax_scene_arrays, sphere_grid_scene_jax,
+)
+
+SCENES = {
+    "cornell": (cornell_scene, cornell_scene_jax),
+    "spheres": (lambda: sphere_grid_scene(2, 16),
+                lambda: sphere_grid_scene_jax(2, 16)),
+}
 
 
 def _assert_same_dataclass(got, want, skip=()):
@@ -44,8 +56,38 @@ def test_cornell_mirror_and_flatten_equal():
     assert got.geometry.prim_verts.shape == (18, 4, 3)
 
 
+@pytest.mark.parametrize("sah", [False, True])
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_port_bvh_equals_jax_bvh(scene, sah):
+    """The port's ops/bvh.py copy gives the JAX builder's leaf order and
+    nodes, which decide prim ids and cluster membership."""
+    verts = flatten_scene(SCENES[scene][0]()).geometry.prim_verts
+    got = tbvh.build_bvh(*tbvh.quad_bounds(verts), sah=sah)
+    want = jbvh.build_bvh(*jbvh.quad_bounds(verts), sah=sah)
+    np.testing.assert_array_equal(got.order, want.order)
+    np.testing.assert_array_equal(got.nodes.view(np.int32),
+                                  want.nodes.view(np.int32))
+    assert (got.n_prims, got.root_is_leaf) == (want.n_prims, want.root_is_leaf)
+
+
+def test_sphere_grid_mirror_flatten_and_lights_equal():
+    """sphere_grid_scene and its JAX mirror flatten to the same arrays, and
+    the two light tables in BVH order are equal."""
+    flat_t = flatten_scene(sphere_grid_scene(2, 16))
+    flat_j = jax_flatten(sphere_grid_scene_jax(2, 16))
+    _assert_same_dataclass(flat_t, flat_j)
+    assert flat_t.geometry.prim_verts.shape == (4 * 16 * 16 + 6, 4, 3)
+    assert flat_t.n_instances == 4 + 4
+    tree = tbvh.build_bvh(*tbvh.quad_bounds(flat_t.geometry.prim_verts))
+    lt, ct = tlights.build_lights_np(flat_t, tree.order)
+    lj, cj = jlights.build_lights_np(flat_j, tree.order)
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    for k in lt:
+        np.testing.assert_array_equal(lt[k], lj[k], err_msg=k)
+
+
 def test_sorted_prims_and_lights_equal():
-    from julia_raytracer_tpu.ops.bvh import build_bvh, quad_bounds
+    build_bvh, quad_bounds = tbvh.build_bvh, tbvh.quad_bounds
 
     flat_t = flatten_scene(cornell_scene())
     flat_j = jax_flatten(cornell_scene_jax())
@@ -59,7 +101,7 @@ def test_sorted_prims_and_lights_equal():
     assert ct.n_instance == 1 and ct.total_inst_elems == 1
 
     dj, cfg_j = jax_build_device_scene(cornell_scene_jax())
-    dt, cfg_t = build_device_scene(cornell_scene())
+    dt, cfg_t = build_device_scene(cornell_scene(), device="cpu")
     arrays = jax_scene_arrays(dj)
     for name, value in dt._asdict().items():
         if isinstance(value, torch.Tensor):
@@ -79,7 +121,8 @@ def test_sorted_prims_and_lights_equal():
 def test_device_scene_from_numpy_round_trip():
     dj, cfg_j = jax_build_device_scene(cornell_scene_jax())
     arrays = jax_scene_arrays(dj)
-    dt, cfg_t = device_scene_from_numpy(arrays, jax_config_fields(cfg_j))
+    dt, cfg_t = device_scene_from_numpy(arrays, jax_config_fields(cfg_j),
+                                     device="cpu")
     for name, value in dt._asdict().items():
         if isinstance(value, torch.Tensor):
             np.testing.assert_array_equal(value.numpy(), arrays[name])
@@ -98,11 +141,11 @@ def test_unported_scenes_raise():
                               positions=np.zeros((2, 3), np.float32)))
     s.instances.append(InstanceData(shape=len(s.shapes) - 1, material=0))
     with pytest.raises(NotImplementedError):
-        build_device_scene(s)
+        build_device_scene(s, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_device_scene(cornell_scene(), instancing=True)
+        build_device_scene(cornell_scene(), instancing=True, device="cpu")
     arrays = jax_scene_arrays(jax_build_device_scene(cornell_scene_jax())[0])
     arrays["line_verts"] = np.zeros((1, 2, 3), np.float32)
     with pytest.raises(NotImplementedError):
         device_scene_from_numpy(arrays, jax_config_fields(
-            jax_build_device_scene(cornell_scene_jax())[1]))
+            jax_build_device_scene(cornell_scene_jax())[1]), device="cpu")

@@ -302,7 +302,8 @@ def _textured_scene():
     wall.texcoords = g.random((nv, 2), dtype=np.float32)
     wall.colors = g.uniform(0.2, 1, (nv, 4)).astype(np.float32)
     dj, cj = jax_build_device_scene(s)
-    dt, ct = device_scene_from_numpy(jax_scene_arrays(dj), jax_config_fields(cj))
+    dt, ct = device_scene_from_numpy(jax_scene_arrays(dj), jax_config_fields(cj),
+                                     device="cpu")
     return dj, cj, dt, ct
 
 

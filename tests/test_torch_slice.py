@@ -1,7 +1,11 @@
-"""The slice end to end: the port's Renderer against the JAX package's on
-the in-code Cornell box at 32 x 32, 2 samples, 4 bounces, same seed (one
-JAX compile, in a module fixture). test_torch_wavefront.py holds
-trace_wavefront to the same criterion.
+"""The slice end to end: the port's Renderer against the JAX package's at
+32 x 32, 2 samples, 4 bounces, same seed, on two in-code scenes (one JAX
+compile each, in a module fixture):
+  - the Cornell box (18 quads): the dense intersector in both packages;
+  - sphere_grid_scene(2, 16) (1,030 quads): the port's worklist cluster
+    intersector (its plain version on the CPU) against the JAX package's
+    CPU path, its BVH walk intersect_bvh.
+test_torch_wavefront.py holds trace_wavefront to the same criterion.
 
 Criterion: image mean within 1e-3 relative, and >= 99% of pixels within
 1e-3 absolute. Exact equality is not required: the two frameworks' CPU
@@ -14,27 +18,36 @@ import pytest
 import torch
 
 from julia_raytracer_tpu.render import renderer as jren
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render import renderer as tren
-from julia_raytracer_tpu_torch.testing import cornell_scene, image_close
-from torch_parity import BOUNCES, RES, cornell_scene_jax
+from julia_raytracer_tpu_torch.testing import (
+    cornell_scene, image_close, sphere_grid_scene,
+)
+from torch_parity import BOUNCES, RES, cornell_scene_jax, sphere_grid_scene_jax
 
 SPP = 2
+SCENES = {
+    "cornell": (cornell_scene, cornell_scene_jax),
+    "spheres": (lambda: sphere_grid_scene(2, 16),
+                lambda: sphere_grid_scene_jax(2, 16)),
+}
 
 
-@pytest.fixture(scope="module")
-def renders():
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def renders(request):
+    port_scene, jax_scene = SCENES[request.param]
     jp = jren.Params(resolution=RES, samples=SPP, batch=SPP, bounces=BOUNCES,
                      sampler="path", seed=5)
-    js = cornell_scene_jax()
+    js = jax_scene()
     jr = jren.Renderer(js, jp)
     jst = jren.make_trace_state(js, jp)
     jr.trace_samples(jst)
     tp = tren.Params(resolution=RES, samples=SPP, batch=SPP, bounces=BOUNCES,
                      sampler="path", seed=5)
-    ts = cornell_scene()
-    tr = tren.Renderer(ts, tp)
-    tst = tren.make_trace_state(ts, tp)
+    ts = port_scene()
+    tr = tren.Renderer(ts, tp, device="cpu")
+    tst = tren.make_trace_state(ts, tp, device="cpu")
     tr.trace_samples(tst)
     return jr, jst, tr, tst
 
@@ -51,10 +64,65 @@ def test_renderer_matches_jax(renders):
         np.testing.assert_allclose(ta[k], ja[k], atol=1e-5)
 
 
+def test_mid_size_scene_takes_the_worklist_intersector():
+    r = tren.Renderer(sphere_grid_scene(2, 16), tren.Params(resolution=8),
+                      device="cpu")
+    assert r.config.n_prims == 4 * 16 * 16 + 6
+    tables = r.intersect.tables
+    assert isinstance(tables, wl.WorklistTables) and tables.sup == wl.WL_SUPER
+    # make_intersect's plain worklist version gives the same hits
+    ro = torch.tensor([[0.0, 1.0, 3.9]] * 3)
+    rd = torch.tensor([[0.0, -0.3, -1.0], [0.3, -0.2, -1.0], [0.0, 0.0, -1.0]])
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    tmin, tmax = torch.full((3,), 1e-4), torch.full((3,), 3.4e38)
+    got = r.intersect(ro, rd, tmin, tmax)
+    plain = tint.make_intersect(r.dscene, r.config)(ro, rd, tmin, tmax)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    assert got.hit.all()
+
+
+def test_trace_wavefront_defaults_to_the_scenes_intersector(monkeypatch):
+    """Without an `intersect`, trace_wavefront builds build_intersector's,
+    which takes the kernels for a scene on the card; make_intersect, the
+    plain reference, refuses a scene that is not on the CPU."""
+    r = tren.Renderer(sphere_grid_scene(2, 8), tren.Params(resolution=8),
+                      device="cpu")
+    built, build = [], tint.build_intersector
+
+    def spy(dscene, config):
+        built.append(dscene)
+        return build(dscene, config)
+
+    monkeypatch.setattr(tint, "build_intersector", spy)
+    ro = torch.tensor([[0.0, 1.0, 3.9]] * 4)
+    rd = torch.tensor([[0.0, -0.2, -1.0]] * 4)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    tint.trace_wavefront(r.dscene, r.config, r.options, ro, rd,
+                         torch.arange(4, dtype=torch.int32))
+    assert built == [r.dscene]
+    on_meta = r.dscene._replace(prim_verts=r.dscene.prim_verts.to("meta"))
+    with pytest.raises(ValueError, match="build_intersector"):
+        tint.make_intersect(on_meta, r.config)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """device=None means the card: without one they raise, not fall back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, params = cornell_scene(), tren.Params(resolution=8)
+    for call in (lambda: tren.Renderer(scene, params),
+                 lambda: tren.make_trace_state(scene, params),
+                 lambda: tren.camera_arrays(scene.cameras[0])):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()
+    r = tren.Renderer(scene, params, device="cpu")
+    assert r.device == torch.device("cpu")
+
+
 def test_renderer_rejects_unported_options():
     with pytest.raises(NotImplementedError):
-        tren.Renderer(cornell_scene(), tren.Params(adaptive=True))
-    r = tren.Renderer(cornell_scene(), tren.Params(resolution=8))
+        tren.Renderer(cornell_scene(), tren.Params(adaptive=True), device="cpu")
+    r = tren.Renderer(cornell_scene(), tren.Params(resolution=8), device="cpu")
     ro = torch.zeros((4, 3))
     for opts in (r.options._replace(sort_rays=True),
                  r.options._replace(fixed_iterations=9)):

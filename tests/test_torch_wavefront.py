@@ -31,7 +31,8 @@ def test_trace_wavefront_matches_jax(sampler):
     """Same DeviceScene arrays (through device_scene_from_numpy), rays and
     rng into both integrators' plain loops (the JAX CPU default)."""
     dj, cj = jax_build_device_scene(cornell_scene_jax())
-    dt, ct = device_scene_from_numpy(jax_scene_arrays(dj), jax_config_fields(cj))
+    dt, ct = device_scene_from_numpy(jax_scene_arrays(dj), jax_config_fields(cj),
+                                     device="cpu")
     cam = jren.camera_arrays(cornell_scene_jax().cameras[0])
     n = RES * RES
     pix = jnp.arange(n, dtype=jnp.int32)

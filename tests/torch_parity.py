@@ -1,7 +1,7 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: the JAX
-package's SceneData mirror of the port's in-code Cornell box, and the
-JAX DeviceScene -> numpy conversion that feeds the port's
-device_scene_from_numpy."""
+package's SceneData mirrors of the port's in-code scenes (the Cornell box
+and the sphere grid), and the JAX DeviceScene -> numpy conversion that
+feeds the port's device_scene_from_numpy."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu.scene import types as jt
-from julia_raytracer_tpu_torch.testing import cornell_scene
+from julia_raytracer_tpu_torch.testing import cornell_scene, sphere_grid_scene
 
 # The suite runs several pytest-xdist workers on a few cores, beside
 # JAX's own thread pools; PyTorch's default of one intra-op thread per
@@ -26,10 +26,8 @@ def _mirror(obj, cls, **overrides):
     return cls(**fields)
 
 
-def cornell_scene_jax() -> jt.SceneData:
-    """The port's cornell_scene() as the JAX package's SceneData, field for
-    field."""
-    s = cornell_scene()
+def to_jax_scene(s) -> jt.SceneData:
+    """A port SceneData as the JAX package's SceneData, field for field."""
     return jt.SceneData(
         cameras=[_mirror(c, jt.CameraData) for c in s.cameras],
         instances=[_mirror(i, jt.InstanceData) for i in s.instances],
@@ -42,6 +40,16 @@ def cornell_scene_jax() -> jt.SceneData:
         ],
         subdivs=[_mirror(d, jt.SubdivData) for d in s.subdivs],
     )
+
+
+def cornell_scene_jax() -> jt.SceneData:
+    """The port's cornell_scene() as the JAX package's SceneData."""
+    return to_jax_scene(cornell_scene())
+
+
+def sphere_grid_scene_jax(grid: int = 5, segments: int = 64) -> jt.SceneData:
+    """The port's sphere_grid_scene() as the JAX package's SceneData."""
+    return to_jax_scene(sphere_grid_scene(grid, segments))
 
 
 def jax_scene_arrays(dscene) -> dict:
