@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on first
 use with nvcc for Hopper (`sm_90a`) into a shared library under
-`csrc/_build/` (listed in .gitignore), keyed by a hash of the source and
-the flags, then loaded with ctypes. `build_all` starts one nvcc per
+`csrc/_build/` (listed in .gitignore), keyed by a hash of the source, the
+shared headers `csrc/*.cuh` and the flags, then loaded with ctypes. `build_all` starts one nvcc per
 source, all at once. Nothing here runs at import time:
 the CPU tests import every module on machines without nvcc or a card.
 """
@@ -46,6 +46,10 @@ def _lib_path(name: str, extra_flags: tuple) -> tuple[str, tuple, str]:
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as f:
         text = f.read()
+    # the key covers the shared headers too (a source may include any)
+    for header in sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+        with open(os.path.join(CSRC, header), "rb") as f:
+            text += f.read()
     flags = BASE_FLAGS + tuple(extra_flags)
     key = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:16]
     return src, flags, os.path.join(BUILD_DIR, f"{name}-{key}.so")

@@ -9,16 +9,28 @@ host, one body per iteration, until no lane is alive; each loop test
 reads one bool or count back from the device (`trace_wavefront.host_syncs`
 counts them).
 
-Two-phase dispatch (the unsorted compaction of the JAX package, on by
-default for widths n >= 16,384 with n % 1024 == 0): the loop runs at full
-width until the survivors fit width / compact_div, then the state is
-packed by the lane compactor (ops/lane_compact.py, a CUDA kernel on the
-card) and the loop continues narrow; up to compact_levels such
-boundaries. The narrow loop's five outputs are scattered back by the
-expander. Dead lanes' outputs are final at a boundary and the compactor
-is bit-exact, so radiance, hit, albedo and normal equal the plain loop's
-bit for bit. (The returned rng differs on lanes that died before a
-boundary: the plain loop keeps advancing their streams.)
+Wavefront sort (`TraceOptions.sort_rays`; the renderer turns it on for
+scenes of >= 50,000 quads, as the JAX package does): camera rays, and
+every bounce's rays after the shading, are reordered by a 30-bit key
+(direction octant, origin morton, direction morton; dead lanes last),
+so each 1024-ray block of the intersector shares a direction octant and
+an origin neighbourhood. Lanes carry their original index and are
+unsorted at the end. Each lane's path does not depend on its position,
+so the outputs equal the unsorted loop's.
+
+Two-phase dispatch, on by default for widths n >= 16,384: the loop runs
+at full width until the survivors fit width / compact_div, then narrows,
+up to compact_levels such boundaries, and the narrow loop's outputs are
+merged back. Dead lanes' outputs are final at a boundary, so radiance,
+hit, albedo and normal equal the plain loop's bit for bit.
+  - sorted (DIV 2, 5 levels): one extra body packs the <= cap survivors
+    into the prefix, the narrow state is that prefix (a slice) and the
+    merge a contiguous update of the prefix;
+  - unsorted (DIV 4, 3 levels, n % 1024 == 0): the lane compactor
+    (ops/lane_compact.py, a CUDA kernel on the card) packs the state and
+    the expander scatters the five outputs back. (The returned rng
+    differs on lanes that died before a boundary: the plain loop keeps
+    advancing their streams.)
 
 Control flow per bounce, as in the reference integrator: miss -> env
 radiance unless (bounce == 0 and envhidden); volume transmittance;
@@ -28,14 +40,15 @@ bypass MIS; volume push/pop on transmission; in-volume scattering with
 the same MIS; weight zero/non-finite break; Russian roulette after
 bounce 3.
 
-Intersectors: the dense kernel (ops/dense_intersect.py) for scenes of
-<= 112 quads, the worklist cluster kernel (ops/worklist_intersect.py) for
-every larger non-instanced scene.
+Intersectors (build_intersector): the dense kernel
+(ops/dense_intersect.py) for scenes of <= 112 quads, the worklist cluster
+kernel (ops/worklist_intersect.py) above that, and at >= 150,000 quads
+the regroup intersector (ops/regroup_intersect.py) for bounce rays when
+utils/kernel_select.py predicts a decisive win (or when asked).
 
 Not ported yet (NotImplementedError, see ROADMAP.md): the BVH walk
-(`intersect_bvh`), the regroup intersector and its kernel selection,
-instanced and hybrid intersectors, line/point primitives, the wavefront
-sort, and the fixed-trip differentiable loop.
+(`intersect_bvh`), instanced and hybrid intersectors, line/point
+primitives, and the fixed-trip differentiable loop.
 """
 
 from __future__ import annotations
@@ -50,9 +63,11 @@ from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
 from julia_raytracer_tpu_torch.ops.geometry import F32_MAX, RAY_EPS
 from julia_raytracer_tpu_torch.ops.traversal import intersect_bruteforce
+from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
 from julia_raytracer_tpu_torch.render.scene_device import DeviceScene, SceneConfig
+from julia_raytracer_tpu_torch.utils import kernel_select
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 from julia_raytracer_tpu_torch.utils.vecmath import dot
 
@@ -61,6 +76,10 @@ from julia_raytracer_tpu_torch.utils.vecmath import dot
 BRUTEFORCE_THRESHOLD = 112
 # narrowest wavefront that takes the two-phase dispatch
 COMPACT_MIN = 16384
+# heavy scenes: at or above this many quads build_intersector may take
+# the regroup intersector for bounce rays (the JAX package's
+# JRT_REGROUP_MIN default)
+REGROUP_MIN_PRIMS = 150_000
 
 
 class TraceOptions(NamedTuple):
@@ -70,16 +89,17 @@ class TraceOptions(NamedTuple):
     bounces: int = 8
     envhidden: bool = False
     nocaustics: bool = False
-    # fixed-trip differentiable loop and wavefront sorting: not ported yet
-    # (any non-default value raises NotImplementedError)
+    # fixed-trip differentiable loop: not ported yet (a non-zero value
+    # raises NotImplementedError)
     fixed_iterations: int = 0
+    # wavefront sort of camera and bounce rays (module docstring)
     sort_rays: bool = False
     # two-phase dispatch: survivors must fit width // compact_div before a
-    # boundary; at most compact_levels boundaries (the JAX package's
-    # defaults for the unsorted tier: 4 and 3)
+    # boundary; at most compact_levels boundaries. None: the JAX package's
+    # defaults, 2 and 5 when sorting, 4 and 3 otherwise
     compact: bool = True
-    compact_div: int = 4
-    compact_levels: int = 3
+    compact_div: int | None = None
+    compact_levels: int | None = None
 
 
 class TraceVars(NamedTuple):
@@ -164,25 +184,49 @@ def make_intersect(dscene: DeviceScene, config: SceneConfig):
     return curve_wrap(intersect, dscene, config)
 
 
-def build_intersector(dscene: DeviceScene, config: SceneConfig):
-    """The scene's intersector, on the device the scene lives on: the
-    dense kernel (ops/dense_intersect.py) for <= 112 quads (or a leaf
-    root), else the worklist cluster kernel (ops/worklist_intersect.py;
-    its plain version for CPU tensors).
-
-    The JAX package also routes every non-instanced scene of 113 to
-    150,000 quads to its worklist kernel. At >= 150,000 quads it may pick
-    its regroup kernel instead when `kernel_select` predicts a decisive
-    win; regroup is only a speed choice over the same closest hits, and
-    neither it nor `kernel_select` is ported yet (ROADMAP.md queue 2,
-    item 5), so the port takes the worklist kernel at every size."""
+def build_intersector(dscene: DeviceScene, config: SceneConfig,
+                      regroup: str = "auto",
+                      regroup_min_prims: int = REGROUP_MIN_PRIMS):
+    """The scene's intersector, on the device the scene lives on (the
+    kernels for a scene on the card, their plain versions for one on the
+    CPU), routed as the JAX package routes a non-instanced scene
+    (integrator.py:471-538):
+      - <= 112 quads (or a leaf root): the dense kernel
+        (ops/dense_intersect.py);
+      - >= `regroup_min_prims` quads (150,000; was JRT_REGROUP_MIN) and
+        `regroup` (was JRT_REGROUP) "on": the regroup intersector
+        (ops/regroup_intersect.py) for bounce rays, its `.primary` (the
+        worklist kernel over the same tables) for camera rays; "auto"
+        takes it only when utils/kernel_select.py predicts a decisive win
+        (and then, below a predicted ratio of 0.25, with the lower
+        liveness gate 0.2), and prints the decision line; "off" keeps the
+        worklist kernel;
+      - otherwise the worklist cluster kernel (ops/worklist_intersect.py).
+    Regroup is only a speed choice over the same closest hits."""
+    if regroup not in ("auto", "on", "off"):
+        raise ValueError(f"regroup={regroup!r}: one of 'auto', 'on', 'off'")
     verts, inst = _host_prims(dscene, config)
     device = dscene.prim_verts.device
     if config.root_is_leaf or config.n_prims <= BRUTEFORCE_THRESHOLD:
-        intersect = make_dense_intersect(verts, inst, device)
-    else:
-        intersect = wl.make_worklist_intersect(verts, inst, device)
-    return curve_wrap(intersect, dscene, config)
+        return curve_wrap(make_dense_intersect(verts, inst, device), dscene,
+                          config)
+    if config.n_prims >= regroup_min_prims and regroup != "off":
+        livegate = None
+        if regroup == "auto":
+            sel = kernel_select.select_bounce_kernel(verts, inst, device=device)
+            print(f"bounce kernel: {sel['kernel']} (predicted "
+                  f"regroup/worklist ratio {sel['ratio']}, threshold "
+                  f"{sel['threshold']})", flush=True)
+            if sel["kernel"] == "worklist":
+                return curve_wrap(wl.make_worklist_intersect(verts, inst, device),
+                                  dscene, config)
+            if sel["ratio"] < 0.25:
+                livegate = 0.2
+        return curve_wrap(
+            rg.make_regroup_intersect(verts, inst, device, livegate=livegate),
+            dscene, config)
+    return curve_wrap(wl.make_worklist_intersect(verts, inst, device), dscene,
+                      config)
 
 
 def _vec(mask):
@@ -195,23 +239,74 @@ def _host_bool(t) -> bool:
     return bool(t)
 
 
+def _spread3(x):
+    """Spread 10 bits to every 3rd bit (morton interleave helper), int32."""
+    x = (x | (x << 16)) & 0x30000FF
+    x = (x | (x << 8)) & 0x300F00F
+    x = (x | (x << 4)) & 0x30C30C3
+    x = (x | (x << 2)) & 0x9249249
+    return x
+
+
+def _to_int32(x):
+    """float -> int32 with NaN -> 0, as XLA converts."""
+    return torch.where(torch.isnan(x), 0.0, x).to(torch.int32)
+
+
+def _morton3(pos, vmin, vmax):
+    """[N,3] world position -> 30-bit morton key (10 bits/axis), int32."""
+    scale = 1023.0 / torch.clamp(vmax - vmin, min=1e-30)
+    q = _to_int32(torch.clamp((pos - vmin) * scale, 0.0, 1023.0))
+    return (_spread3(q[..., 0]) | (_spread3(q[..., 1]) << 1)
+            | (_spread3(q[..., 2]) << 2))
+
+
+def _sort_key(ro, rd, vmin, vmax):
+    """Wavefront coherence key, int32: octant(3) | origin-morton(18) |
+    direction-morton(9), 30 bits (JAX integrator.py:566-592). The origin
+    bits keep each block's footprint compact; the direction bits turn
+    equal-origin camera blocks into image tiles."""
+    octant = (((rd[:, 0] < 0).to(torch.int32) << 2)
+              | ((rd[:, 1] < 0).to(torch.int32) << 1)
+              | (rd[:, 2] < 0).to(torch.int32))
+    om = _morton3(ro, vmin, vmax) >> 12  # top 18 bits
+    qd = _to_int32(torch.clamp(torch.abs(rd) * 7.999, 0.0, 7.0))
+    dm = (_spread3(qd[:, 0]) | (_spread3(qd[:, 1]) << 1)
+          | (_spread3(qd[:, 2]) << 2))  # 9 bits (3/axis)
+    return (octant << 27) | (om << 9) | dm
+
+
+def _take(xs, perm):
+    """x[perm] for each lane-shaped tensor of `xs`, and for each field of
+    a NamedTuple among them."""
+    return [type(x)(*(f[perm] for f in x)) if isinstance(x, tuple)
+            else x[perm] for x in xs]
+
+
 def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
-                    options: TraceOptions, ro, rd, rng_state, intersect=None):
+                    options: TraceOptions, ro, rd, rng_state, intersect=None,
+                    intersect_primary=None):
     """Trace a batch of rays to completion.
 
     Returns (radiance [N,3], hit [N] bool, albedo [N,3], normal [N,3],
     rng_state [N] int32). `intersect` may be a prebuilt intersector; by
     default build_intersector's, on the scene's device (the kernels for a
-    scene on the card, their plain versions for one on the CPU)."""
-    if options.fixed_iterations or options.sort_rays:
+    scene on the card, their plain versions for one on the CPU). Camera
+    rays go through `intersect_primary` when given (the regroup
+    intersector's `.primary`: the worklist kernel, as the JAX package
+    routes them), else through `intersect`. The light pdf is the exact
+    element sweep and traces nothing, so camera rays are the only primary
+    dispatch."""
+    if options.fixed_iterations:
         raise NotImplementedError(
-            "fixed_iterations and sort_rays are not ported yet (ROADMAP.md "
-            "queue 1, items 10 and 12)"
+            "fixed_iterations is not ported yet (ROADMAP.md queue 1, item 12)"
         )
     n = ro.shape[0]
     dev = ro.device
     if intersect is None:
         intersect = build_intersector(dscene, config)
+    intersect_primary = intersect_primary or intersect
+    do_sort = options.sort_rays
     is_path = options.sampler == "path"
     counts = config.light_counts
     has_lights = counts.total > 0
@@ -222,7 +317,16 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     def full(shape, value, dtype=torch.float32):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    h0 = intersect(ro, rd, full((n,), RAY_EPS), full((n,), F32_MAX))
+    idx0 = torch.arange(n, dtype=torch.int32, device=dev)
+    if do_sort:
+        pv = dscene.prim_verts.reshape(-1, 3)
+        scene_vmin, scene_vmax = pv.amin(dim=0), pv.amax(dim=0)
+        # camera rays arrive in scanline order: sort them too
+        perm0 = torch.argsort(_sort_key(ro, rd, scene_vmin, scene_vmax),
+                              stable=True)
+        ro, rd, rng_state, idx0 = (x[perm0] for x in (ro, rd, rng_state, idx0))
+
+    h0 = intersect_primary(ro, rd, full((n,), RAY_EPS), full((n,), F32_MAX))
     zeros3 = full((n, 3), 0.0)
     state = TraceVars(
         ro=ro, rd=rd,
@@ -239,7 +343,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         vol_density=zeros3, vol_scattering=zeros3,
         vol_aniso=full((n,), 0.0),
         has_vol=full((n,), False, torch.bool),
-        idx=torch.arange(n, dtype=torch.int32, device=dev),
+        idx=idx0,
     )
 
     def body(s: TraceVars) -> TraceVars:
@@ -432,6 +536,25 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             _vec(op_skip), s.rd, torch.where(_vec(vol), vol_incoming, incoming)
         )
 
+        # ---- wavefront sort before the traversal: lanes ordered by
+        # (liveness, octant, morton); dead lanes go to the tail
+        vol_density, vol_scattering = s.vol_density, s.vol_scattering
+        vol_aniso, has_vol, idx = s.vol_aniso, s.has_vol, s.idx
+        if do_sort:
+            key = _sort_key(new_ro, new_rd, scene_vmin, scene_vmax)
+            key = torch.where(alive, key, 0x7FFFFFFF)
+            perm = torch.argsort(key, stable=True)
+            (new_ro, new_rd, material, normal, outgoing, incoming,
+             vol_incoming, delta, surf, vol, op_skip, weight, radiance, rng,
+             bounce, opbounce, alive, hit_flag, hit_albedo, hit_normal,
+             max_roughness, vol_density, vol_scattering, vol_aniso, has_vol,
+             idx) = _take(
+                (new_ro, new_rd, material, normal, outgoing, incoming,
+                 vol_incoming, delta, surf, vol, op_skip, weight, radiance,
+                 rng, bounce, opbounce, alive, hit_flag, hit_albedo,
+                 hit_normal, max_roughness, vol_density, vol_scattering,
+                 vol_aniso, has_vol, idx), perm)
+
         # ---- ONE traversal: the next bounce's hit. Dead lanes carry
         # tmax = -1 so every test against them fails.
         tmax = torch.where(alive, F32_MAX, -1.0)
@@ -467,11 +590,11 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             if config.has_volumes:
                 # in-volume MIS
                 f_v = dispatch.eval_scattering(
-                    s.vol_scattering, s.vol_density, s.vol_aniso, outgoing,
+                    vol_scattering, vol_density, vol_aniso, outgoing,
                     vol_incoming,
                 )
                 pdf_v = dispatch.sample_scattering_pdf(
-                    s.vol_density, s.vol_aniso, outgoing, vol_incoming
+                    vol_density, vol_aniso, outgoing, vol_incoming
                 )
                 denom_v = 0.5 * pdf_v + 0.5 * lights_pdf
                 w_vol = f_v / torch.clamp(denom_v, min=1e-30)[..., None]
@@ -501,8 +624,6 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             )
 
         # ---- volume stack push/pop
-        vol_density, vol_scattering = s.vol_density, s.vol_scattering
-        vol_aniso, has_vol = s.vol_aniso, s.has_vol
         if is_path and config.has_volumes:
             transmitted = (
                 eval_ops.is_volumetric_type(material.type)
@@ -549,7 +670,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             hit_albedo=hit_albedo, hit_normal=hit_normal,
             max_roughness=max_roughness, vol_density=vol_density,
             vol_scattering=vol_scattering, vol_aniso=vol_aniso,
-            has_vol=has_vol, idx=s.idx,
+            has_vol=has_vol, idx=idx,
         )
 
     def run(s: TraceVars) -> TraceVars:
@@ -565,15 +686,52 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     def outputs(s: TraceVars):
         return [s.radiance, s.hit_flag, s.hit_albedo, s.hit_normal, s.rng]
 
-    if not (options.compact and n >= COMPACT_MIN and n % lane_compact.TILE == 0):
-        return tuple(outputs(run(state)))
+    def unsort(outs, idx):
+        if not do_sort:
+            return tuple(outs)
+        lane = idx.long()
+        res = []
+        for a in outs:
+            out = torch.empty_like(a)
+            out[lane] = a
+            res.append(out)
+        return tuple(res)
+
+    div = options.compact_div or (2 if do_sort else 4)
+    levels = options.compact_levels or (5 if do_sort else 3)
 
     def phase_cap(width):
-        c = max(4096, width // options.compact_div)
+        c = max(4096, width // div)
         return -(-c // 128) * 128
 
+    if not (options.compact and n >= COMPACT_MIN
+            and (do_sort or n % lane_compact.TILE == 0)):
+        final = run(state)
+        return unsort(outputs(final), final.idx)
+
+    if do_sort:
+        # each boundary: drain to the cap, then one more body sorts the
+        # <= cap survivors into the prefix, which is the narrow state
+        snaps, cur, width = [], state, n
+        for _ in range(levels):
+            c = phase_cap(width)
+            if c >= width:
+                break
+            s_a = body(drain(cur, c))
+            snaps.append(s_a)
+            cur, width = TraceVars(*(x[:c] for x in s_a)), c
+        final = run(cur)
+        outs, idx = outputs(final), final.idx
+        for s_a in reversed(snaps):
+            # contiguous update of the prefix the narrow loop replaced
+            full_outs = outputs(s_a)
+            c = idx.shape[0]
+            outs = [torch.cat([nar, wide[c:]]) for nar, wide in zip(outs, full_outs)]
+            idx = torch.cat([idx, s_a.idx[c:]])
+        return unsort(outs, idx)
+
     snaps, cur, width = [], state, n
-    for _ in range(options.compact_levels):
+    for _ in range(levels):
         c = phase_cap(width)
         if c >= width or width % lane_compact.TILE:
             break

@@ -21,7 +21,7 @@ import torch
 
 from julia_raytracer_tpu_torch.ops.camera import CameraArrays, sample_camera
 from julia_raytracer_tpu_torch.render.integrator import (
-    TraceOptions, build_intersector, trace_wavefront,
+    REGROUP_MIN_PRIMS, TraceOptions, build_intersector, trace_wavefront,
 )
 from julia_raytracer_tpu_torch.render.scene_device import (
     build_device_scene, resolve_device,
@@ -30,6 +30,8 @@ from julia_raytracer_tpu_torch.scene.loader import find_camera
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 
 MAX_CHUNK = 1 << 20  # rays per trace_wavefront call
+# scenes of at least this many quads sort their wavefronts by default
+SORT_MIN_PRIMS = 50_000
 
 
 @dataclass
@@ -50,6 +52,12 @@ class Params:
     batch: int = 1
     seed: int = 0
     adaptive: bool = False  # not ported yet: True raises NotImplementedError
+    # wavefront sort (was JRT_SORT): None sorts scenes of >= 50,000 quads
+    sort_rays: bool | None = None
+    # heavy-scene intersector (were JRT_REGROUP and JRT_REGROUP_MIN): see
+    # integrator.build_intersector
+    regroup: str = "auto"
+    regroup_min_prims: int = REGROUP_MIN_PRIMS
 
 
 @dataclass
@@ -151,13 +159,21 @@ class Renderer:
         cam_id = max(find_camera(scene_data, params.camera), 0)
         self.camera = scene_data.cameras[cam_id]
         self.cam_arrays = camera_arrays(self.camera, self.device)
+        # the sort pays once per-block live sets shrink (JAX
+        # renderer.py:256-265)
+        sort_rays = params.sort_rays
+        if sort_rays is None:
+            sort_rays = self.config.n_prims >= SORT_MIN_PRIMS
         self.options = TraceOptions(
             sampler=params.sampler,
             bounces=params.bounces,
             envhidden=params.envhidden,
             nocaustics=params.nocaustics,
+            sort_rays=sort_rays,
         )
-        self.intersect = build_intersector(self.dscene, self.config)
+        self.intersect = build_intersector(
+            self.dscene, self.config, regroup=params.regroup,
+            regroup_min_prims=params.regroup_min_prims)
 
     def _sample(self, state: TraceState, chunk: int, pixel0: int, sample: int):
         """Trace one sample of pixels [pixel0, pixel0 + chunk) and fold it
@@ -178,6 +194,7 @@ class Renderer:
         radiance, hit, albedo_s, normal_s, _ = trace_wavefront(
             self.dscene, self.config, self.options, ro, rd, rng,
             intersect=self.intersect,
+            intersect_primary=getattr(self.intersect, "primary", None),
         )
         img_new, alb_new, nrm_new, env_case = _scrub_compose(
             radiance, hit, albedo_s, normal_s, rd, params.clamp,

@@ -183,14 +183,15 @@ def uv_sphere(radius: float, segments: int) -> ShapeData:
     return ShapeData(quads=quads.astype(np.int32), positions=_f32(positions))
 
 
-def sphere_grid_scene(grid: int = 5, segments: int = 64) -> SceneData:
+def sphere_grid_scene(grid: int = 5, segments: int = 64,
+                      radius: float = SPHERE_RADIUS) -> SceneData:
     """The Cornell room (walls and light, no boxes) holding a grid x grid
-    array of UV spheres of radius 0.14 resting on the floor at x, z in
-    linspace(-0.72, 0.72, grid). Each sphere is its own instance of one
-    shared segments x segments mesh; materials cycle matte, glossy, metal
-    (rough reflective). grid=5, segments=64: 25 * 4,096 + 6 = 102,406
-    quads."""
-    shapes = _room() + [uv_sphere(SPHERE_RADIUS, segments)]
+    array of UV spheres of `radius` (0.14 by default) resting on the
+    floor at x, z in linspace(-0.72, 0.72, grid). Each sphere is its own
+    instance of one shared segments x segments mesh; materials cycle
+    matte, glossy, metal (rough reflective). grid=5, segments=64:
+    25 * 4,096 + 6 = 102,406 quads."""
+    shapes = _room() + [uv_sphere(radius, segments)]
     materials = [
         MaterialData(color=_f32(WHITE)),
         MaterialData(color=_f32(RED)),
@@ -207,10 +208,17 @@ def sphere_grid_scene(grid: int = 5, segments: int = 64) -> SceneData:
     for a, cx in enumerate(centers):
         for b, cz in enumerate(centers):
             frame = np.eye(4, 3, dtype=np.float32)
-            frame[3] = (cx, SPHERE_RADIUS, cz)
+            frame[3] = (cx, radius, cz)
             instances.append(InstanceData(
                 frame=frame, shape=4, material=4 + (a * grid + b) % 3))
     return SceneData(
         cameras=[_camera()], instances=instances, shapes=shapes,
         materials=materials,
     )
+
+
+def heavy_scene() -> SceneData:
+    """The heavy-scene path's scene: sphere_grid_scene(10, 124, radius=0.07),
+    100 * 15,376 + 6 = 1,537,606 quads (the corpus kitchen's scale, 1.44M).
+    100 instances of one shape, 1.5M flat: not instanced."""
+    return sphere_grid_scene(10, 124, radius=0.07)

@@ -13,6 +13,7 @@ import torch
 
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
+from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
@@ -138,6 +139,86 @@ def test_sphere_render_on_card_matches_cpu(dev):
     wl.worklist_intersect_kernel.launches = 0
     r.trace_samples(st)
     assert wl.worklist_intersect_kernel.launches > 0
+    rc = Renderer(scene, params, device="cpu")
+    stc = make_trace_state(scene, params, device="cpu")
+    rc.trace_samples(stc)
+    image_close(r.get_image(st), rc.get_image(stc))
+
+
+def _soup_tables(dev):
+    """12,000 small quads in the unit cube (2 superclusters), 7 instances."""
+    g = np.random.default_rng(11)
+    centers = g.random((12000, 3))
+    centers = centers[np.argsort((centers * 64).astype(np.int64)
+                                 @ np.array([4096, 64, 1]))]
+    e1 = g.normal(size=(12000, 3)) * 0.02
+    e2 = g.normal(size=(12000, 3)) * 0.02
+    pv = np.stack([centers, centers + e1, centers + e1 + e2, centers + e2],
+                  axis=1).astype(np.float32)
+    return wl.pack_tables(pv, np.arange(12000) % 7, device=dev)
+
+
+@pytest.mark.parametrize("divergent", [False, True])
+def test_regroup_kernels_equal_plain(dev, divergent):
+    """Each regroup kernel bit-equal to its plain version on the card, at
+    n = 5,000 rays (not a multiple of 1024) with 10% dead lanes; the whole
+    regroup intersector within check() of the worklist kernel."""
+    tables = _soup_tables(dev)
+    g = np.random.default_rng(int(divergent))
+    n = 5000
+    if divergent:
+        ro = g.random((n, 3))
+        rd = g.normal(size=(n, 3))
+    else:
+        ro = np.tile([0.5, 0.5, -1.0], (n, 1))
+        rd = g.random((n, 3)) - [0.5, 0.5, -1.5]
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.where(g.random(n) < 0.1, -1.0, 3.0e38)
+    rays = [torch.tensor(x, dtype=torch.float32, device=dev) for x in
+            (ro, rd, np.full(n, 1e-4), tmax)]
+    rays8 = torch.full((5 * 1024, 8), 0.0, device=dev)
+    rays8[:, 7] = -1.0
+    rays8[:n] = torch.cat([rays[0], rays[1], rays[2][:, None], rays[3][:, None]], 1)
+    plan = rg.count_stage(rays8, tables.sbbox)
+    n_groups = int(plan.groups_s.sum())
+    grp_super = torch.repeat_interleave(
+        torch.arange(len(plan.groups_s), dtype=torch.int32, device=dev),
+        plan.groups_s.long())
+    packed = rg.regroup_pack(plan, rays8, n_groups * 1024)
+    want = rg.regroup_pack_plain(plan, rays8, n_groups * 1024)
+    assert torch.equal(packed.view(torch.int32), want.view(torch.int32))
+    tri = rg.regroup_tritest(packed, tables, grp_super)
+    tri_want, work = rg.regroup_tritest_plain(packed, tables, grp_super)
+    assert work["passes"] > 0 and torch.equal(tri, tri_want)
+    res = rg.regroup_unpack(plan, tri)
+    assert torch.equal(res, rg.regroup_unpack_plain(plan, tri))
+    got = rg.regroup_intersect(tables, *rays)
+    check_hits(wl.worklist_intersect(tables, *rays), got)
+    # several chunks (16 tiles each, the least allowed) on 20 tiles
+    many = [torch.cat([x] * 4)[: 20 * 1024] for x in rays]
+    whole = rg.regroup_intersect(tables, *many)
+    for a, b in zip(whole, rg.regroup_intersect(tables, *many, chunk_blocks=16)):
+        assert torch.equal(a, b)
+    cpu = rg.regroup_intersect(tables._replace(
+        tab=tables.tab.cpu(), bbox=tables.bbox.cpu(), sbbox=tables.sbbox.cpu()),
+        *(x.cpu() for x in rays))
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_heavy_path_render_on_card_matches_cpu(dev):
+    """Sort + regroup (regroup="on", regroup_min_prims=0) on the card
+    against the CPU, through the three regroup kernels."""
+    scene = sphere_grid_scene(2, 16)
+    params = Params(resolution=32, samples=2, batch=2, bounces=4, seed=1,
+                    sort_rays=True, regroup="on", regroup_min_prims=0)
+    r = Renderer(scene, params)
+    st = make_trace_state(scene, params)
+    rg.regroup_pack.launches = rg.regroup_tritest.launches = 0
+    rg.regroup_unpack.launches = 0
+    r.trace_samples(st)
+    assert min(rg.regroup_pack.launches, rg.regroup_tritest.launches,
+               rg.regroup_unpack.launches) > 0
     rc = Renderer(scene, params, device="cpu")
     stc = make_trace_state(scene, params, device="cpu")
     rc.trace_samples(stc)

@@ -1,7 +1,8 @@
 """The port stands alone: in a fresh interpreter whose import system
 refuses both `jax` and the JAX package `julia_raytracer_tpu`, every module
-of julia_raytracer_tpu_torch (and chip_smoke.py) imports, and no module of
-either name is loaded. A source scan rejects any import of the two in the
+of julia_raytracer_tpu_torch (and chip_smoke.py) imports, the modules of
+every ported path among them (the heavy-scene path's regroup_intersect and
+kernel_select included), and no module of either name is loaded. A source scan rejects any import of the two in the
 package and in chip_smoke.py."""
 
 import os
@@ -31,8 +32,20 @@ for name in names:
 importlib.import_module("chip_smoke")
 loaded = sorted(m for m in sys.modules if blocked(m))
 assert not loaded, loaded
+print(" ".join(names))
 print(len(names))
 """
+
+# the modules of each ported path, the heavy-scene path's among them
+REQUIRED = {
+    "julia_raytracer_tpu_torch.ops.dense_intersect",
+    "julia_raytracer_tpu_torch.ops.lane_compact",
+    "julia_raytracer_tpu_torch.ops.worklist_intersect",
+    "julia_raytracer_tpu_torch.ops.regroup_intersect",
+    "julia_raytracer_tpu_torch.utils.kernel_select",
+    "julia_raytracer_tpu_torch.render.integrator",
+    "julia_raytracer_tpu_torch.profile_path",
+}
 
 
 def test_port_imports_without_jax():
@@ -42,7 +55,9 @@ def test_port_imports_without_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+    lines = proc.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 27
+    assert REQUIRED <= set(lines[-2].split()), REQUIRED - set(lines[-2].split())
 
 
 def test_no_jax_import_in_port_sources():

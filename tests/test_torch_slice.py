@@ -4,7 +4,11 @@ compile each, in a module fixture):
   - the Cornell box (18 quads): the dense intersector in both packages;
   - sphere_grid_scene(2, 16) (1,030 quads): the port's worklist cluster
     intersector (its plain version on the CPU) against the JAX package's
-    CPU path, its BVH walk intersect_bvh.
+    CPU path, its BVH walk intersect_bvh;
+  - the same grid on the heavy-scene path: the wavefront sort on in both
+    (JRT_SORT=1 for the JAX package), and in the port the regroup
+    intersector for bounce rays (regroup="on", regroup_min_prims=0; its
+    plain versions on the CPU) with the worklist for camera rays.
 test_torch_wavefront.py holds trace_wavefront to the same criterion.
 
 Criterion: image mean within 1e-3 relative, and >= 99% of pixels within
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from julia_raytracer_tpu.render import renderer as jren
+from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render import renderer as tren
@@ -27,28 +32,40 @@ from julia_raytracer_tpu_torch.testing import (
 from torch_parity import BOUNCES, RES, cornell_scene_jax, sphere_grid_scene_jax
 
 SPP = 2
-SCENES = {
-    "cornell": (cornell_scene, cornell_scene_jax),
+HEAVY_PATH = dict(sort_rays=True, regroup="on", regroup_min_prims=0)
+SCENES = {  # name: port scene, JAX scene, port Params fields, JAX env
+    "cornell": (cornell_scene, cornell_scene_jax, {}, {}),
     "spheres": (lambda: sphere_grid_scene(2, 16),
-                lambda: sphere_grid_scene_jax(2, 16)),
+                lambda: sphere_grid_scene_jax(2, 16), {}, {}),
+    "spheres_sorted_regroup": (lambda: sphere_grid_scene(2, 16),
+                               lambda: sphere_grid_scene_jax(2, 16),
+                               HEAVY_PATH, {"JRT_SORT": "1"}),
 }
 
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def renders(request):
-    port_scene, jax_scene = SCENES[request.param]
+    port_scene, jax_scene, port_fields, jax_env = SCENES[request.param]
     jp = jren.Params(resolution=RES, samples=SPP, batch=SPP, bounces=BOUNCES,
                      sampler="path", seed=5)
     js = jax_scene()
-    jr = jren.Renderer(js, jp)
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in jax_env.items():
+            mp.setenv(k, v)
+        jr = jren.Renderer(js, jp)
+    assert jr.options.sort_rays == bool(jax_env)
     jst = jren.make_trace_state(js, jp)
     jr.trace_samples(jst)
     tp = tren.Params(resolution=RES, samples=SPP, batch=SPP, bounces=BOUNCES,
-                     sampler="path", seed=5)
+                     sampler="path", seed=5, **port_fields)
     ts = port_scene()
     tr = tren.Renderer(ts, tp, device="cpu")
     tst = tren.make_trace_state(ts, tp, device="cpu")
+    syncs = rg.regroup_intersect.host_syncs
     tr.trace_samples(tst)
+    if port_fields:  # the bounces went through the regroup intersector
+        assert tr.options.sort_rays and hasattr(tr.intersect, "primary")
+        assert rg.regroup_intersect.host_syncs > syncs
     return jr, jst, tr, tst
 
 
@@ -122,10 +139,46 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_renderer_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         tren.Renderer(cornell_scene(), tren.Params(adaptive=True), device="cpu")
+    with pytest.raises(ValueError):
+        tren.Renderer(cornell_scene(), tren.Params(regroup="yes"), device="cpu")
     r = tren.Renderer(cornell_scene(), tren.Params(resolution=8), device="cpu")
     ro = torch.zeros((4, 3))
-    for opts in (r.options._replace(sort_rays=True),
-                 r.options._replace(fixed_iterations=9)):
-        with pytest.raises(NotImplementedError):
-            tint.trace_wavefront(r.dscene, r.config, opts, ro, ro,
-                                 torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        tint.trace_wavefront(r.dscene, r.config,
+                             r.options._replace(fixed_iterations=9), ro, ro,
+                             torch.zeros(4, dtype=torch.int32))
+
+
+def test_heavy_scene_routing(capsys, monkeypatch):
+    """regroup="on" / "off" / "auto" at or above regroup_min_prims, the
+    default 150,000 below it, and the sort's 50,000-quad default."""
+    scene = sphere_grid_scene(2, 8)
+
+    def build(**fields):
+        return tren.Renderer(scene, tren.Params(resolution=8, **fields),
+                             device="cpu")
+
+    default = build()
+    assert not default.options.sort_rays
+    assert not hasattr(default.intersect, "primary")  # worklist: 262 < 150k
+    on = build(regroup="on", regroup_min_prims=0)
+    assert on.intersect.livegate == rg.DEF_LIVEGATE
+    assert on.intersect.primary.tables is on.intersect.tables
+    off = build(regroup="off", regroup_min_prims=0)
+    assert not hasattr(off.intersect, "primary")
+    assert build(sort_rays=True).options.sort_rays
+    monkeypatch.setattr(tren, "SORT_MIN_PRIMS", 100)
+    assert build().options.sort_rays
+    # auto: the kernel_select decision, printed as the JAX package prints it
+    for ratio, kernel in ((0.1, "regroup"), (0.3, "regroup"), (0.5, "worklist")):
+        monkeypatch.setattr(
+            tint.kernel_select, "select_bounce_kernel",
+            lambda *a, ratio=ratio, kernel=kernel, **k: dict(
+                kernel=kernel, ratio=ratio, threshold=0.35))
+        auto = build(regroup_min_prims=0)
+        line = capsys.readouterr().out
+        assert line.startswith(f"bounce kernel: {kernel} (predicted "
+                               f"regroup/worklist ratio {ratio}, threshold 0.35)")
+        assert hasattr(auto.intersect, "primary") == (kernel == "regroup")
+        if kernel == "regroup":
+            assert auto.intersect.livegate == (0.2 if ratio < 0.25 else 0.45)
