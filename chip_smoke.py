@@ -8,7 +8,11 @@ its plain PyTorch version on the card at the main paths' shapes and times
 both beside the card's bound and, where one exists, a single PyTorch call
 computing the same function. It holds the whole regroup intersector against
 the worklist intersector on the heavy scene's rays and fits the H100's
-kernel-selection costs from their stage times. Then it drives the three main
+kernel-selection costs from their stage times. The work-item kernel of the
+instanced path runs on the instanced scene's sorted bounce rays and meets the
+worklist intersector over the same scene flattened; the two cluster kernels
+without a work list (reached only through their factories, as in the JAX
+package) run on the sphere grid's bounce rays. Then it drives the five main
 paths through the kernels, each with the launch counters zeroed just before
 it:
   - the 512 x 512, 8-bounce path-traced Cornell box (18 quads: the dense
@@ -19,8 +23,14 @@ it:
     sort, the worklist intersector for camera rays and the regroup
     intersector's three kernels for bounce rays), with regroup="on" and
     then again with the Renderer's default regroup="auto";
-and holds small renders of the three paths on the card against the same
-renders on the CPU.
+  - the 512 x 512, 8-bounce instanced scene (576 sphere instances over four
+    shared meshes, 7,817,478 world quads: the two-level build, the
+    work-item kernel);
+  - the 512 x 512, 8-bounce hybrid scene (1,052 instances, 26,214,406 world
+    quads: a flattened soup of 1,048,582 quads through kernel_select's
+    choice, 24 big spheres as 12,288 work items);
+and holds small renders of the paths on the card against the same renders
+on the CPU.
 
 Exits non-zero, printing no result, when no CUDA device is available or any
 phase fails. On success the last line is
@@ -30,6 +40,7 @@ phase fails. On success the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -37,18 +48,26 @@ import time
 import numpy as np
 import torch
 
+from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
 from julia_raytracer_tpu_torch.ops import cuda_build, dense_intersect as di
+from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
+from julia_raytracer_tpu_torch.ops.dense_intersect import _moller
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
-from julia_raytracer_tpu_torch.render.integrator import _sort_key, trace_wavefront
+from julia_raytracer_tpu_torch.render.integrator import (
+    _sort_key, sort_bounds, trace_wavefront,
+)
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
+from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
+from julia_raytracer_tpu_torch.scene.flatten import flatten_scene
 from julia_raytracer_tpu_torch.testing import (
-    check_hits, cornell_scene, heavy_scene, image_close, require,
-    sphere_grid_scene,
+    HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat, cornell_scene,
+    heavy_scene, hybrid_scene, image_close, instanced_scene,
+    render_instanced, require, sphere_grid_scene,
 )
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
@@ -58,6 +77,14 @@ MAIN_RES, MAIN_BOUNCES, WARM_SPP, TIMED_SPP = 512, 8, 8, 32
 SPHERE_WARM_SPP, SPHERE_TIMED_SPP = 2, 8
 HEAVY_WARM_SPP, HEAVY_TIMED_SPP = 1, 2
 HEAVY_CHECK_GRID, HEAVY_CHECK_RES, HEAVY_CHECK_SPP = 4, 64, 2
+INST_WARM_SPP, INST_TIMED_SPP = 1, 2
+INST_CHECK_RES, INST_CHECK_SPP = 64, 2
+# the share of hits whose t the work-item intersector may place beyond
+# check_vs_flat's rtol from the flattened scene's: 15 and 6 of the
+# camera's and bounce rays' hits on the H100 (PERF.md section 6), each
+# re-intersected in float64 by f64_witness
+INST_T_MISMATCH = 1e-4
+CLUSTER_REPS = 5  # the cluster kernels test every cluster a ray's box path meets
 CHECK_RES, CHECK_SPP = 128, 4
 SPHERE_CHECK_RES, SPHERE_CHECK_SPP, SPHERE_CHECK_SEGMENTS = 64, 2, 16
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
@@ -95,6 +122,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                         "julia_raytracer_tpu/ops/pallas_regroup.py:387"),
     "regroup_unpack": ("julia_raytracer_tpu_torch/csrc/regroup_intersect.cu",
                        "julia_raytracer_tpu/ops/pallas_regroup.py:274"),
+    "instanced_intersect": ("julia_raytracer_tpu_torch/csrc/instanced_intersect.cu",
+                            "julia_raytracer_tpu/ops/pallas_cluster.py:1398"),
+    "cluster_intersect": ("julia_raytracer_tpu_torch/csrc/cluster_intersect.cu",
+                          "julia_raytracer_tpu/ops/pallas_cluster.py:192"),
+    "cluster_intersect_streamed": (
+        "julia_raytracer_tpu_torch/csrc/cluster_intersect.cu",
+        "julia_raytracer_tpu/ops/pallas_cluster.py:424"),
 }
 
 
@@ -255,11 +289,11 @@ def _primary_rays(renderer, dev):
             torch.full((n,), 3.4e38, device=dev))
 
 
-def _sorted(rays, dscene):
+def _sorted(rays, renderer):
     """Rays in the order trace_wavefront sorts them: by the wavefront key
     over the scene's bounds, dead lanes (tmax < 0) last."""
-    pv = dscene.prim_verts.reshape(-1, 3)
-    key = _sort_key(rays[0], rays[1], pv.amin(dim=0), pv.amax(dim=0))
+    key = _sort_key(rays[0], rays[1],
+                    *sort_bounds(renderer.dscene, renderer.config))
     key = torch.where(rays[3] > 0, key, 0x7FFFFFFF)
     perm = torch.argsort(key, stable=True)
     return tuple(x[perm].contiguous() for x in rays)
@@ -309,7 +343,7 @@ def _worklist_case(tables, rays) -> dict:
     )
 
 
-def phase_worklist(dev, renderer) -> dict:
+def phase_worklist(dev, renderer, primary, bounce) -> dict:
     """The sphere grid (102,406 quads, 13 superclusters of 128 clusters) at
     262,144 rays, twice: the 512 x 512 camera rays, then cosine bounce rays
     from their hits (divergent, long work lists), both in pixel order.
@@ -318,10 +352,7 @@ def phase_worklist(dev, renderer) -> dict:
     on the same rays in the wavefront sort's order, as the sorted main
     path sends them."""
     tables = renderer.intersect.tables
-    primary = _primary_rays(renderer, dev)
     p = _worklist_case(tables, primary)
-    hit = wl.worklist_intersect(tables, *primary)
-    bounce = _bounce_rays(hit, primary[1], dev)
     b = _worklist_case(tables, bounce)
     for name, c in (("primary", p), ("bounce", b)):
         log(f"worklist {name}: {N_RAYS} rays, hit rate {c['hit_rate']:.4f}, "
@@ -336,7 +367,7 @@ def phase_worklist(dev, renderer) -> dict:
     require(p["hit_rate"] > 0.5, "too few primary hits on the sphere grid")
     sorted_ms = {}
     for name, rays in (("primary", primary), ("bounce", bounce)):
-        rays = _sorted(rays, renderer.dscene)
+        rays = _sorted(rays, renderer)
         order, cnt = wl.precull(*rays, tables.sbbox)
         sorted_ms[name] = median_ms(
             lambda: wl.worklist_intersect_kernel(tables, *rays, order, cnt))
@@ -353,9 +384,9 @@ def _heavy_rays(renderer, dev):
     """The heavy scene's 512 x 512 camera rays and cosine bounce rays from
     their hits (dead where the camera ray missed), each in the wavefront
     sort's order, as the sorted main path sends them."""
-    primary = _sorted(_primary_rays(renderer, dev), renderer.dscene)
+    primary = _sorted(_primary_rays(renderer, dev), renderer)
     hit = wl.worklist_intersect(renderer.intersect.tables, *primary)
-    return primary, _sorted(_bounce_rays(hit, primary[1], dev), renderer.dscene)
+    return primary, _sorted(_bounce_rays(hit, primary[1], dev), renderer)
 
 
 def _rays8(rays):
@@ -496,7 +527,7 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
     for share in LIVE_SHARES:
         dead = torch.rand(N_RAYS, generator=g, device=dev) >= share
         rays = _sorted((*bounce[:3], torch.where(dead, -1.0, bounce[3])),
-                       renderer.dscene)
+                       renderer)
         rg_ms = median_ms(lambda: rg.regroup_intersect(tables, *rays,
                                                        livegate=0.0), 5)
         wl_ms = median_ms(lambda: wl.worklist_intersect(tables, *rays), 5)
@@ -553,8 +584,244 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
     return out
 
 
+def phase_cluster(dev, renderer, rays, need_pairs: int) -> dict:
+    """Rows 4 and 5 (ops/cluster_intersect.py: each 1024-ray block sweeps
+    every cluster, or every supercluster of 64 and then its clusters, each
+    ray culling against its tmax) on the sphere grid's 262,144 pixel-order
+    bounce rays: each kernel against its plain version on the card, bit for
+    bit, and within check_hits of the worklist intersector on the same rays
+    (both pack the BVH-ordered quads, so prim ids agree). The bound counts
+    the operations of what the function needs, `need_pairs`: the (ray,
+    cluster) pairs that the worklist intersector, computing the same closest
+    hits front to back against each ray's running best, tests on these
+    rays; the kernels' own cull against tmax passes more. No PyTorch call
+    computes this function (library_ms null)."""
+    cfg = renderer.config
+    tables = ci.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance, dev)
+    ref = wl.worklist_intersect(renderer.intersect.tables, *rays)
+    n = rays[0].shape[0]
+    out = {}
+    for name, kernel, plain, box_bytes in (
+            ("cluster_intersect", ci.cluster_intersect_kernel,
+             ci.cluster_intersect_plain, ci.n_clusters(tables) * 32),
+            ("cluster_intersect_streamed", ci.cluster_intersect_streamed_kernel,
+             ci.cluster_intersect_streamed_plain,
+             (tables.bbox.numel() + tables.sbbox.numel()) * 4)):
+        got = kernel(tables, *rays)
+        plain_ms, (want, work) = event_ms(lambda: plain(tables, *rays))
+        require(_bit_equal(got, want), f"{name} kernel and plain version differ")
+        err = check_hits(want, got)
+        wl_dt = check_hits(ref, got)
+        ms = median_ms(lambda: kernel(tables, *rays), CLUSTER_REPS)
+        out[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_pairs=need_pairs,
+            **work, **bound(n * (RAY_IN_BYTES + HIT_OUT_BYTES) + box_bytes
+                            + work["clusters"] * wl.ROWS * wl.TRIS * 4,
+                            need_pairs * wl.TRIS * wl.OPS_PER_TRI_TEST))
+        log(f"{name}: {n} sphere-grid bounce rays, {ci.n_clusters(tables)} "
+            f"clusters in {tables.sbbox.shape[0]} supers of {ci.SUPER}, "
+            f"bit-equal to its plain version, within check_hits of the "
+            f"worklist (max |dt| {wl_dt}), (ray, cluster) pairs culled against "
+            f"tmax {work['pairs']}, needed (the worklist's on these rays) "
+            f"{need_pairs}, clusters tested {work['clusters']}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
+            f"({out[name]['bound_by']})")
+    return out
+
+
+def f64_witness(scene, rays, lanes, t_inst, t_flat, dev) -> list[dict]:
+    """The rays at `lanes` re-intersected in float64 against every world
+    quad of `scene`, each transformed from its shape's float32 corners by
+    its instance's float32 frame in float64 (so with neither float32
+    side's rounding of the geometry or of the ray's transform), each quad
+    split as the kernels split it. Per ray: the two float32 answers, the
+    float64 closest t, which answers it agrees with (rtol 2e-4), the
+    margin min(u, v, 1 - u - v) in float64 of the triangle that comes
+    nearest to being hit at the nearer float32 answer (< 0: the ray passes
+    outside it; near 0: through an edge), that triangle's |cos| to the
+    ray, and the order of float32 rounding in its barycentrics: the ray's
+    length to it over the triangle's size (sqrt of twice its area; the
+    same in shape space, as instances only rotate, scale uniformly and
+    move), times 2^-24, over |cos|."""
+    geo = flatten_scene(scene, expand_prims=False).geometry
+    idx = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
+    ro, rd, tmin, tmax = (x[idx].double() for x in rays)
+    ti, tf = t_inst[idx].double(), t_flat[idx].double()
+    t_near = torch.minimum(ti, tf)[:, None]
+    ro3 = [ro[:, k:k + 1] for k in range(3)]
+    rd3 = [rd[:, k:k + 1] for k in range(3)]
+    best = torch.full_like(tmin, math.inf)
+    margin = torch.full_like(tmin, -math.inf)
+    cosine = torch.full_like(tmin, math.nan)
+    size = torch.full_like(tmin, math.nan)
+    off = geo.shape_prim_offset
+    for i, inst in enumerate(scene.instances):
+        corners = geo.prim_verts[off[inst.shape]:off[inst.shape + 1]]
+        if len(corners) == 0:
+            continue
+        frame = torch.as_tensor(inst.frame, dtype=torch.float64, device=dev)
+        w = (torch.as_tensor(corners, dtype=torch.float64, device=dev)
+             @ frame[:3] + frame[3])
+        p = [[w[:, c, k] for k in range(3)] for c in range(4)]
+        for a, b, c in ((p[0], p[1], p[3]), (p[2], p[3], p[1])):
+            hit, u, v, t = _moller(ro3, rd3, tmin[:, None], tmax[:, None],
+                                   a, b, c)
+            best = torch.minimum(best, torch.where(hit, t, math.inf).amin(1))
+            near = torch.isclose(t, t_near, rtol=2e-4, atol=2e-4)
+            m = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+            m, arg = torch.where(near, m, -math.inf).max(1)
+            e1 = torch.stack([b[k] - a[k] for k in range(3)], dim=1)
+            e2 = torch.stack([c[k] - a[k] for k in range(3)], dim=1)
+            n = torch.linalg.cross(e1, e2)[arg]
+            cos = ((n * rd).sum(1).abs()
+                   / (n.norm(dim=1) * rd.norm(dim=1)).clamp(min=1e-300))
+            better = m > margin
+            margin = torch.where(better, m, margin)
+            cosine = torch.where(better, cos, cosine)
+            size = torch.where(better, n.norm(dim=1).sqrt(), size)
+    rounding = (t_near[:, 0] * rd.norm(dim=1) / size * 2.0**-24
+                / cosine.clamp(min=1e-300))
+    out = []
+    for k in range(len(lanes)):
+        t64 = float(best[k])
+        agree = [name for name, t in (("instanced", ti[k]), ("flat", tf[k]))
+                 if math.isclose(float(t), t64, rel_tol=2e-4, abs_tol=2e-4)]
+        out.append(dict(lane=int(lanes[k]), t_instanced=float(ti[k]),
+                        t_flat=float(tf[k]), t_f64=t64, agrees=agree,
+                        near_margin=float(margin[k]),
+                        near_cos=float(cosine[k]),
+                        near_rounding=float(rounding[k])))
+    return out
+
+
+def phase_instanced(dev, renderer, scene) -> dict:
+    """Row 7 (ops/instanced_intersect.py) on the instanced scene's 262,144
+    bounce rays in the wavefront sort's order: the kernel against its plain
+    version on the card, bit for bit; the whole intersector (precull,
+    kernel, normalised normals) within the check_vs_flat contract of the
+    worklist intersector over the same scene flattened (7.8M quads), on
+    the camera and the bounce rays, with at most INST_T_MISMATCH of the
+    hits' t outside the tolerance; those rays re-intersected in float64
+    (f64_witness). No PyTorch call computes this function (library_ms
+    null)."""
+    tables = renderer.intersect.tables
+    primary = _sorted(_primary_rays(renderer, dev), renderer)
+    hit = renderer.intersect(*primary)
+    bounce = _sorted(_bounce_rays(hit, primary[1], dev), renderer)
+    lists = ii.precull(*bounce, tables.wi_bbox)
+    got = ii.instanced_intersect_kernel(tables, *bounce, *lists)
+    plain_ms, (want, work) = event_ms(
+        lambda: ii.instanced_intersect_plain(tables, *bounce, *lists))
+    require(_bit_equal(got, want),
+            "instanced_intersect kernel and plain version differ")
+    err = check_hits(want, got)
+    ms = median_ms(lambda: ii.instanced_intersect_kernel(tables, *bounce, *lists),
+                   CLUSTER_REPS)
+    precull_ms = median_ms(lambda: ii.precull(*bounce, tables.wi_bbox),
+                           CLUSTER_REPS)
+    n, nb = bounce[0].shape[0], lists[2].shape[0]
+    # each input read once: the rays, the block counts, the list entries the
+    # blocks walk (order, t_low, and the item's supercluster and instance),
+    # the boxes of the superclusters, the rows of the instances and the
+    # tables of the clusters they visit; each result written once
+    n_bytes = (n * (RAY_IN_BYTES + HIT_OUT_BYTES) + nb * 4
+               + work["block_items"] * 16 + work["supers"] * tables.sup * 32
+               + work["instances"] * 96 + work["clusters"] * wl.ROWS * wl.TRIS * 4)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               precull_ms=precull_ms, **work,
+               candidates=int(lists[2].sum()),
+               **bound(n_bytes, work["pairs"] * wl.TRIS * wl.OPS_PER_TRI_TEST))
+    log(f"instanced_intersect: {n} sorted bounce rays, {len(tables.wi_sup)} "
+        f"work items, candidates per block {float(lists[2].float().mean()):.1f}, "
+        f"(block, item) steps walked {work['block_items']} of "
+        f"{out['candidates']}, (ray, cluster) pairs {work['pairs']}, clusters "
+        f"{work['clusters']}, bit-equal to its plain version, kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, precull {precull_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    t0 = time.perf_counter()
+    _, flat_cfg = build_device_scene(scene, instancing=False, device="cpu")
+    flat = wl.make_worklist_intersect(flat_cfg.host_prim_verts,
+                                      flat_cfg.host_prim_instance, dev)
+    out["flat_setup_s"] = time.perf_counter() - t0
+    out["flat_quads"] = flat_cfg.n_prims
+    del flat_cfg
+    for name, rays in (("camera", primary), ("bounce", bounce)):
+        ref = flat(*rays)
+        got = ii.instanced_intersect(tables, *rays)
+        res = check_vs_flat(ref, got, max_t_mismatch=INST_T_MISMATCH)
+        res["f64"] = f64_witness(scene, rays, res["t_mismatch_lanes"], got.t,
+                                 ref.t, dev)
+        out[f"vs_flat_{name}"] = res
+        sides = [",".join(w["agrees"]) or "neither" for w in res["f64"]]
+        nearer = sum(math.isclose(min(w["t_instanced"], w["t_flat"]),
+                                  w["t_f64"], rel_tol=2e-4, abs_tol=2e-4)
+                     for w in res["f64"])
+        margins = [w["near_margin"] for w in res["f64"]]
+        cosines = [w["near_cos"] for w in res["f64"]]
+        units = [w["near_margin"] / w["near_rounding"] for w in res["f64"]]
+        log(f"instanced vs worklist over the scene flattened "
+            f"({out['flat_quads']} quads, set-up {out['flat_setup_s']:.2f} s), "
+            f"{name} rays: within check_vs_flat, t beyond rtol 2e-4 on "
+            f"{res['t_mismatch']} of {int(ref.hit.sum())} hits "
+            f"({res['t_mismatch_other_instance']} of them on another "
+            f"instance; at most {INST_T_MISMATCH:g} of the hits allowed), "
+            f"max |dt| elsewhere {res['max_dt']}, hit rate "
+            f"{float(ref.hit.float().mean()):.4f}; float64 agrees with "
+            f"{ {k: sides.count(k) for k in sorted(set(sides))} } (the nearer "
+            f"answer on {nearer}), margins at the nearer t "
+            f"{min(margins, default=0.0):.3g} to {max(margins, default=0.0):.3g}, "
+            f"|cos| there {min(cosines, default=0.0):.3g} to "
+            f"{max(cosines, default=0.0):.3g}, margins over the float32 "
+            f"rounding scale {min(units, default=0.0):.3g} to "
+            f"{max(units, default=0.0):.3g}")
+    out["flat_worklist_ms"] = median_ms(lambda: flat(*bounce), 3)
+    out["instanced_whole_ms"] = median_ms(
+        lambda: ii.instanced_intersect(tables, *bounce), 3)
+    log(f"instanced bounce rays: whole work-item intersector "
+        f"{out['instanced_whole_ms']:.4f} ms, worklist over the flattened "
+        f"scene {out['flat_worklist_ms']:.4f} ms")
+    return out
+
+
+def cull_per_sample(renderer, scene, dev) -> dict:
+    """One sample of an instanced main path with the work-item precull
+    (the plain PyTorch candidate cull) bracketed by CUDA events: its device
+    ms per sample and its calls. Events only; no host sync is added."""
+    spans = []
+    precull = ii.precull
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = precull(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    params = renderer.params
+    state = make_trace_state(scene, params, device=dev)
+    ii.precull = timed
+    try:
+        renderer.trace_samples(state)
+    finally:
+        ii.precull = precull
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in spans) / params.batch
+    return dict(cull_ms_per_sample=ms, cull_calls_per_sample=len(spans) / params.batch)
+
+
+def _instanced_counts(renderer) -> dict:
+    cfg = renderer.config
+    tb = cfg.inst_tables
+    return dict(items=len(tb.wi_sup), supers=tb.tab.shape[0],
+                n_prims=cfg.n_prims,
+                soup=0 if cfg.hyb_world_verts is None else len(cfg.hyb_world_verts))
+
+
 def no_host_sync(renderer, dev) -> None:
-    """One worklist intersect (precull + kernel) under
+    """One intersect of the renderer (precull + kernel) under
     set_sync_debug_mode("error"): it must not synchronise with the host."""
     rays = _primary_rays(renderer, dev)
     torch.cuda.synchronize()
@@ -574,6 +841,9 @@ def _zero_counts() -> None:
     rg.regroup_pack.launches = 0
     rg.regroup_tritest.launches = 0
     rg.regroup_unpack.launches = 0
+    ii.instanced_intersect_kernel.launches = 0
+    ci.cluster_intersect_kernel.launches = 0
+    ci.cluster_intersect_streamed_kernel.launches = 0
 
 
 def _read_counts() -> dict:
@@ -585,6 +855,9 @@ def _read_counts() -> dict:
         "regroup_pack": rg.regroup_pack.launches,
         "regroup_tritest": rg.regroup_tritest.launches,
         "regroup_unpack": rg.regroup_unpack.launches,
+        "instanced_intersect": ii.instanced_intersect_kernel.launches,
+        "cluster_intersect": ci.cluster_intersect_kernel.launches,
+        "cluster_intersect_streamed": ci.cluster_intersect_streamed_kernel.launches,
     }
 
 
@@ -650,6 +923,17 @@ def agreement(dev, scene, res, spp, **fields) -> dict:
     return dict(mean_rel_err=rel, frac_pixels_within_1e3=frac)
 
 
+def forced_agreement(dev, scene, res, spp, hybrid_budget) -> dict:
+    """A small scene forced through the two-level build and traced
+    (testing.render_instanced), res x res, spp samples, 8 bounces: the
+    kernels on the card vs the plain versions on the CPU, same seed, under
+    image_close."""
+    rel, frac = image_close(*(
+        render_instanced(scene, res, spp, MAIN_BOUNCES, hybrid_budget, device,
+                         seed=3) for device in (dev, "cpu")))
+    return dict(mean_rel_err=rel, frac_pixels_within_1e3=frac)
+
+
 def rng_agrees(dev) -> None:
     """The rng streams on the card equal the CPU's bit for bit (the int64
     wraparound the port's PCG relies on)."""
@@ -682,11 +966,15 @@ def main() -> int:
     cuda_build.build_all({"dense_intersect": di.FLAGS,
                           "lane_compact": lc.FLAGS,
                           "worklist_intersect": wl.FLAGS,
-                          "regroup_intersect": rg.FLAGS})
+                          "regroup_intersect": rg.FLAGS,
+                          "instanced_intersect": ii.FLAGS,
+                          "cluster_intersect": ci.FLAGS})
     di._lib()
     lc._lib()
     wl._lib()
     rg._lib()
+    ii._lib()
+    ci._lib()
     log(f"build: {time.perf_counter() - t0:.2f} s, in parallel "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.build_seconds.items())})")
     for name, info in cuda_build.ptxas_info.items():
@@ -718,13 +1006,38 @@ def main() -> int:
         f"{heavy_tables.sbbox.shape[0]} superclusters, table "
         f"{heavy_tables.tab.numel() * 4 / 1e6:.2f} MB, set-up "
         f"{time.perf_counter() - t0:.2f} s")
+    inst_scenes, inst = {}, {}
+    for name, make, counts in (("instanced", instanced_scene, INSTANCED_COUNTS),
+                               ("hybrid", hybrid_scene, HYBRID_COUNTS)):
+        t0 = time.perf_counter()
+        inst_scenes[name] = make()
+        inst[name] = Renderer(inst_scenes[name], Params(
+            resolution=MAIN_RES, samples=INST_WARM_SPP + INST_TIMED_SPP,
+            batch=INST_WARM_SPP, bounces=MAIN_BOUNCES, sampler="path"),
+            device=dev)
+        got = _instanced_counts(inst[name])
+        log(f"{name} scene: {got['items']} work items over {got['supers']} "
+            f"superclusters, {got['n_prims']} padded shape-space quads, "
+            f"flattened soup {got['soup']} quads, set-up "
+            f"{time.perf_counter() - t0:.2f} s")
+        require(got == counts, f"the {name} scene's counts {got} != {counts}")
     rng_agrees(dev)
+    sp_primary = _primary_rays(spheres, dev)
+    sp_bounce = _bounce_rays(
+        wl.worklist_intersect(spheres.intersect.tables, *sp_primary),
+        sp_primary[1], dev)
     phases = {
         "dense_intersect": phase_intersect(dev, cornell.intersect.table),
         "lane_compact": phase_compact(dev),
         "lane_expand": phase_expand(dev),
-        "worklist_intersect": phase_worklist(dev, spheres),
+        "worklist_intersect": phase_worklist(dev, spheres, sp_primary,
+                                             sp_bounce),
     }
+    phases.update(phase_cluster(dev, spheres, sp_bounce,
+                                phases["worklist_intersect"]["pairs"]))
+    del sp_primary, sp_bounce
+    phases["instanced_intersect"] = phase_instanced(
+        dev, inst["instanced"], inst_scenes["instanced"])
     heavy_primary, heavy_bounce = _heavy_rays(heavy, dev)
     rg_phases, stages = phase_regroup(dev, heavy, heavy_bounce)
     phases.update(rg_phases)
@@ -738,6 +1051,8 @@ def main() -> int:
     del stages
     no_host_sync(spheres, dev)
     log("worklist intersect under set_sync_debug_mode('error'): no host sync")
+    no_host_sync(inst["instanced"], dev)
+    log("instanced intersect under set_sync_debug_mode('error'): no host sync")
 
     c_stats, c_launch = main_path(cornell, cornell_scene(), dev)
     for name in ("dense_intersect", "lane_compact", "lane_expand"):
@@ -769,10 +1084,33 @@ def main() -> int:
     require(a_launch["dense_intersect"] == 0,
             "the heavy 'auto' path launched the dense intersector")
     del heavy
+    inst_stats, inst_launch = {}, {}
+    for name in ("instanced", "hybrid"):
+        r = inst[name]
+        require(r.options.sort_rays, f"the {name} path does not sort")
+        st, ln = main_path(r, inst_scenes[name], dev)
+        st.update(cull_per_sample(r, inst_scenes[name], dev))
+        log(f"{name} path: candidate cull {st['cull_ms_per_sample']:.2f} "
+            f"ms/sample in {st['cull_calls_per_sample']:.0f} calls, "
+            f"{st['ms_per_sample']:.2f} ms/sample in all")
+        require(ln["instanced_intersect"] > 0,
+                f"the {name} path never launched instanced_intersect")
+        require(ln["dense_intersect"] == 0,
+                f"the {name} path launched the dense intersector")
+        inst_stats[name], inst_launch[name] = st, ln
+    require(inst_launch["instanced"]["lane_compact"] == 0
+            and inst_launch["instanced"]["lane_expand"] == 0,
+            "the instanced path launched the lane kernels")
+    require(inst_launch["hybrid"]["worklist_intersect"] > 0
+            or inst_launch["hybrid"]["regroup_tritest"] > 0,
+            "the hybrid path never launched the soup's kernels")
+    del inst
     log(f"host syncs per sample: heavy {h_stats['host_syncs_per_sample']:.1f} "
         f"('auto' {a_stats['host_syncs_per_sample']:.1f}), sphere grid "
         f"{s_stats['host_syncs_per_sample']:.1f}, Cornell box "
-        f"{c_stats['host_syncs_per_sample']:.1f}")
+        f"{c_stats['host_syncs_per_sample']:.1f}, instanced "
+        f"{inst_stats['instanced']['host_syncs_per_sample']:.1f}, hybrid "
+        f"{inst_stats['hybrid']['host_syncs_per_sample']:.1f}")
 
     agree = agreement(dev, cornell_scene(), CHECK_RES, CHECK_SPP)
     log(f"agreement Cornell {CHECK_RES}x{CHECK_RES} {CHECK_SPP} spp card vs "
@@ -794,6 +1132,23 @@ def main() -> int:
         f"({HEAVY_CHECK_GRID}, {SPHERE_CHECK_SEGMENTS}) "
         f"{HEAVY_CHECK_RES}x{HEAVY_CHECK_RES} {HEAVY_CHECK_SPP} spp card vs "
         f"cpu: {agree}")
+    # a reduced instanced scene forced through the two-level build, and a
+    # mixed hybrid: a budget that flattens the room and the 64 small spheres
+    # (4,102 quads, the worklist kernel) and keeps the 4 big ones as items
+    for label, scene, budget in (
+            ("instanced_scene(4, (16, 12))", instanced_scene(4, (16, 12)), 0),
+            ("hybrid_scene(8, 8, 4, 32), hybrid_budget 5,000",
+             hybrid_scene(8, 8, 4, 32), 5000)):
+        _zero_counts()
+        agree = forced_agreement(dev, scene, INST_CHECK_RES, INST_CHECK_SPP,
+                                 budget)
+        small = _read_counts()
+        require(small["instanced_intersect"] > 0,
+                f"the small render of {label} never launched instanced_intersect")
+        require(("hybrid" not in label) or small["worklist_intersect"] > 0,
+                f"the small render of {label} never launched the soup's kernel")
+        log(f"agreement {label} {INST_CHECK_RES}x{INST_CHECK_RES} "
+            f"{INST_CHECK_SPP} spp card vs cpu: {agree}")
 
     kernels = []
     for name, p in phases.items():
@@ -801,18 +1156,24 @@ def main() -> int:
             name=name, route="cuda", source=KERNELS[name][0],
             replaces=KERNELS[name][1],
             launches=(c_launch[name] + s_launch[name] + h_launch[name]
-                      + a_launch[name]),
+                      + a_launch[name] + inst_launch["instanced"][name]
+                      + inst_launch["hybrid"][name]),
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],
         )
         for extra in ("primary", "sorted_rays_ms", "passes", "group_passes",
-                      "clusters"):
+                      "clusters", "pairs", "bound_pairs", "block_items",
+                      "precull_ms", "candidates"):
             if extra in p:
                 entry[extra] = p[extra]
         kernels.append(entry)
     log("main paths: " + json.dumps(dict(cornell=c_stats, spheres=s_stats,
-                                         heavy=h_stats, heavy_auto=a_stats)))
+                                         heavy=h_stats, heavy_auto=a_stats,
+                                         **inst_stats)))
+    log("instanced phase: " + json.dumps({
+        k: v for k, v in phases["instanced_intersect"].items()
+        if k.startswith(("flat", "vs_flat", "instanced"))}))
     log("regroup vs worklist: " + json.dumps(versus))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

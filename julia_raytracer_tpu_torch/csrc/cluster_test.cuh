@@ -1,8 +1,10 @@
 // The two tests every cluster intersector of the port shares: the slab test
 // of a ray against a cluster box (cluster_cull) and the affine
 // unit-triangle test of a ray against one triangle of a cluster table
-// (tri_test). Included by worklist_intersect.cu and regroup_intersect.cu;
-// the plain PyTorch versions are _cluster_cull and _tri_tests in
+// (tri_test), and the closest hit over one cluster's 128 triangles
+// (closest_tri). Included by worklist_intersect.cu, regroup_intersect.cu,
+// cluster_intersect.cu and instanced_intersect.cu; the plain PyTorch
+// versions are _cluster_cull, _tri_tests and _closest_tri in
 // ops/worklist_intersect.py, which repeat this arithmetic in the same
 // order (bit for bit when the kernels are built with -fmad=false).
 //
@@ -81,4 +83,32 @@ __device__ __forceinline__ bool tri_test(const Ray& r, const float* tab,
   v = opy + t * dpy;
   return (dpz != 0.0f) && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
          (u + v <= 1.0f) && (t >= r.tmin) && (t < best);
+}
+
+// Closest hit of ray r among the 128 triangles of the cluster table `tile`
+// ([16][128], in shared memory), in index order with a strict `<` against
+// the running `best`, so the first minimum wins. Returns the triangle, or
+// -1 when none is closer than best; on a hit, best, u and v take its t, u
+// and v, with u and v flipped on odd triangles (the second triangle of a
+// quad, (p3, p4, p2)).
+__device__ __forceinline__ int closest_tri(const Ray& r, const float* tile,
+                                           float& best, float& u_out,
+                                           float& v_out) {
+  int arg = -1;
+  float cu = 0.0f, cv = 0.0f;
+  for (int j = 0; j < kTris; ++j) {
+    float t, u, v;
+    if (tri_test(r, tile, j, best, t, u, v)) {
+      best = t;
+      cu = u;
+      cv = v;
+      arg = j;
+    }
+  }
+  if (arg >= 0) {
+    const bool odd = (arg & 1) != 0;
+    u_out = odd ? 1.0f - cu : cu;
+    v_out = odd ? 1.0f - cv : cv;
+  }
+  return arg;
 }

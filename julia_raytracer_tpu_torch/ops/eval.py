@@ -100,7 +100,8 @@ def eval_normal(scene, gnormal, vidx, inst, flags, u, v,
 
 
 def eval_element_tangents(scene, verts, vidx, flags):
-    """UV tangents of the element's first triangle (verts are world space)."""
+    """UV tangents of the element's first triangle, in the space of
+    `verts`."""
     tc = scene.vert_texcoords[vidx]
     tu, tv = triangle_tangents_fromuv(
         verts[..., 0, :], verts[..., 1, :], verts[..., 3, :],
@@ -109,12 +110,18 @@ def eval_element_tangents(scene, verts, vidx, flags):
     return normalize(tu), normalize(tv)
 
 
-def eval_normalmap(scene, normal, texcoord, normal_tex, verts, vidx, flags):
-    """Tangent-space normal mapping."""
+def eval_normalmap(scene, normal, texcoord, normal_tex, verts, vidx, flags,
+                   inst=None, instanced=False):
+    """Tangent-space normal mapping. In instanced mode `verts` are shape
+    space, so the tangents rotate into world by the instance frame."""
     nm = tex_ops.eval_texture(scene.textures, normal_tex, texcoord,
                               as_linear=False)
     normalmap = nm[..., :3] * 2.0 - 1.0
     tu, tv = eval_element_tangents(scene, verts, vidx, flags)
+    if instanced:
+        frame = scene.inst_frame[inst]
+        tu = transform_normal(frame, tu)
+        tv = transform_normal(frame, tv)
     f1 = orthonormalize(tu, normal)
     f2 = normalize(cross(normal, f1))
     flip_v = dot(f2, tv) < 0.0
@@ -130,19 +137,21 @@ def eval_normalmap(scene, normal, texcoord, normal_tex, verts, vidx, flags):
 def eval_shading_normal(
     scene, gnormal, verts, vidx, inst, flags, u, v, outgoing, mat_type,
     normal_tex, texcoord, with_normalmap=True, with_vertex_normals=True,
-    refractive_present=True,
+    refractive_present=True, instanced=False,
 ):
     """Full shading-normal pipeline: vertex normal, optional normal map,
     faceforward, except refractive materials keep the geometric
     orientation. The with_* flags drop stages the scene cannot exercise;
-    `verts` may be None when with_normalmap is False."""
+    `verts` may be None when with_normalmap is False. `instanced=True`:
+    `verts` are shape space (instanced scenes), so the normal-map tangents
+    rotate into world by the instance frame."""
     normal = eval_normal(
         scene, gnormal, vidx, inst, flags, u, v,
         with_vertex_normals=with_vertex_normals,
     )
     if with_normalmap:
         normal = eval_normalmap(scene, normal, texcoord, normal_tex, verts,
-                                vidx, flags)
+                                vidx, flags, inst=inst, instanced=instanced)
     forward = torch.where(dot(normal, outgoing)[..., None] >= 0.0, normal, -normal)
     if not refractive_present:
         return forward

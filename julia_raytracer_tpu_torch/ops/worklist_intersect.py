@@ -186,6 +186,22 @@ def _tri_tests(o, d, tmin, best, c):
     return hit, t, u, v
 
 
+def _closest_tri(o, d, tmin, best, c):
+    """[m] rays against their [m] cluster tables c ([m, 16, 128], or
+    [1, 16, 128] for one table): closest_tri of the .cu files ->
+    (found [m], arg [m] i64, t, u, v): the first minimum of the hits
+    closer than best, u and v flipped on odd triangles."""
+    hit, t, u, v = _tri_tests(o, d, tmin, best, c)
+    arg = torch.argmin(torch.where(hit, t, float("inf")), dim=1,
+                       keepdim=True)  # first minimum
+    found = hit.gather(1, arg)[:, 0]
+    odd = (arg[:, 0] % 2) == 1
+    u = u.gather(1, arg)[:, 0]
+    v = v.gather(1, arg)[:, 0]
+    return (found, arg[:, 0], t.gather(1, arg)[:, 0],
+            torch.where(odd, 1.0 - u, u), torch.where(odd, 1.0 - v, v))
+
+
 def _finish(tables, ro, rd, tmax, best, best_tri, bu, bv, bn, binst) -> Hit:
     prim = torch.where(best_tri >= 0, best_tri // 2, -1)
     prim = torch.where(prim >= tables.n_prims, -1, prim).to(torch.int32)
@@ -233,22 +249,17 @@ def worklist_intersect_plain(tables: WorklistTables, ro, rd, tmin, tmax,
             work["block_pairs"] += torch.unique_consecutive(
                 idx // BLOCK_RAYS).numel()
             c = tables.tab[cl[idx]]
-            hit, t, u, v = _tri_tests(ro[idx], rd[idx], tmin[idx], best[idx], c)
-            arg = torch.argmin(torch.where(hit, t, float("inf")), dim=1,
-                               keepdim=True)  # first minimum
-            found = hit.gather(1, arg)[:, 0]
+            found, arg, t, u, v = _closest_tri(ro[idx], rd[idx], tmin[idx],
+                                               best[idx], c)
             sel = idx[found]
             arg = arg[found]
-            odd = (arg[:, 0] % 2) == 1
-            u = u[found].gather(1, arg)[:, 0]
-            v = v[found].gather(1, arg)[:, 0]
-            best[sel] = t[found].gather(1, arg)[:, 0]
-            bu[sel] = torch.where(odd, 1.0 - u, u)
-            bv[sel] = torch.where(odd, 1.0 - v, v)
-            attrs = c[found].gather(2, arg[:, None, :].expand(-1, ROWS, 1))[..., 0]
+            best[sel] = t[found]
+            bu[sel] = u[found]
+            bv[sel] = v[found]
+            attrs = c[found].gather(2, arg[:, None, None].expand(-1, ROWS, 1))[..., 0]
             bn[sel] = attrs[:, 12:15]
             binst[sel] = attrs[:, 15]
-            best_tri[sel] = cl[sel] * TRIS + arg[:, 0]
+            best_tri[sel] = cl[sel] * TRIS + arg
     return _finish(tables, ro, rd, tmax, best, best_tri, bu, bv, bn, binst), work
 
 

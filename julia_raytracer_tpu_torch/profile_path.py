@@ -6,11 +6,15 @@ launches per sample and the device's idle share, on one CUDA card.
     python -m julia_raytracer_tpu_torch.profile_path --scene heavy
     python -m julia_raytracer_tpu_torch.profile_path --scene heavy --regroup on
     python -m julia_raytracer_tpu_torch.profile_path --scene spheres --sort off
+    python -m julia_raytracer_tpu_torch.profile_path --scene instanced
+    python -m julia_raytracer_tpu_torch.profile_path --scene hybrid
 
 Renders the scene at 512 x 512, 8 bounces, path sampler, through Renderer
-on the card with its default configuration (the sphere grid and the heavy
-scene sort their wavefronts; regroup="auto" chooses the heavy scene's
-bounce kernel); `--sort` and `--regroup` override those. 2 warm-up
+on the card with its default configuration (the sphere grid, the heavy
+scene and the two instanced scenes sort their wavefronts; regroup="auto"
+chooses the heavy scene's and the hybrid soup's bounce kernel; the
+instanced scene takes the two-level build, the hybrid scene the hybrid
+build); `--sort` and `--regroup` override those. 2 warm-up
 samples, then `--samples` samples timed by the host clock (ending in
 torch.cuda.synchronize()), then as many again under torch.profiler. Each
 hand-written kernel is reported apart, the regroup intersector's three
@@ -38,11 +42,13 @@ from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
 from julia_raytracer_tpu_torch.testing import (
-    cornell_scene, heavy_scene, sphere_grid_scene,
+    cornell_scene, heavy_scene, hybrid_scene, instanced_scene,
+    sphere_grid_scene,
 )
 
 SCENES = {"cornell": cornell_scene, "spheres": sphere_grid_scene,
-          "heavy": heavy_scene}
+          "heavy": heavy_scene, "instanced": instanced_scene,
+          "hybrid": hybrid_scene}
 # the hand-written kernels: substrings of their device functions' names as
 # the profiler reports them (the compactor launches a count and a pack)
 OWN_KERNELS = {
@@ -53,6 +59,7 @@ OWN_KERNELS = {
     "regroup_pack": ("::pack_kernel(",),
     "regroup_tritest": ("::tritest_kernel(",),
     "regroup_unpack": ("::unpack_kernel(",),
+    "instanced_intersect": ("::instanced_intersect_kernel(",),
 }
 
 

@@ -45,24 +45,34 @@ Intersectors (build_intersector): the dense kernel
 kernel (ops/worklist_intersect.py) above that, and at >= 150,000 quads
 the regroup intersector (ops/regroup_intersect.py) for bounce rays when
 utils/kernel_select.py predicts a decisive win (or when asked).
+Instanced scenes take the work-item kernel (ops/instanced_intersect.py)
+or, when the build flattened a world-space soup, the hybrid: the soup
+through the flat intersectors above, the remaining work items after it.
 
 Not ported yet (NotImplementedError, see ROADMAP.md): the BVH walk
-(`intersect_bvh`), instanced and hybrid intersectors, line/point
-primitives, and the fixed-trip differentiable loop.
+(`intersect_bvh`), line/point primitives, and the fixed-trip
+differentiable loop.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from julia_raytracer_tpu_torch.ops import eval as eval_ops
 from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
-from julia_raytracer_tpu_torch.ops.geometry import F32_MAX, RAY_EPS
-from julia_raytracer_tpu_torch.ops.traversal import intersect_bruteforce
+from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
+from julia_raytracer_tpu_torch.ops.geometry import (
+    F32_MAX, RAY_EPS, intersect_quad, quad_normal,
+)
+from julia_raytracer_tpu_torch.ops.instanced_intersect import (
+    make_instanced_intersect,
+)
+from julia_raytracer_tpu_torch.ops.traversal import Hit, intersect_bruteforce
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
@@ -145,7 +155,8 @@ def curve_wrap(intersect, dscene: DeviceScene, config: SceneConfig):
 
 def _host_prims(dscene: DeviceScene, config: SceneConfig):
     """Host copies of the sorted primitive arrays (no device readback
-    when the config carries them)."""
+    when the config carries them). Flat scenes only: an instanced scene's
+    prim_instance is a 1-element placeholder."""
     verts = config.host_prim_verts
     inst = config.host_prim_instance
     if verts is None:
@@ -155,19 +166,193 @@ def _host_prims(dscene: DeviceScene, config: SceneConfig):
     return verts, inst
 
 
+def make_intersect_instanced_ref(dscene: DeviceScene, config: SceneConfig):
+    """Plain reference intersector of an instanced scene (the tests'): a
+    loop over the work items' instances, each ray moved into shape space
+    and tested against every quad of the instance's shape (the reference
+    semantics of a scene BVH over instances). O(instances x quads)."""
+    tb = config.inst_tables
+    verts = dscene.prim_verts  # shape space, cluster-padded concatenation
+    rows = torch.as_tensor(tb.inst_rows, device=verts.device)
+    pp_per_sup = tb.sup * PRIMS_PER_CLUSTER
+    sup_off = np.asarray(tb.shape_sup_offset)
+    groups, seen = [], set()  # (instance, prim range of its shape)
+    for item in range(len(tb.wi_inst)):
+        i = int(tb.wi_inst[item])
+        if i in seen:
+            continue
+        seen.add(i)
+        sid = int(np.searchsorted(sup_off, int(tb.wi_sup[item]), side="right") - 1)
+        plo, phi = int(sup_off[sid]) * pp_per_sup, int(sup_off[sid + 1]) * pp_per_sup
+        if phi > plo:
+            groups.append((i, plo, phi))
+
+    def intersect(ro, rd, tmin, tmax):
+        n = ro.shape[0]
+        z = torch.zeros(n, device=ro.device)
+        best = Hit(torch.zeros(n, dtype=torch.bool, device=ro.device),
+                   torch.full((n,), -1, dtype=torch.int32, device=ro.device),
+                   z, z, tmax, ro + rd * tmax[:, None], torch.zeros_like(ro),
+                   torch.zeros(n, dtype=torch.int32, device=ro.device))
+        for i, plo, phi in groups:
+            ri = rows[i, 0:9].reshape(3, 3)
+            fw = rows[i, 12:21].reshape(3, 3)
+            so = ro @ ri + rows[i, 9:12]
+            sd = rd @ ri
+            sv = verts[plo:phi]
+            h, u, v, t = intersect_quad(
+                so[:, None], sd[:, None], tmin[:, None],
+                torch.minimum(tmax, best.t)[:, None],
+                sv[None, :, 0], sv[None, :, 1], sv[None, :, 2], sv[None, :, 3],
+            )
+            tt = torch.where(h, t, F32_MAX)
+            jbest = torch.argmin(tt, dim=1, keepdim=True)  # first minimum
+            tbest = tt.gather(1, jbest)[:, 0]
+            upd = tbest < best.t
+            pb = plo + jbest[:, 0].to(torch.int32)
+            vb = verts[pb]
+            gn = quad_normal(vb[:, 0], vb[:, 1], vb[:, 2], vb[:, 3]) @ fw
+            gl = torch.sqrt((gn * gn).sum(dim=-1, keepdim=True))
+            gn = gn / torch.where(gl > 0, gl, 1.0)
+            up3 = upd[:, None]
+            best = Hit(
+                hit=best.hit | upd,
+                prim=torch.where(upd, pb, best.prim),
+                u=torch.where(upd, u.gather(1, jbest)[:, 0], best.u),
+                v=torch.where(upd, v.gather(1, jbest)[:, 0], best.v),
+                t=torch.where(upd, tbest, best.t),
+                position=torch.where(up3, ro + rd * tbest[:, None], best.position),
+                gnormal=torch.where(up3, gn, best.gnormal),
+                instance=torch.where(upd, i, best.instance),
+            )
+        return best
+
+    return intersect
+
+
+def _check_regroup(regroup: str) -> None:
+    if regroup not in ("auto", "on", "off"):
+        raise ValueError(f"regroup={regroup!r}: one of 'auto', 'on', 'off'")
+
+
+def _flat_intersector(verts, inst, device, n_prims, leaf, regroup,
+                      regroup_min_prims, label):
+    """The intersector of a flat quad soup, routed as the JAX package
+    routes one (integrator.py:471-538, and :199-248 for a hybrid soup):
+    dense, regroup (by kernel_select under "auto", whose decision line is
+    printed with `label`) or worklist."""
+    _check_regroup(regroup)
+    if leaf or n_prims <= BRUTEFORCE_THRESHOLD:
+        return make_dense_intersect(verts, inst, device)
+    if n_prims >= regroup_min_prims and regroup != "off":
+        livegate = None
+        if regroup == "auto":
+            sel = kernel_select.select_bounce_kernel(verts, inst, device=device)
+            print(f"{label}: {sel['kernel']} (predicted "
+                  f"regroup/worklist ratio {sel['ratio']}, threshold "
+                  f"{sel['threshold']})", flush=True)
+            if sel["kernel"] == "worklist":
+                return wl.make_worklist_intersect(verts, inst, device)
+            if sel["ratio"] < 0.25:
+                livegate = 0.2
+        return rg.make_regroup_intersect(verts, inst, device, livegate=livegate)
+    return wl.make_worklist_intersect(verts, inst, device)
+
+
+# the instanced branch of the hybrid only reports hits closer than the
+# flat branch's best: its tmax is the flat t times this (float32)
+HYBRID_T_CUT = float(np.float32(1.0000002))
+
+
+def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
+                          reference: bool = False, regroup: str = "auto",
+                          regroup_min_prims: int = REGROUP_MIN_PRIMS):
+    """Hybrid instanced intersector: the flattened world-space soup
+    (config.hyb_world_verts) goes through the flat intersectors, the
+    remaining work items through the work-item intersector with the flat
+    branch's t as tmax; flat prim ids are remapped into the shared
+    shape-space eval layout (config.hyb_remap), so shading is the same
+    for both branches. `reference=True`: the plain references (the dense
+    reference intersector and make_intersect_instanced_ref, as the JAX
+    package composes off the TPU); otherwise the soup is routed by
+    `_flat_intersector` (`regroup`, `regroup_min_prims` as in
+    build_intersector) and the work items take
+    ops/instanced_intersect.py, on the scene's device. `.primary` is
+    composed from the flat part's when it has one."""
+    device = dscene.prim_verts.device
+    wpv = np.asarray(config.hyb_world_verts)
+    winst = np.asarray(config.hyb_world_inst)
+    remap = torch.as_tensor(config.hyb_remap, device=device)
+    has_items = len(config.inst_tables.wi_inst) > 0
+    if reference:
+        wpv_d = torch.as_tensor(wpv, device=device)
+        winst_d = torch.as_tensor(winst, device=device)
+
+        def flat_part(ro, rd, tmin, tmax):
+            return intersect_bruteforce(wpv_d, ro, rd, tmin, tmax,
+                                        prim_instance=winst_d)
+
+        inst_part = (make_intersect_instanced_ref(dscene, config)
+                     if has_items else None)
+    else:
+        flat_part = _flat_intersector(wpv, winst, device, len(wpv), False,
+                                      regroup, regroup_min_prims,
+                                      "hybrid flat kernel")
+        inst_part = (make_instanced_intersect(config.inst_tables, device)
+                     if has_items else None)
+
+    def compose(flat_fn):
+        def intersect(ro, rd, tmin, tmax):
+            h1 = flat_fn(ro, rd, tmin, tmax)
+            prim1 = torch.where(h1.hit, remap[h1.prim.clamp(min=0).long()], -1)
+            if inst_part is None:
+                return h1._replace(prim=prim1)
+            t_cut = torch.where(h1.hit, h1.t * HYBRID_T_CUT, tmax)
+            h2 = inst_part(ro, rd, tmin, torch.minimum(tmax, t_cut))
+            take = h2.hit
+            hit = h1.hit | take
+
+            def sel(a, b):
+                return torch.where(take if a.dim() == 1 else take[:, None], a, b)
+
+            return Hit(
+                hit=hit, prim=sel(h2.prim, prim1), u=sel(h2.u, h1.u),
+                v=sel(h2.v, h1.v),
+                t=torch.where(hit, sel(h2.t, h1.t), tmax),
+                position=sel(h2.position, h1.position),
+                gnormal=sel(h2.gnormal, h1.gnormal),
+                instance=sel(h2.instance, h1.instance),
+            )
+
+        return intersect
+
+    intersect = compose(flat_part)
+    if hasattr(flat_part, "primary"):
+        intersect.primary = compose(flat_part.primary)
+    # the soup's regroup gate, for reports (None: no regroup)
+    intersect.livegate = getattr(flat_part, "livegate", None)
+    return intersect
+
+
 def make_intersect(dscene: DeviceScene, config: SceneConfig):
     """Closest-hit query of the plain versions, the reference the tests
     hold the intersectors to, for a scene on the CPU: the dense reference
     intersector (ops/traversal.py intersect_bruteforce) for <= 112 quads,
     else the worklist intersector's plain version. (The JAX package walks
     its BVH there, `intersect_bvh`, which is not ported; both are exact
-    closest-hit queries.) A scene on the card takes build_intersector."""
+    closest-hit queries.) Instanced scenes: make_intersect_instanced_ref,
+    or the hybrid over the plain references. A scene on the card takes
+    build_intersector."""
     if dscene.prim_verts.device.type != "cpu":
         raise ValueError(
             "make_intersect is the plain reference for a scene on the CPU; "
             "use build_intersector for a scene on "
             f"{dscene.prim_verts.device}"
         )
+    if config.inst_tables is not None:
+        if config.hyb_world_verts is not None:
+            return make_intersect_hybrid(dscene, config, reference=True)
+        return make_intersect_instanced_ref(dscene, config)
     if config.root_is_leaf or config.n_prims <= BRUTEFORCE_THRESHOLD:
         def intersect(ro, rd, tmin, tmax):
             return intersect_bruteforce(
@@ -189,8 +374,10 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
                       regroup_min_prims: int = REGROUP_MIN_PRIMS):
     """The scene's intersector, on the device the scene lives on (the
     kernels for a scene on the card, their plain versions for one on the
-    CPU), routed as the JAX package routes a non-instanced scene
-    (integrator.py:471-538):
+    CPU), routed as the JAX package routes a scene (integrator.py:443-538):
+      - instanced scenes: the hybrid (make_intersect_hybrid) when the build
+        flattened a world-space soup, else the work-item intersector
+        (ops/instanced_intersect.py);
       - <= 112 quads (or a leaf root): the dense kernel
         (ops/dense_intersect.py);
       - >= `regroup_min_prims` quads (150,000; was JRT_REGROUP_MIN) and
@@ -203,30 +390,19 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
         worklist kernel;
       - otherwise the worklist cluster kernel (ops/worklist_intersect.py).
     Regroup is only a speed choice over the same closest hits."""
-    if regroup not in ("auto", "on", "off"):
-        raise ValueError(f"regroup={regroup!r}: one of 'auto', 'on', 'off'")
-    verts, inst = _host_prims(dscene, config)
+    _check_regroup(regroup)
     device = dscene.prim_verts.device
-    if config.root_is_leaf or config.n_prims <= BRUTEFORCE_THRESHOLD:
-        return curve_wrap(make_dense_intersect(verts, inst, device), dscene,
-                          config)
-    if config.n_prims >= regroup_min_prims and regroup != "off":
-        livegate = None
-        if regroup == "auto":
-            sel = kernel_select.select_bounce_kernel(verts, inst, device=device)
-            print(f"bounce kernel: {sel['kernel']} (predicted "
-                  f"regroup/worklist ratio {sel['ratio']}, threshold "
-                  f"{sel['threshold']})", flush=True)
-            if sel["kernel"] == "worklist":
-                return curve_wrap(wl.make_worklist_intersect(verts, inst, device),
-                                  dscene, config)
-            if sel["ratio"] < 0.25:
-                livegate = 0.2
-        return curve_wrap(
-            rg.make_regroup_intersect(verts, inst, device, livegate=livegate),
-            dscene, config)
-    return curve_wrap(wl.make_worklist_intersect(verts, inst, device), dscene,
-                      config)
+    if config.inst_tables is not None:
+        if config.hyb_world_verts is not None:
+            return make_intersect_hybrid(dscene, config, regroup=regroup,
+                                         regroup_min_prims=regroup_min_prims)
+        return make_instanced_intersect(config.inst_tables, device)
+    verts, inst = _host_prims(dscene, config)
+    return curve_wrap(
+        _flat_intersector(verts, inst, device, config.n_prims,
+                          config.root_is_leaf, regroup, regroup_min_prims,
+                          "bounce kernel"),
+        dscene, config)
 
 
 def _vec(mask):
@@ -276,6 +452,18 @@ def _sort_key(ro, rd, vmin, vmax):
     return (octant << 27) | (om << 9) | dm
 
 
+def sort_bounds(dscene: DeviceScene, config: SceneConfig):
+    """(lo [3], hi [3]) of the scene, the box the sort key quantises in:
+    the build's world bounds for an instanced scene (its prim arrays are
+    shape space), else those of the prims."""
+    if config.world_bounds is not None:
+        return tuple(torch.as_tensor(np.asarray(b, np.float32),
+                                     device=dscene.prim_verts.device)
+                     for b in config.world_bounds)
+    pv = dscene.prim_verts.reshape(-1, 3)
+    return pv.amin(dim=0), pv.amax(dim=0)
+
+
 def _take(xs, perm):
     """x[perm] for each lane-shaped tensor of `xs`, and for each field of
     a NamedTuple among them."""
@@ -319,8 +507,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
 
     idx0 = torch.arange(n, dtype=torch.int32, device=dev)
     if do_sort:
-        pv = dscene.prim_verts.reshape(-1, 3)
-        scene_vmin, scene_vmax = pv.amin(dim=0), pv.amax(dim=0)
+        scene_vmin, scene_vmax = sort_bounds(dscene, config)
         # camera rays arrive in scanline order: sort them too
         perm0 = torch.argsort(_sort_key(ro, rd, scene_vmin, scene_vmax),
                               stable=True)
@@ -428,6 +615,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             with_normalmap=config.has_normal_maps,
             with_vertex_normals=config.has_vertex_normals,
             refractive_present=4 in present,
+            instanced=config.inst_tables is not None,
         )
 
         max_roughness = s.max_roughness
@@ -698,7 +886,9 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         return tuple(res)
 
     div = options.compact_div or (2 if do_sort else 4)
-    levels = options.compact_levels or (5 if do_sort else 3)
+    # instanced scenes stop at 3 levels, as in the JAX package
+    levels = options.compact_levels or (
+        5 if do_sort and config.inst_tables is None else 3)
 
     def phase_cap(width):
         c = max(4096, width // div)

@@ -58,6 +58,9 @@ class Params:
     # integrator.build_intersector
     regroup: str = "auto"
     regroup_min_prims: int = REGROUP_MIN_PRIMS
+    # instanced scenes (was JRT_HYBRID_BUDGET): the most world prims the
+    # hybrid build flattens; None = scene_device.auto_hybrid_budget
+    hybrid_budget: int | None = None
 
 
 @dataclass
@@ -154,13 +157,15 @@ class Renderer:
         self.params = params
         self.device = resolve_device(device)
         self.dscene, self.config = build_device_scene(
-            scene_data, highquality_bvh=params.highqualitybvh, device=self.device
+            scene_data, highquality_bvh=params.highqualitybvh,
+            device=self.device, hybrid_budget=params.hybrid_budget,
         )
         cam_id = max(find_camera(scene_data, params.camera), 0)
         self.camera = scene_data.cameras[cam_id]
         self.cam_arrays = camera_arrays(self.camera, self.device)
         # the sort pays once per-block live sets shrink (JAX
-        # renderer.py:256-265)
+        # renderer.py:256-265); an instanced scene's n_prims is its padded
+        # shape-space count
         sort_rays = params.sort_rays
         if sort_rays is None:
             sort_rays = self.config.n_prims >= SORT_MIN_PRIMS

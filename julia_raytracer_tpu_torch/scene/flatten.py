@@ -1,14 +1,18 @@
-"""Scene -> flat world-space arrays (numpy), the non-instanced half of
+"""Scene -> flat arrays (numpy), port of
 julia_raytracer_tpu/scene/flatten.py.
 
-Every instance's primitives are expanded into one world-space quad
-soup. Triangles use the degenerate-quad convention (a, b, c, c), which
-is how the reference treats its triangle/quad duality. Vertex
-attributes stay in object space, concatenated across shapes and indexed
-by global vertex ids per primitive.
+By default every instance's primitives are expanded into one world-space
+quad soup. With `expand_prims=False` (the two-level instanced build,
+scene/instanced.py) each shape's primitives appear once, in shape space,
+concatenated in shape order with `shape_prim_offset` bounds, and
+`prim_instance` holds the owning shape id. Triangles use the
+degenerate-quad convention (a, b, c, c), which is how the reference
+treats its triangle/quad duality. Vertex attributes stay in object
+space, concatenated across shapes and indexed by global vertex ids per
+primitive.
 
 Not ported yet (they raise NotImplementedError, see ROADMAP.md):
-instanced flattening (`expand_prims=False`) and line/point primitives.
+line/point primitives.
 """
 
 from __future__ import annotations
@@ -28,7 +32,10 @@ FLAG_IS_TRIANGLE_SHAPE = 8  # true triangle mesh (affects light uv warp)
 
 @dataclass
 class FlatGeometry:
-    """Expanded world-space primitives + concatenated vertex attributes."""
+    """Expanded world-space primitives + concatenated vertex attributes.
+    In instanced mode (flatten_scene(expand_prims=False)) the prim arrays
+    hold each shape's primitives once, in shape space, and prim_instance
+    is the owning shape id."""
 
     # per expanded primitive (count Q)
     prim_verts: np.ndarray  # f32 [Q, 4, 3] world-space corners
@@ -47,6 +54,8 @@ class FlatGeometry:
     inst_shape: np.ndarray  # i32 [I]
     # per shape (count S)
     shape_vert_offset: np.ndarray  # i64 [S+1] into concatenated vertex arrays
+    # instanced mode only: per-shape prim bounds into the prim arrays
+    shape_prim_offset: np.ndarray = None  # i64 [S+1] (None when expanded)
 
 
 @dataclass
@@ -107,7 +116,7 @@ def _shape_prims(shape) -> tuple[np.ndarray, bool]:
     return np.zeros((0, 4), np.int64), False
 
 
-def flatten_scene(scene: SceneData) -> FlatScene:
+def flatten_scene(scene: SceneData, expand_prims: bool = True) -> FlatScene:
     S = len(scene.shapes)
     for inst in scene.instances:
         if 0 <= inst.shape < S:
@@ -170,7 +179,7 @@ def flatten_scene(scene: SceneData) -> FlatScene:
         inst_frame[i] = inst.frame
         inst_material[i] = inst.material
         inst_shape[i] = inst.shape
-        if inst.shape == INVALID_ID or inst.shape >= S:
+        if not expand_prims or inst.shape == INVALID_ID or inst.shape >= S:
             continue
         shape = scene.shapes[inst.shape]
         quads = shape_quads[inst.shape]
@@ -186,6 +195,22 @@ def flatten_scene(scene: SceneData) -> FlatScene:
         pin.append(np.full(len(quads), i, np.int32))
         pel.append(np.arange(len(quads), dtype=np.int32))
         pfl.append(np.full(len(quads), flags, np.int32))
+
+    shape_prim_offset = None
+    if not expand_prims:
+        # instanced mode: each shape's prims once, in shape space
+        shape_prim_offset = np.zeros(S + 1, np.int64)
+        for sid, shape in enumerate(scene.shapes):
+            quads = shape_quads[sid]
+            shape_prim_offset[sid + 1] = shape_prim_offset[sid] + len(quads)
+            if len(quads) == 0:
+                continue
+            pv.append(shape.positions[quads.reshape(-1)].reshape(-1, 4, 3)
+                      .astype(np.float32))
+            pvi.append((quads + vert_offset[sid]).astype(np.int32))
+            pin.append(np.full(len(quads), sid, np.int32))  # shape id
+            pel.append(np.arange(len(quads), dtype=np.int32))
+            pfl.append(np.full(len(quads), shape_flags(sid), np.int32))
 
     if pv:
         prim_verts = np.concatenate(pv, axis=0)
@@ -214,6 +239,7 @@ def flatten_scene(scene: SceneData) -> FlatScene:
         inst_material=inst_material,
         inst_shape=inst_shape,
         shape_vert_offset=vert_offset.astype(np.int64),
+        shape_prim_offset=shape_prim_offset,
     )
 
     M = len(scene.materials)

@@ -7,6 +7,9 @@ box of 18 matte quads, under the dense intersector's 112-quad limit as
 the corpus cornellbox is. `sphere_grid_scene()` is the mid-size path's:
 the same room holding a grid of UV spheres, 102,406 quads at the default
 size (classroom scale), which takes the worklist cluster intersector.
+`instanced_scene()` and `hybrid_scene()` are the instanced paths': shared
+sphere meshes instanced thousands of times, which take the two-level
+build (pure, and hybrid with a flattened soup).
 """
 
 from __future__ import annotations
@@ -14,11 +17,19 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
+from julia_raytracer_tpu_torch.ops.camera import sample_camera
+from julia_raytracer_tpu_torch.render.integrator import (
+    TraceOptions, build_intersector, trace_wavefront,
+)
+from julia_raytracer_tpu_torch.render.renderer import camera_arrays
+from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.types import (
     CameraData, InstanceData, MaterialData, MaterialType, SceneData,
     ShapeData,
 )
+from julia_raytracer_tpu_torch.utils import rng as rng_mod
 
 
 def require(ok, msg: str) -> None:
@@ -55,6 +66,40 @@ def check_hits(ref, got) -> float:
     return float(np.abs(t1[mm] - t2[mm]).max()) if mm.any() else 0.0
 
 
+def check_vs_flat(ref, got, max_t_mismatch: float = 0.0) -> dict:
+    """An instanced intersector against the same scene flattened, with the
+    contract of _check_vs_flat in tests/test_instanced.py (prim ids live
+    in different layouts, so they are not compared): hit masks equal, t
+    within rtol 2e-4, the instance equal on > 99.9% of hits, > 99.9% of
+    |normal . normal| > 0.999, and positions within 5e-3 where t and the
+    instance agree. `max_t_mismatch`: the share of hits whose t may fall
+    outside the tolerance (0, the JAX test's contract, unless a caller
+    has seen and explained such hits); they stay in the instance and
+    normal checks. Returns max |dt| over the hits within the tolerance,
+    the count of those outside it, and their lanes."""
+    h1, t1, h2, t2 = _np(ref.hit), _np(ref.t), _np(got.hit), _np(got.t)
+    np.testing.assert_array_equal(h1, h2)
+    close = np.isclose(t2, t1, rtol=2e-4, atol=2e-4) | ~h1
+    require((~close).sum() <= max_t_mismatch * h1.sum(),
+            f"t differs beyond rtol 2e-4 on {(~close).sum()} of {h1.sum()} hits")
+    i1, i2 = _np(ref.instance)[h1], _np(got.instance)[h1]
+    require(not h1.any() or (i1 == i2).mean() > 0.999,
+            "instance ids differ on > 0.1% of hits")
+    dots = np.abs((_np(ref.gnormal)[h1] * _np(got.gnormal)[h1]).sum(axis=1))
+    require(not h1.any() or (dots > 0.999).mean() > 0.999,
+            "normals differ on > 0.1% of hits")
+    same = h1 & close
+    same[h1] &= i1 == i2
+    np.testing.assert_allclose(_np(ref.position)[same], _np(got.position)[same],
+                               atol=5e-3)
+    ok = h1 & close
+    return dict(max_dt=float(np.abs(t1[ok] - t2[ok]).max()) if ok.any() else 0.0,
+                t_mismatch=int((~close).sum()),
+                t_mismatch_other_instance=int(
+                    (~close & h1)[h1][i1 != i2].sum()) if h1.any() else 0,
+                t_mismatch_lanes=np.flatnonzero(~close).tolist())
+
+
 def image_close(got, want) -> tuple[float, float]:
     """Render agreement: image means within 1e-3 relative and >= 99% of
     pixels within 1e-3 absolute. Exact equality is not required: two
@@ -71,6 +116,35 @@ def image_close(got, want) -> tuple[float, float]:
     require(rel <= 1e-3, f"image means differ by {rel:.3g} relative")
     require(frac >= 0.99, f"only {frac:.4f} of pixels within 1e-3")
     return rel, frac
+
+
+def render_instanced(scene, res: int, spp: int, bounces: int,
+                     hybrid_budget: int | None, device, seed: int = 0):
+    """`scene` forced through the two-level build
+    (build_device_scene(instancing=True, hybrid_budget=), as the JAX tests
+    force small scenes) and traced with build_intersector's intersector
+    through trace_wavefront: res x res camera rays, spp path-sampler
+    samples of `bounces` bounces. Returns the mean radiance [res * res, 3]
+    with non-finite samples zeroed, as the Renderer zeroes them."""
+    d, cfg = build_device_scene(scene, instancing=True, device=device,
+                                hybrid_budget=hybrid_budget)
+    intersect = build_intersector(d, cfg)
+    cam = camera_arrays(scene.cameras[0], device)
+    pix = torch.arange(res * res, dtype=torch.int32, device=device)
+    ij = torch.stack([pix % res, pix // res], dim=-1)
+    total = torch.zeros((res * res, 3), device=device)
+    for sample in range(spp):
+        rng = rng_mod.seed_state(pix, sample, seed)
+        puv, rng = rng_mod.rand2f(rng)
+        luv, rng = rng_mod.rand2f(rng)
+        ro, rd = sample_camera(cam, ij, (res, res), puv, luv, False)
+        rad = trace_wavefront(
+            d, cfg, TraceOptions(sampler="path", bounces=bounces), ro, rd,
+            rng, intersect=intersect,
+            intersect_primary=getattr(intersect, "primary", None))[0]
+        total += torch.where(torch.isfinite(rad), rad, 0.0)
+    return total / spp
+
 
 WHITE = (0.725, 0.71, 0.68)
 RED = (0.63, 0.065, 0.05)
@@ -222,3 +296,107 @@ def heavy_scene() -> SceneData:
     100 * 15,376 + 6 = 1,537,606 quads (the corpus kitchen's scale, 1.44M).
     100 instances of one shape, 1.5M flat: not instanced."""
     return sphere_grid_scene(10, 124, radius=0.07)
+
+
+def _tilted_rotation(g: np.random.Generator) -> np.ndarray:
+    """A seeded rotation by a random angle about an axis tilted at most
+    ~27 degrees from +y (Rodrigues), as a 3 x 3 row-vector matrix."""
+    phi, angle = g.uniform(0.0, 2.0 * np.pi, 2)
+    axis = np.array([0.5 * np.sin(phi), 1.0, 0.5 * np.cos(phi)])
+    kx, ky, kz = axis / np.linalg.norm(axis)
+    k = np.array([[0.0, -kz, ky], [kz, 0.0, -kx], [-ky, kx, 0.0]])
+    return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * (k @ k)
+
+
+def _sphere_instance(g, center, radius, shape, material) -> InstanceData:
+    """An instance of the unit sphere mesh `shape` with its lowest point
+    at `center`: radius `radius` times a seeded uniform scale in
+    [0.8, 1.0], and a seeded tilted rotation (no non-uniform scale:
+    normals rotate by the forward matrix)."""
+    r = radius * g.uniform(0.8, 1.0)
+    frame = np.zeros((4, 3), np.float32)
+    frame[:3] = _tilted_rotation(g) * r
+    frame[3] = center
+    frame[3, 1] += r
+    return InstanceData(frame=frame, shape=shape, material=material)
+
+
+def _sphere_materials() -> list[MaterialData]:
+    return [
+        MaterialData(color=_f32(WHITE)),
+        MaterialData(color=_f32(RED)),
+        MaterialData(color=_f32(GREEN)),
+        MaterialData(emission=_f32(LIGHT)),
+        MaterialData(type=MaterialType.MATTE, color=_f32(SPHERE_COLORS[0])),
+        MaterialData(type=MaterialType.GLOSSY, color=_f32(SPHERE_COLORS[1]),
+                     roughness=0.3),
+        MaterialData(type=MaterialType.REFLECTIVE,
+                     color=_f32(SPHERE_COLORS[2]), roughness=0.2),
+    ]
+
+
+INSTANCED_SEGMENTS = (160, 124, 96, 64)
+# the full-size scenes' builds: work items, shape superclusters, padded
+# shape-space prims and the flattened hybrid soup's quads
+INSTANCED_COUNTS = dict(items=4_036, supers=32, n_prims=65_536, soup=0)
+HYBRID_COUNTS = dict(items=12_288, supers=517, n_prims=1_058_816,
+                     soup=1_048_582)
+
+
+def instanced_scene(grid: int = 24, segments=INSTANCED_SEGMENTS,
+                    seed: int = 0) -> SceneData:
+    """The pure two-level instanced path's scene: the Cornell room (walls
+    and light, 4 shapes) holding a grid x grid array of UV spheres on the
+    floor that cycle over len(segments) shared meshes, each instance with
+    a seeded tilted rotation and a uniform scale in [0.8, 1.0]. Defaults:
+    576 spheres over meshes of 25,600 + 15,376 + 9,216 + 4,096 = 54,288
+    quads; 7,817,478 world quads and 580 instances (under the hybrid's
+    1,024), so the automatic rule instances it without a hybrid soup."""
+    radius = 0.8 * 1.7 / (2 * max(grid - 1, 1))
+    shapes = _room() + [uv_sphere(1.0, s) for s in segments]
+    g = np.random.default_rng(seed)
+    instances = [InstanceData(shape=i, material=i) for i in range(4)]
+    centers = np.linspace(-0.85, 0.85, grid)
+    for a, cx in enumerate(centers):
+        for b, cz in enumerate(centers):
+            k = a * grid + b
+            instances.append(_sphere_instance(
+                g, (cx, 0.0, cz), radius, 4 + k % len(segments), 4 + k % 3))
+    return SceneData(cameras=[_camera()], instances=instances, shapes=shapes,
+                     materials=_sphere_materials())
+
+
+def hybrid_scene(small_grid: int = 32, small_segments: int = 32,
+                 big_count: int = 24, big_segments: int = 1024,
+                 seed: int = 1) -> SceneData:
+    """The hybrid instanced path's scene: the Cornell room with a
+    small_grid x small_grid carpet of small spheres (one small_segments
+    mesh) on the floor and big_count big spheres (one big_segments mesh)
+    floating in a 6-wide grid above it, seeded tilted rotations and
+    uniform scales in [0.8, 1.0]. Defaults: 1,024 small spheres of 1,024
+    quads (1,048,576 world quads) and 24 big ones of 1,048,576 quads
+    (25,165,824 world quads): 26,214,406 world quads (above the 24M full
+    flatten) in 1,052 instances (>= 1,024), so the automatic rule builds a
+    hybrid with the 8M budget, flattening the room and the small spheres
+    (1,048,582 quads) and keeping the big spheres as 24 x 512 work items."""
+    small_r = 0.8 * 1.8 / (2 * max(small_grid - 1, 1))
+    big_r = 0.12
+    shapes = _room() + [uv_sphere(1.0, small_segments),
+                        uv_sphere(1.0, big_segments)]
+    g = np.random.default_rng(seed)
+    instances = [InstanceData(shape=i, material=i) for i in range(4)]
+    centers = np.linspace(-0.9, 0.9, small_grid)
+    for a, cx in enumerate(centers):
+        for b, cz in enumerate(centers):
+            instances.append(_sphere_instance(
+                g, (cx, 0.0, cz), small_r, 4, 4 + (a * small_grid + b) % 3))
+    cols = 6
+    rows = -(-big_count // cols)
+    xs = np.linspace(-0.7, 0.7, cols)
+    zs = np.linspace(-0.6, 0.3, max(rows, 1))
+    for k in range(big_count):
+        instances.append(_sphere_instance(
+            g, (xs[k % cols], 0.45 + 0.5 * (k % 2), zs[k // cols]), big_r, 5,
+            4 + k % 3))
+    return SceneData(cameras=[_camera()], instances=instances, shapes=shapes,
+                     materials=_sphere_materials())

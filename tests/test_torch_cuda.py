@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
+from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
@@ -20,7 +22,8 @@ from julia_raytracer_tpu_torch.render.renderer import (
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.testing import (
-    check_hits, cornell_scene, image_close, sphere_grid_scene,
+    check_hits, check_vs_flat, cornell_scene, hybrid_scene, image_close,
+    instanced_scene, render_instanced, sphere_grid_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -223,3 +226,79 @@ def test_heavy_path_render_on_card_matches_cpu(dev):
     stc = make_trace_state(scene, params, device="cpu")
     rc.trace_samples(stc)
     image_close(r.get_image(st), rc.get_image(stc))
+
+
+def _room_rays(dev, n, seed):
+    """n rays: half camera rays, half from random points in the room with
+    zero direction components on some; 10% dead, a third short."""
+    g = np.random.default_rng(seed)
+    ro = g.uniform([-0.95, 0.02, -0.95], [0.95, 1.95, 0.95], (n, 3))
+    ro[: n // 2] = [0.0, 1.0, 3.9]
+    rd = g.normal(size=(n, 3))
+    rd[: n // 2, 2] = -np.abs(rd[: n // 2, 2]) - 2.0
+    rd[n // 2::7, 1] = 0.0
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    tmax = np.where(g.random(n) < 0.1, -1.0, 3.4e38)
+    tmax[::3] = g.uniform(0.2, 3.0, len(tmax[::3]))
+    return [torch.tensor(x, dtype=torch.float32, device=dev) for x in
+            (ro, rd, np.full(n, 1e-4), tmax)]
+
+
+def test_cluster_kernels_equal_plain(dev):
+    """The sweep and streamed cluster kernels (82 clusters, 2 supers of 64)
+    bit-equal to their plain versions at n = 5,000 rays, and within
+    check_hits of the worklist intersector."""
+    _, cfg = build_device_scene(sphere_grid_scene(3, 24), device="cpu")
+    tables = ci.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance, dev)
+    rays = _room_rays(dev, 5000, 3)
+    for kernel, plain in (
+            (ci.cluster_intersect_kernel, ci.cluster_intersect_plain),
+            (ci.cluster_intersect_streamed_kernel,
+             ci.cluster_intersect_streamed_plain)):
+        got = kernel(tables, *rays)
+        want, work = plain(tables, *rays)
+        torch.cuda.synchronize()
+        assert work["pairs"] > 0
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        check_hits(wl.worklist_intersect(tables, *rays), got)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_instanced_kernel_equals_plain(dev, hybrid):
+    """The work-item kernel bit-equal to its plain version at n = 5,000
+    rays on a reduced instanced scene (pure) or on the work items a hybrid
+    build leaves; the whole intersector within check_vs_flat of the dense
+    reference over the same scene flattened."""
+    scene = hybrid_scene(4, 4, 3, 12) if hybrid else instanced_scene(3, (8, 6))
+    d, cfg = build_device_scene(scene, instancing=True,
+                                hybrid_budget=300 if hybrid else 0,
+                                device="cpu")
+    tables = ii.upload(cfg.inst_tables, dev)
+    rays = _room_rays(dev, 5000, 4)
+    lists = ii.precull(*rays, tables.wi_bbox)
+    got = ii.instanced_intersect_kernel(tables, *rays, *lists)
+    want, work = ii.instanced_intersect_plain(tables, *rays, *lists)
+    torch.cuda.synchronize()
+    assert work["pairs"] > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if not hybrid:
+        df, cf = build_device_scene(scene, instancing=False, device="cpu")
+        ref = wl.make_worklist_intersect(cf.host_prim_verts,
+                                         cf.host_prim_instance, dev)(*rays)
+        check_vs_flat(ref, ii.instanced_intersect(tables, *rays))
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_instanced_render_on_card_matches_cpu(dev, hybrid):
+    """The instanced path (pure, or a hybrid whose soup takes the worklist
+    kernel) on the card against the CPU, through the work-item kernel."""
+    scene = hybrid_scene(4, 4, 3, 12) if hybrid else instanced_scene(3, (8, 6))
+    budget = 300 if hybrid else 0
+    ii.instanced_intersect_kernel.launches = 0
+    wl.worklist_intersect_kernel.launches = 0
+    got = render_instanced(scene, 32, 2, 4, budget, dev, seed=1)
+    assert ii.instanced_intersect_kernel.launches > 0
+    assert (wl.worklist_intersect_kernel.launches > 0) == hybrid
+    image_close(got, render_instanced(scene, 32, 2, 4, budget, "cpu", seed=1))

@@ -2,7 +2,9 @@
 refuses both `jax` and the JAX package `julia_raytracer_tpu`, every module
 of julia_raytracer_tpu_torch (and chip_smoke.py) imports, the modules of
 every ported path among them (the heavy-scene path's regroup_intersect and
-kernel_select included), and no module of either name is loaded. A source scan rejects any import of the two in the
+kernel_select, the instanced path's scene/instanced.py and
+instanced_intersect, and the cluster intersectors included), and no module
+of either name is loaded. A source scan rejects any import of the two in the
 package and in chip_smoke.py."""
 
 import os
@@ -36,13 +38,16 @@ print(" ".join(names))
 print(len(names))
 """
 
-# the modules of each ported path, the heavy-scene path's among them
+# the modules of each ported path, the instanced path's among them
 REQUIRED = {
     "julia_raytracer_tpu_torch.ops.dense_intersect",
     "julia_raytracer_tpu_torch.ops.lane_compact",
     "julia_raytracer_tpu_torch.ops.worklist_intersect",
     "julia_raytracer_tpu_torch.ops.regroup_intersect",
     "julia_raytracer_tpu_torch.utils.kernel_select",
+    "julia_raytracer_tpu_torch.ops.cluster_intersect",
+    "julia_raytracer_tpu_torch.ops.instanced_intersect",
+    "julia_raytracer_tpu_torch.scene.instanced",
     "julia_raytracer_tpu_torch.render.integrator",
     "julia_raytracer_tpu_torch.profile_path",
 }
@@ -56,7 +61,7 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 27
+    assert int(lines[-1]) >= 30
     assert REQUIRED <= set(lines[-2].split()), REQUIRED - set(lines[-2].split())
 
 

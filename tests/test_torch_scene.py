@@ -143,7 +143,7 @@ def test_unported_scenes_raise():
     with pytest.raises(NotImplementedError):
         build_device_scene(s, device="cpu")
     with pytest.raises(NotImplementedError):
-        build_device_scene(cornell_scene(), instancing=True, device="cpu")
+        build_device_scene(s, instancing=True, device="cpu")
     arrays = jax_scene_arrays(jax_build_device_scene(cornell_scene_jax())[0])
     arrays["line_verts"] = np.zeros((1, 2, 3), np.float32)
     with pytest.raises(NotImplementedError):
