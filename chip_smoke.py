@@ -8,9 +8,11 @@ its plain PyTorch version on the card at the main paths' shapes and times
 both beside the card's bound and, where one exists, a single PyTorch call
 computing the same function. It holds the whole regroup intersector against
 the worklist intersector on the heavy scene's rays and fits the H100's
-kernel-selection costs from their stage times. The work-item kernel of the
-instanced path runs on the instanced scene's sorted bounce rays and meets the
-worklist intersector over the same scene flattened; the two cluster kernels
+kernel-selection costs from their stage times. The candidate-cull kernel and
+the work-item kernel of the instanced path run on the instanced scene's
+sorted bounce rays (with a sweep of the candidate lists' group size), and
+the whole work-item intersector meets the worklist intersector over the same
+scene flattened; the two cluster kernels
 without a work list (reached only through their factories, as in the JAX
 package) run on the sphere grid's bounce rays. Then it drives the five main
 paths through the kernels, each with the launch counters zeroed just before
@@ -93,7 +95,10 @@ STATE_PLANES = 45  # int32 planes of the integrator state (TraceVars)
 OUTPUT_PLANES = 11  # radiance 3, hit 1, albedo 3, normal 3, rng 1
 REPS = 20
 PLAIN_WORKLIST_REPS = 3  # its plain version reads counts back every step
-PLAIN_REPS = 5  # the regroup kernels' plain versions
+PLAIN_REPS = 5  # the regroup kernels' and the cull's plain versions
+# rays per candidate list or work list swept on the main path's rays (the
+# measurement behind ii.GROUP_RAYS and wl.GROUP_RAYS)
+GROUP_SWEEP = (32, 64, 128, 256)
 # live shares of the regroup-vs-worklist sweep (the JAX package's gates
 # are 0.45 and 0.2)
 LIVE_SHARES = (0.45, 0.2, 0.1, 0.03)
@@ -124,6 +129,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
                        "julia_raytracer_tpu/ops/pallas_regroup.py:274"),
     "instanced_intersect": ("julia_raytracer_tpu_torch/csrc/instanced_intersect.cu",
                             "julia_raytracer_tpu/ops/pallas_cluster.py:1398"),
+    # not a pallas_call: the fused jnp candidate cull (beam_precull)
+    "candidate_cull": ("julia_raytracer_tpu_torch/csrc/candidate_cull.cu",
+                       "julia_raytracer_tpu/ops/pallas_cluster.py:1786"),
     "cluster_intersect": ("julia_raytracer_tpu_torch/csrc/cluster_intersect.cu",
                           "julia_raytracer_tpu/ops/pallas_cluster.py:192"),
     "cluster_intersect_streamed": (
@@ -312,6 +320,20 @@ def _bounce_rays(hit, rd, dev):
             torch.full((n,), 1e-4, device=dev), tmax.contiguous())
 
 
+def _walk_counters(work) -> str:
+    """The warp walk's work counters as one log fragment."""
+    return (f"warps walking {work['groups']}, (warp, list entry) steps "
+            f"{work['steps']}, mask votes {work['votes']} (one per step a ray "
+            f"enters, none per cluster), (warp, cluster) table loads "
+            f"{work['warp_pairs']}, (ray, cluster) pairs in the bound "
+            f"{work['pairs']}, rays per table load "
+            f"{work['pairs'] / max(work['warp_pairs'], 1):.3f}, lanes busy in "
+            f"the triangle loop "
+            f"{work['tri_slots'] / max(work['pairs'] * wl.TRIS, 1):.4f} (of "
+            f"each pair's 32 lanes x 4 test slots, those that hold a real "
+            f"triangle)")
+
+
 def _worklist_case(tables, rays) -> dict:
     order, cnt = wl.precull(*rays, tables.sbbox)
     got = wl.worklist_intersect_kernel(tables, *rays, order, cnt)
@@ -358,9 +380,8 @@ def phase_worklist(dev, renderer, primary, bounce) -> dict:
         log(f"worklist {name}: {N_RAYS} rays, hit rate {c['hit_rate']:.4f}, "
             f"bit-equal {c['bit_equal']}, same prim {c['same_prim']:.6f}, "
             f"max |dt| {c['max_abs_err']}, mean work list {c['mean_list']:.3f} "
-            f"of {tables.sbbox.shape[0]}, (ray, cluster) pairs culled in "
-            f"{c['pairs']} (warp, cluster) {c['warp_pairs']} (block, cluster) "
-            f"{c['block_pairs']}, kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
+            f"of {tables.sbbox.shape[0]} per {wl.GROUP_RAYS} rays, "
+            f"{_walk_counters(c)}, kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} "
             f"ms (one call {c['plain_wall_s']:.2f} s wall), precull "
             f"{c['precull_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), library call: none")
@@ -374,10 +395,21 @@ def phase_worklist(dev, renderer, primary, bounce) -> dict:
         log(f"worklist {name}, sorted rays: kernel {sorted_ms[name]:.4f} ms "
             f"(pixel order: {(p if name == 'primary' else b)['ms']:.4f} ms), "
             f"mean work list {float(cnt.float().mean()):.3f}")
+    sweep = {}
+    for g in GROUP_SWEEP:
+        order, cnt = wl.precull(*bounce, tables.sbbox, g)
+        sweep[g] = dict(
+            precull_ms=median_ms(lambda: wl.precull(*bounce, tables.sbbox, g), 5),
+            kernel_ms=median_ms(lambda: wl.worklist_intersect_kernel(
+                tables, *bounce, order, cnt, g), 5),
+            mean_list=float(cnt.float().mean()))
+        log(f"worklist bounce rays, work lists per {g} rays: precull "
+            f"{sweep[g]['precull_ms']:.4f} ms, kernel {sweep[g]['kernel_ms']:.4f} "
+            f"ms, mean work list {sweep[g]['mean_list']:.3f}")
     return dict(b, primary={k: p[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "pairs",
-        "warp_pairs", "block_pairs", "mean_list", "precull_ms")},
-        sorted_rays_ms=sorted_ms)
+        "warp_pairs", "groups", "steps", "votes", "mean_list", "precull_ms")},
+        sorted_rays_ms=sorted_ms, group_sweep=sweep)
 
 
 def _heavy_rays(renderer, dev):
@@ -695,10 +727,13 @@ def f64_witness(scene, rays, lanes, t_inst, t_flat, dev) -> list[dict]:
     return out
 
 
-def phase_instanced(dev, renderer, scene) -> dict:
+def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
     """Row 7 (ops/instanced_intersect.py) on the instanced scene's 262,144
-    bounce rays in the wavefront sort's order: the kernel against its plain
-    version on the card, bit for bit; the whole intersector (precull,
+    bounce rays in the wavefront sort's order: the candidate cull
+    (phase_cull), then the kernel against its plain version on the card,
+    bit for bit, with its walk's counters; the precull and the kernel per
+    candidate-list size of GROUP_SWEEP on the camera and bounce rays; the
+    whole intersector (precull,
     kernel, normalised normals) within the check_vs_flat contract of the
     worklist intersector over the same scene flattened (7.8M quads), on
     the camera and the bounce rays, with at most INST_T_MISMATCH of the
@@ -709,6 +744,7 @@ def phase_instanced(dev, renderer, scene) -> dict:
     primary = _sorted(_primary_rays(renderer, dev), renderer)
     hit = renderer.intersect(*primary)
     bounce = _sorted(_bounce_rays(hit, primary[1], dev), renderer)
+    cull = phase_cull(tables, bounce)
     lists = ii.precull(*bounce, tables.wi_bbox)
     got = ii.instanced_intersect_kernel(tables, *bounce, *lists)
     plain_ms, (want, work) = event_ms(
@@ -720,25 +756,27 @@ def phase_instanced(dev, renderer, scene) -> dict:
                    CLUSTER_REPS)
     precull_ms = median_ms(lambda: ii.precull(*bounce, tables.wi_bbox),
                            CLUSTER_REPS)
-    n, nb = bounce[0].shape[0], lists[2].shape[0]
-    # each input read once: the rays, the block counts, the list entries the
-    # blocks walk (order, t_low, and the item's supercluster and instance),
+    n, ng = bounce[0].shape[0], lists[2].shape[0]
+    # each input read once: the rays, the group counts, the list entries the
+    # warps walk (order, t_low, and the item's supercluster and instance),
     # the boxes of the superclusters, the rows of the instances and the
     # tables of the clusters they visit; each result written once
-    n_bytes = (n * (RAY_IN_BYTES + HIT_OUT_BYTES) + nb * 4
-               + work["block_items"] * 16 + work["supers"] * tables.sup * 32
+    n_bytes = (n * (RAY_IN_BYTES + HIT_OUT_BYTES) + ng * 4
+               + work["steps"] * 16 + work["supers"] * tables.sup * 32
                + work["instances"] * 96 + work["clusters"] * wl.ROWS * wl.TRIS * 4)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                precull_ms=precull_ms, **work,
                candidates=int(lists[2].sum()),
                **bound(n_bytes, work["pairs"] * wl.TRIS * wl.OPS_PER_TRI_TEST))
     log(f"instanced_intersect: {n} sorted bounce rays, {len(tables.wi_sup)} "
-        f"work items, candidates per block {float(lists[2].float().mean()):.1f}, "
-        f"(block, item) steps walked {work['block_items']} of "
-        f"{out['candidates']}, (ray, cluster) pairs {work['pairs']}, clusters "
-        f"{work['clusters']}, bit-equal to its plain version, kernel {ms:.4f} "
-        f"ms, plain {plain_ms:.4f} ms, precull {precull_ms:.4f} ms, bound "
+        f"work items, candidates per {ii.GROUP_RAYS} rays "
+        f"{float(lists[2].float().mean()):.1f} ({out['candidates']} in all), "
+        f"{_walk_counters(work)}, clusters {work['clusters']}, bit-equal to "
+        f"its plain version, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"precull (cull kernel, sort, count) {precull_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    out["group_sweep"] = _item_group_sweep(
+        "instanced", tables, (("camera", primary), ("bounce", bounce)))
     t0 = time.perf_counter()
     _, flat_cfg = build_device_scene(scene, instancing=False, device="cpu")
     flat = wl.make_worklist_intersect(flat_cfg.host_prim_verts,
@@ -781,6 +819,90 @@ def phase_instanced(dev, renderer, scene) -> dict:
     log(f"instanced bounce rays: whole work-item intersector "
         f"{out['instanced_whole_ms']:.4f} ms, worklist over the flattened "
         f"scene {out['flat_worklist_ms']:.4f} ms")
+    return out, cull
+
+
+def _item_group_sweep(label, tables, named_rays) -> dict:
+    """The work-item intersector's precull and kernel per candidate-list
+    size of GROUP_SWEEP on each (name, rays), with the device memory of
+    the lists at that size: the keys (f32), argsort's int64 indices,
+    order (i32) and t_low (f32), each [groups, items]."""
+    sweep = {}
+    items = tables.wi_sup.shape[0]
+    for g in GROUP_SWEEP:
+        row = {}
+        for name, rays in named_rays:
+            lg = ii.precull(*rays, tables.wi_bbox, g)
+            row[name] = dict(
+                precull_ms=median_ms(
+                    lambda: ii.precull(*rays, tables.wi_bbox, g), 5),
+                kernel_ms=median_ms(lambda: ii.instanced_intersect_kernel(
+                    tables, *rays, *lg, group=g), 5),
+                mean_list=float(lg[2].float().mean()),
+                list_bytes=lg[0].shape[0] * items * (4 + 8 + 4 + 4))
+            row[name]["sum_ms"] = row[name]["precull_ms"] + row[name]["kernel_ms"]
+            del lg
+        sweep[g] = row
+        log(f"{label}, candidate lists per {g} rays: " + ", ".join(
+            f"{k} rays precull {v['precull_ms']:.4f} ms + kernel "
+            f"{v['kernel_ms']:.4f} ms = {v['sum_ms']:.4f} ms (mean list "
+            f"{v['mean_list']:.1f} of {items}, lists {v['list_bytes'] / 1e9:.3f} "
+            f"GB)" for k, v in row.items()))
+    return sweep
+
+
+def phase_hybrid_sweep(dev, renderer) -> dict:
+    """The candidate-list size sweep on the hybrid scene's work items: the
+    rays the hybrid intersector hands the work-item intersector (tmax cut
+    at the soup's hit), captured from the arguments of instanced_intersect
+    (which the hybrid's work-item part calls), for the sorted camera rays
+    and their bounce rays."""
+    captured = []
+    intersect = ii.instanced_intersect
+
+    def capture(*args):
+        captured.append(args)
+        return intersect(*args)
+
+    ii.instanced_intersect = capture
+    try:
+        primary = _sorted(_primary_rays(renderer, dev), renderer)
+        hit = renderer.intersect(*primary)
+        bounce = _sorted(_bounce_rays(hit, primary[1], dev), renderer)
+        renderer.intersect(*bounce)
+    finally:
+        ii.instanced_intersect = intersect
+    require(len(captured) == 2, "the hybrid intersector did not call the "
+            "work-item kernel once per ray set")
+    tables = captured[0][0]
+    named = (("camera", captured[0][1:]), ("bounce", captured[1][1:]))
+    return _item_group_sweep("hybrid", tables, named)
+
+
+def phase_cull(tables, rays) -> dict:
+    """The candidate cull (ops/instanced_intersect.py candidate_keys_*) on
+    the instanced scene's sorted bounce rays against its work items' world
+    boxes: kernel against plain version on the card, bit for bit. Bound:
+    rays x items x CULL_OPS_PER_TEST operations against the rays, the boxes
+    and the keys. No single PyTorch call computes it (library_ms null)."""
+    boxes = tables.wi_bbox
+    got = ii.candidate_keys_kernel(*rays, boxes)
+    want = ii.candidate_keys_plain(*rays, boxes)
+    require(torch.equal(got, want), "candidate_cull kernel and plain differ")
+    ms = median_ms(lambda: ii.candidate_keys_kernel(*rays, boxes))
+    plain_ms = median_ms(lambda: ii.candidate_keys_plain(*rays, boxes),
+                         PLAIN_REPS)
+    ng, items = got.shape
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               finite_keys=int(torch.isfinite(got).sum()),
+               **bound(rays[0].shape[0] * RAY_IN_BYTES + items * 24
+                       + ng * items * 4,
+                       ng * ii.GROUP_RAYS * items * ii.CULL_OPS_PER_TEST))
+    log(f"candidate_cull: {rays[0].shape[0]} sorted bounce rays in {ng} "
+        f"groups of {ii.GROUP_RAYS} x {items} items, keys bit-equal to the "
+        f"plain version ({out['finite_keys']} finite), kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}), library call: none")
     return out
 
 
@@ -842,6 +964,7 @@ def _zero_counts() -> None:
     rg.regroup_tritest.launches = 0
     rg.regroup_unpack.launches = 0
     ii.instanced_intersect_kernel.launches = 0
+    ii.candidate_keys_kernel.launches = 0
     ci.cluster_intersect_kernel.launches = 0
     ci.cluster_intersect_streamed_kernel.launches = 0
 
@@ -856,6 +979,7 @@ def _read_counts() -> dict:
         "regroup_tritest": rg.regroup_tritest.launches,
         "regroup_unpack": rg.regroup_unpack.launches,
         "instanced_intersect": ii.instanced_intersect_kernel.launches,
+        "candidate_cull": ii.candidate_keys_kernel.launches,
         "cluster_intersect": ci.cluster_intersect_kernel.launches,
         "cluster_intersect_streamed": ci.cluster_intersect_streamed_kernel.launches,
     }
@@ -968,12 +1092,14 @@ def main() -> int:
                           "worklist_intersect": wl.FLAGS,
                           "regroup_intersect": rg.FLAGS,
                           "instanced_intersect": ii.FLAGS,
+                          "candidate_cull": ii.FLAGS,
                           "cluster_intersect": ci.FLAGS})
     di._lib()
     lc._lib()
     wl._lib()
     rg._lib()
     ii._lib()
+    ii._cull_lib()
     ci._lib()
     log(f"build: {time.perf_counter() - t0:.2f} s, in parallel "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.build_seconds.items())})")
@@ -1036,8 +1162,10 @@ def main() -> int:
     phases.update(phase_cluster(dev, spheres, sp_bounce,
                                 phases["worklist_intersect"]["pairs"]))
     del sp_primary, sp_bounce
-    phases["instanced_intersect"] = phase_instanced(
+    phases["instanced_intersect"], phases["candidate_cull"] = phase_instanced(
         dev, inst["instanced"], inst_scenes["instanced"])
+    phases["instanced_intersect"]["hybrid_group_sweep"] = phase_hybrid_sweep(
+        dev, inst["hybrid"])
     heavy_primary, heavy_bounce = _heavy_rays(heavy, dev)
     rg_phases, stages = phase_regroup(dev, heavy, heavy_bounce)
     phases.update(rg_phases)
@@ -1093,8 +1221,8 @@ def main() -> int:
         log(f"{name} path: candidate cull {st['cull_ms_per_sample']:.2f} "
             f"ms/sample in {st['cull_calls_per_sample']:.0f} calls, "
             f"{st['ms_per_sample']:.2f} ms/sample in all")
-        require(ln["instanced_intersect"] > 0,
-                f"the {name} path never launched instanced_intersect")
+        for kernel in ("instanced_intersect", "candidate_cull"):
+            require(ln[kernel] > 0, f"the {name} path never launched {kernel}")
         require(ln["dense_intersect"] == 0,
                 f"the {name} path launched the dense intersector")
         inst_stats[name], inst_launch[name] = st, ln
@@ -1143,8 +1271,9 @@ def main() -> int:
         agree = forced_agreement(dev, scene, INST_CHECK_RES, INST_CHECK_SPP,
                                  budget)
         small = _read_counts()
-        require(small["instanced_intersect"] > 0,
-                f"the small render of {label} never launched instanced_intersect")
+        for kernel in ("instanced_intersect", "candidate_cull"):
+            require(small[kernel] > 0,
+                    f"the small render of {label} never launched {kernel}")
         require(("hybrid" not in label) or small["worklist_intersect"] > 0,
                 f"the small render of {label} never launched the soup's kernel")
         log(f"agreement {label} {INST_CHECK_RES}x{INST_CHECK_RES} "
@@ -1163,8 +1292,9 @@ def main() -> int:
             library_ms=p["library_ms"],
         )
         for extra in ("primary", "sorted_rays_ms", "passes", "group_passes",
-                      "clusters", "pairs", "bound_pairs", "block_items",
-                      "precull_ms", "candidates"):
+                      "clusters", "pairs", "bound_pairs", "groups", "steps",
+                      "votes", "warp_pairs", "precull_ms", "candidates",
+                      "finite_keys", "group_sweep", "hybrid_group_sweep"):
             if extra in p:
                 entry[extra] = p[extra]
         kernels.append(entry)

@@ -1,15 +1,21 @@
 // The two tests every cluster intersector of the port shares: the slab test
-// of a ray against a cluster box (cluster_cull) and the affine
+// of a ray against a cluster box (cluster_cull, on slab_enter_exit, which
+// the candidate cull of candidate_cull.cu also uses) and the affine
 // unit-triangle test of a ray against one triangle of a cluster table
-// (tri_test), and the closest hit over one cluster's 128 triangles
-// (closest_tri). Included by worklist_intersect.cu, regroup_intersect.cu,
-// cluster_intersect.cu and instanced_intersect.cu; the plain PyTorch
-// versions are _cluster_cull, _tri_tests and _closest_tri in
-// ops/worklist_intersect.py, which repeat this arithmetic in the same
-// order (bit for bit when the kernels are built with -fmad=false).
+// (tri_test, on the table, or tri_test_k, on one triangle's 12
+// coefficients), and the closest hit over one cluster's 128 triangles
+// (closest_tri). Included by regroup_intersect.cu and cluster_intersect.cu,
+// and through warp_walk.cuh by worklist_intersect.cu and
+// instanced_intersect.cu; the plain PyTorch versions are _cluster_cull,
+// _tri_tests and _closest_tri in ops/worklist_intersect.py, which repeat
+// this arithmetic in the same order (bit for bit when the kernels are built
+// with -fmad=false).
 //
-// min/max propagate NaN as torch.minimum/maximum do, so a NaN ray never
-// enters a box in either version.
+// min/max propagate NaN as torch.minimum/maximum do (the sm_80+ min.NaN /
+// max.NaN instructions), so a NaN ray never enters a box in either version.
+// They may differ from torch's in the sign of a zero or in a NaN's payload,
+// which no result depends on: every use ends in a compare, or in the cull's
+// max(entry, 0).
 
 #pragma once
 
@@ -19,11 +25,15 @@ constexpr float kSlack = 1.00000024f;
 constexpr float kTinyDir = 1e-30f;
 
 __device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || a < b) ? a : b;
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || a > b) ? a : b;
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 struct Ray {
@@ -38,51 +48,67 @@ __device__ __forceinline__ void set_inverse_dir(Ray& r) {
   r.iz = 1.0f / (r.dz == 0.0f ? kTinyDir : r.dz);
 }
 
-// Slab test of one ray against one cluster box [min xyz, max xyz], clipped
-// to [tmin, tlim]; the cull of the cluster kernels (pallas_cluster.py
-// row_slab / cull).
+// Slab test of a ray (origin o, inverse direction i) against a box [min
+// xyz, max xyz], clipped to [tmin, tlim]: its entry and exit t. The ray
+// enters the box if enter <= exit * kSlack.
+__device__ __forceinline__ void slab_enter_exit(float ox, float oy, float oz,
+                                                float ix, float iy, float iz,
+                                                const float* box, float tmin,
+                                                float tlim, float& enter,
+                                                float& exit) {
+  float t0 = (box[0] - ox) * ix;
+  float t1 = (box[3] - ox) * ix;
+  enter = min_nan(t0, t1);
+  exit = max_nan(t0, t1);
+  t0 = (box[1] - oy) * iy;
+  t1 = (box[4] - oy) * iy;
+  enter = max_nan(enter, min_nan(t0, t1));
+  exit = min_nan(exit, max_nan(t0, t1));
+  t0 = (box[2] - oz) * iz;
+  t1 = (box[5] - oz) * iz;
+  enter = max_nan(enter, min_nan(t0, t1));
+  exit = min_nan(exit, max_nan(t0, t1));
+  enter = max_nan(enter, tmin);
+  exit = min_nan(exit, tlim);
+}
+
+// Slab test of one ray against one cluster box, clipped to [tmin, tlim];
+// the cull of the cluster kernels (pallas_cluster.py row_slab / cull).
 __device__ __forceinline__ bool cluster_cull(const Ray& r, float tlim,
                                              const float* box) {
-  float t0 = (box[0] - r.ox) * r.ix;
-  float t1 = (box[3] - r.ox) * r.ix;
-  float enter = min_nan(t0, t1);
-  float exit = max_nan(t0, t1);
-  t0 = (box[1] - r.oy) * r.iy;
-  t1 = (box[4] - r.oy) * r.iy;
-  enter = max_nan(enter, min_nan(t0, t1));
-  exit = min_nan(exit, max_nan(t0, t1));
-  t0 = (box[2] - r.oz) * r.iz;
-  t1 = (box[5] - r.oz) * r.iz;
-  enter = max_nan(enter, min_nan(t0, t1));
-  exit = min_nan(exit, max_nan(t0, t1));
-  enter = max_nan(enter, r.tmin);
-  exit = min_nan(exit, tlim);
+  float enter, exit;
+  slab_enter_exit(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, box, r.tmin, tlim,
+                  enter, exit);
   return enter <= exit * kSlack;
 }
 
-// Affine unit-triangle test of triangle j of a cluster table `tab` laid out
-// [16][128]. Returns true on a hit closer than `best`, with its t, u, v.
-__device__ __forceinline__ bool tri_test(const Ray& r, const float* tab,
-                                         int j, float best, float& t,
-                                         float& u, float& v) {
-  const float* c = tab + j;
-  const float opx = ((c[0 * kTris] * r.ox + c[1 * kTris] * r.oy) +
-                     c[2 * kTris] * r.oz) + c[9 * kTris];
-  const float opy = ((c[3 * kTris] * r.ox + c[4 * kTris] * r.oy) +
-                     c[5 * kTris] * r.oz) + c[10 * kTris];
-  const float opz = ((c[6 * kTris] * r.ox + c[7 * kTris] * r.oy) +
-                     c[8 * kTris] * r.oz) + c[11 * kTris];
-  const float dpx = (c[0 * kTris] * r.dx + c[1 * kTris] * r.dy) +
-                    c[2 * kTris] * r.dz;
-  const float dpy = (c[3 * kTris] * r.dx + c[4 * kTris] * r.dy) +
-                    c[5 * kTris] * r.dz;
-  const float dpz = (c[6 * kTris] * r.dx + c[7 * kTris] * r.dy) +
-                    c[8 * kTris] * r.dz;
+// Affine unit-triangle test of one triangle given by its 12 coefficients
+// k (table rows 0-11: m_u, m_v, n_hat, then t_u t_v t_w). Returns true on
+// a hit closer than `best`, with its t, u, v.
+__device__ __forceinline__ bool tri_test_k(const Ray& r, const float* k,
+                                           float best, float& t, float& u,
+                                           float& v) {
+  const float opx = ((k[0] * r.ox + k[1] * r.oy) + k[2] * r.oz) + k[9];
+  const float opy = ((k[3] * r.ox + k[4] * r.oy) + k[5] * r.oz) + k[10];
+  const float opz = ((k[6] * r.ox + k[7] * r.oy) + k[8] * r.oz) + k[11];
+  const float dpx = (k[0] * r.dx + k[1] * r.dy) + k[2] * r.dz;
+  const float dpy = (k[3] * r.dx + k[4] * r.dy) + k[5] * r.dz;
+  const float dpz = (k[6] * r.dx + k[7] * r.dy) + k[8] * r.dz;
   t = -opz / (dpz == 0.0f ? kTinyDir : dpz);
   u = opx + t * dpx;
   v = opy + t * dpy;
   return (dpz != 0.0f) && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
          (u + v <= 1.0f) && (t >= r.tmin) && (t < best);
+}
+
+// tri_test_k on triangle j of a cluster table `tab` laid out [16][128].
+__device__ __forceinline__ bool tri_test(const Ray& r, const float* tab,
+                                         int j, float best, float& t,
+                                         float& u, float& v) {
+  float k[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) k[q] = tab[q * kTris + j];
+  return tri_test_k(r, k, best, t, u, v);
 }
 
 // Closest hit of ray r among the 128 triangles of the cluster table `tile`

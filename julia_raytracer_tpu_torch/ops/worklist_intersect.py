@@ -9,33 +9,36 @@ _make_kernel_worklist (julia_raytracer_tpu/ops/pallas_cluster.py).
     superclusters of `sup` clusters, packed as tab [S*sup, 16, 128]
     (transform rows 0-11, normal rows 12-14, instance row 15), bbox
     [S*sup, 8] and supercluster boxes sbbox [S, 8].
-  precull: per 1024-ray block, the superclusters its rays enter, front to
-    back by the block's nearest entry (a stable sort: rays that start
+  precull: per group of `group` rays (GROUP_RAYS = 32 by default; the JAX
+    package's 1,024 in the tests), the superclusters its rays enter, front
+    to back by the group's nearest entry (a stable sort: rays that start
     inside several boxes tie at 0), and their count. Plain tensor code on
     the rays' device; nothing is read back to the host. Rays are padded to
-    a multiple of 1024 with zeros (tmin = tmax = 0), as the JAX package
-    pads them; a padding ray never hits.
-  worklist_intersect_kernel / worklist_intersect_plain: walk each block's
-    list (superclusters in order, clusters in index order), cull each ray
-    against each cluster box with its running best t, and test the 128
-    triangles of a cluster it wants in index order with a strict `<`. The
-    two compute the same function in the same order and agree bit for bit
-    on the card. The plain version also counts the (ray, cluster) pairs
-    that pass the cull, the work that bounds the kernel, and the (warp,
-    cluster) and (block, cluster) pairs the kernel pays for.
+    whole groups with zeros (tmin = tmax = 0), as the JAX package pads
+    them; a padding ray never hits.
+  worklist_intersect_kernel / worklist_intersect_plain: each warp of 32
+    rays walks its group's list (superclusters in order, clusters in index
+    order), each ray culls each cluster box with its running best t and
+    takes the closest hit of the 128 triangles of a cluster it wants (the
+    first minimum, as a strict `<` in index order finds it). The two
+    compute the same function in the same order and agree bit for bit on
+    the card. The plain version also counts the work: the (ray, cluster)
+    pairs that pass the cull, which bound the kernel, and the warps,
+    (warp, supercluster) steps, mask votes and (warp, cluster) table
+    loads the kernel pays for.
 
 `worklist_intersect` runs the precull, then the plain version for CPU
 tensors and the kernel for CUDA tensors (or raises).
 `worklist_intersect_kernel.launches` counts the kernel's launches.
 
-Differences from the JAX function, none of which changes a hit: the
-TPU's bf16 `split3` matmul workaround is not carried over (the port
-computes in fp32, the JAX package's `highest` mode off the TPU); the cull
-is per ray rather than per 128-lane row; a cluster without a hit never
-updates a ray's record (the TPU kernel's argmin over a hitless row could,
-for tmax = +inf); and the `JRT_WL_SUP` / `JRT_WL_FLAT` environment knobs
-are gone (`sup` is an argument).
-"""
+Differences from the JAX function, none of which changes a hit: the work
+lists belong to groups of 32 rays, not 1,024; the TPU's bf16 `split3`
+matmul workaround is not carried over (the port computes in fp32, the
+JAX package's `highest` mode off the TPU); the cull is per ray rather
+than per 128-lane row; a cluster without a hit never updates a ray's
+record (the TPU kernel's argmin over a hitless row could, for tmax =
++inf); and the `JRT_WL_SUP` / `JRT_WL_FLAT` environment knobs are gone
+(`sup` is an argument)."""
 
 from __future__ import annotations
 
@@ -51,9 +54,10 @@ from julia_raytracer_tpu_torch.ops.cluster_tables import (
 )
 from julia_raytracer_tpu_torch.ops.traversal import Hit
 
-BLOCK_RAYS = 1024
+WARP = 32  # rays of a walking warp
+GROUP_RAYS = 32  # rays per work list (the JAX package's: 1,024)
 ROWS = 16  # table rows per cluster
-MAX_SUP = 128  # the kernel's shared-memory box array
+MAX_SUP = 128  # the kernel's cluster mask: 4 words of 32 bits
 SLACK = 1.00000024  # box-test slack of the TPU kernel (2 ulp at 1.0)
 TINY_DIR = 1e-30  # stands in for a zero direction component
 # [rays, S] precull temporaries above this many bytes are cut into chunks
@@ -109,9 +113,15 @@ def _inverse_dir(rd):
     return 1.0 / torch.where(rd == 0.0, TINY_DIR, rd)
 
 
-def _precull_blocks(ro, rd, tmin, tmax, sbbox):
-    """Rays of whole blocks -> (order [nb, S] i32, cnt [nb] i32)."""
-    nb = ro.shape[0] // BLOCK_RAYS
+def check_group(group: int) -> None:
+    """Rays per work list: a power of two from one warp to 1,024."""
+    if not (WARP <= group <= 1024 and group & (group - 1) == 0):
+        raise ValueError(f"group={group}: a power of two in [{WARP}, 1024]")
+
+
+def _precull_groups(ro, rd, tmin, tmax, sbbox, group):
+    """Rays of whole groups -> (order [ng, S] i32, cnt [ng] i32)."""
+    ng = ro.shape[0] // group
     s = sbbox.shape[0]
     o = ro[:, None, :]
     di = _inverse_dir(rd)[:, None, :]
@@ -122,34 +132,42 @@ def _precull_blocks(ro, rd, tmin, tmax, sbbox):
     enter = torch.maximum(enter, tmin[:, None])
     exit_ = torch.minimum(exit_, tmax[:, None])
     ray_hit = enter <= exit_ * SLACK  # [rays, S]
-    blk_hit = ray_hit.view(nb, BLOCK_RAYS, s).any(dim=1)
+    grp_hit = ray_hit.view(ng, group, s).any(dim=1)
     enter_m = torch.where(ray_hit, enter.clamp(min=0.0), float("inf"))
-    blk_enter = enter_m.view(nb, BLOCK_RAYS, s).amin(dim=1)
-    key = torch.where(blk_hit, blk_enter, float("inf"))
+    grp_enter = enter_m.view(ng, group, s).amin(dim=1)
+    key = torch.where(grp_hit, grp_enter, float("inf"))
     order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
-    cnt = blk_hit.sum(dim=1, dtype=torch.int32)
+    cnt = grp_hit.sum(dim=1, dtype=torch.int32)
     return order, cnt
 
 
-def precull(ro, rd, tmin, tmax, sbbox):
-    """Front-to-back supercluster work list of each 1024-ray block:
-    (order [nb, S] i32, cnt [nb] i32), on the rays' device."""
+def pad_rays(ro, rd, tmin, tmax, group):
+    """Rays padded to whole groups (at least one) with zeros (tmin = tmax
+    = 0), as the JAX package pads them; a padding ray never hits."""
     n = ro.shape[0]
-    nb = max(1, -(-n // BLOCK_RAYS))
-    pad = nb * BLOCK_RAYS - n
+    pad = max(1, -(-n // group)) * group - n
     if pad:
         ro = torch.nn.functional.pad(ro, (0, 0, 0, pad))
         rd = torch.nn.functional.pad(rd, (0, 0, 0, pad))
         tmin = torch.nn.functional.pad(tmin, (0, pad))
         tmax = torch.nn.functional.pad(tmax, (0, pad))
+    return ro, rd, tmin, tmax
+
+
+def precull(ro, rd, tmin, tmax, sbbox, group: int = GROUP_RAYS):
+    """Front-to-back supercluster work list of each group of `group`
+    rays: (order [ng, S] i32, cnt [ng] i32), on the rays' device."""
+    check_group(group)
+    ro, rd, tmin, tmax = pad_rays(ro, rd, tmin, tmax, group)
+    ng = ro.shape[0] // group
     s = sbbox.shape[0]
-    chunk = max(1, int(PRECULL_BYTES // (BLOCK_RAYS * s * 4)))
-    if chunk >= nb:
-        return _precull_blocks(ro, rd, tmin, tmax, sbbox)
+    chunk = max(1, int(PRECULL_BYTES // (group * s * 4)))
+    if chunk >= ng:
+        return _precull_groups(ro, rd, tmin, tmax, sbbox, group)
     parts = [
-        _precull_blocks(*(x[b0 * BLOCK_RAYS:(b0 + chunk) * BLOCK_RAYS]
-                          for x in (ro, rd, tmin, tmax)), sbbox)
-        for b0 in range(0, nb, chunk)
+        _precull_groups(*(x[g0 * group:(g0 + chunk) * group]
+                          for x in (ro, rd, tmin, tmax)), sbbox, group)
+        for g0 in range(0, ng, chunk)
     ]
     return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
 
@@ -202,6 +220,13 @@ def _closest_tri(o, d, tmin, best, c):
             torch.where(odd, 1.0 - u, u), torch.where(odd, 1.0 - v, v))
 
 
+def real_tris(c):
+    """Cluster tables [..., 16, 128] -> [...] their real triangles: those
+    with a unit normal row (padding and degenerate triangles carry the
+    never-hit transform, whose rows 6-8 are zero)."""
+    return (c[..., 6:9, :] != 0).any(dim=-2).sum(dim=-1)
+
+
 def _finish(tables, ro, rd, tmax, best, best_tri, bu, bv, bn, binst) -> Hit:
     prim = torch.where(best_tri >= 0, best_tri // 2, -1)
     prim = torch.where(prim >= tables.n_prims, -1, prim).to(torch.int32)
@@ -212,30 +237,45 @@ def _finish(tables, ro, rd, tmax, best, best_tri, bu, bv, bn, binst) -> Hit:
 
 
 def worklist_intersect_plain(tables: WorklistTables, ro, rd, tmin, tmax,
-                             order, cnt) -> tuple[Hit, dict]:
-    """Plain PyTorch version of the kernel -> (Hit, work), where work
-    counts the (ray, cluster) pairs that passed the cull (`pairs`) and
-    the (32-ray warp, cluster) and (1024-ray block, cluster) pairs with at
-    least one such ray (`warp_pairs`, `block_pairs`: the kernel's
-    triangle loops and table loads). Vectorised over rays, one step per
-    (list position, cluster index); reads counts back to the host."""
+                             order, cnt,
+                             group: int = GROUP_RAYS) -> tuple[Hit, dict]:
+    """Plain PyTorch version of the kernel -> (Hit, work). Vectorised over
+    rays, one step per (list position, cluster index); reads counts back
+    to the host. work counts the (ray, cluster) pairs that passed the cull
+    (`pairs`) and what the kernel pays for them: the warps that walk
+    (`groups`), the (warp, supercluster) steps (`steps`), the steps in
+    which a ray enters the supercluster's box against its running best,
+    each one mask vote (`votes`; the others are skipped after one vote),
+    the (warp, cluster) pairs with a ray that wants the cluster, each one
+    table load (`warp_pairs`), and the real (not padding) triangles of
+    the pairs' clusters (`tri_slots`: over pairs x 128, the share of the
+    triangle loop's lane slots that test a real triangle)."""
+    check_group(group)
     n = ro.shape[0]
     dev = ro.device
     sup = tables.sup
-    blk = torch.arange(n, device=dev) // BLOCK_RAYS
+    lane = torch.arange(n, device=dev)
+    row, warp = lane // group, lane // WARP
+    nw = -(-n // WARP)
+    warp_cnt = cnt[torch.arange(nw, device=dev) * WARP // group]
     inv = _inverse_dir(rd)
-    ray_cnt = cnt[blk]
+    ray_cnt = cnt[row]
     best = tmax.clone()
     best_tri = torch.full((n,), -1, dtype=torch.int64, device=dev)
     bu = torch.zeros(n, device=dev)
     bv = torch.zeros(n, device=dev)
     bn = torch.zeros((n, 3), device=dev)
     binst = torch.zeros(n, device=dev)
-    work = dict(pairs=0, warp_pairs=0, block_pairs=0)
+    work = dict(pairs=0, warp_pairs=0, tri_slots=0,
+                groups=int((warp_cnt > 0).sum()), steps=int(warp_cnt.sum()),
+                votes=0)
     steps = int(cnt.max()) if n else 0
     for k in range(steps):
         listed = k < ray_cnt
-        sc = order[blk, k].to(torch.int64)
+        sc = order[row, k].to(torch.int64)
+        enter = listed & _cluster_cull(ro, inv, tmin, torch.minimum(tmax, best),
+                                       tables.sbbox[sc])
+        work["votes"] += torch.unique(warp[enter]).numel()
         for ci in range(sup):
             cl = sc * sup + ci
             want = listed & _cluster_cull(ro, inv, tmin,
@@ -245,10 +285,9 @@ def worklist_intersect_plain(tables: WorklistTables, ro, rd, tmin, tmax,
             if idx.numel() == 0:
                 continue
             work["pairs"] += idx.numel()
-            work["warp_pairs"] += torch.unique_consecutive(idx // 32).numel()
-            work["block_pairs"] += torch.unique_consecutive(
-                idx // BLOCK_RAYS).numel()
+            work["warp_pairs"] += torch.unique_consecutive(idx // WARP).numel()
             c = tables.tab[cl[idx]]
+            work["tri_slots"] += int(real_tris(c).sum())
             found, arg, t, u, v = _closest_tri(ro[idx], rd[idx], tmin[idx],
                                                best[idx], c)
             sel = idx[found]
@@ -274,24 +313,26 @@ def _check(x, dtype, shape, device, name):
 
 
 def worklist_intersect_kernel(tables: WorklistTables, ro, rd, tmin, tmax,
-                              order, cnt) -> Hit:
+                              order, cnt, group: int = GROUP_RAYS) -> Hit:
     """Launch csrc/worklist_intersect.cu on CUDA tensors (raises
-    otherwise): rays ro/rd [N, 3], tmin/tmax [N]; the work list from
-    precull."""
+    otherwise): rays ro/rd [N, 3], tmin/tmax [N]; the work lists of
+    `group` rays from precull."""
     if ro.device.type != "cuda":
         raise ValueError(f"worklist_intersect_kernel: {ro.device} is not a "
                          "CUDA device")
+    check_group(group)
     n, dev, f32, i32 = ro.shape[0], ro.device, torch.float32, torch.int32
     c_total, s, sup = tables.tab.shape[0], tables.sbbox.shape[0], tables.sup
-    nb = max(1, -(-n // BLOCK_RAYS))
+    ng = max(1, -(-n // group))
     _check(ro, f32, (n, 3), dev, "ro")
     _check(rd, f32, (n, 3), dev, "rd")
     _check(tmin, f32, (n,), dev, "tmin")
     _check(tmax, f32, (n,), dev, "tmax")
     _check(tables.tab, f32, (s * sup, ROWS, TRIS), dev, "tab")
     _check(tables.bbox, f32, (c_total, 8), dev, "bbox")
-    _check(order, i32, (nb, s), dev, "order")
-    _check(cnt, i32, (nb,), dev, "cnt")
+    _check(tables.sbbox, f32, (s, 8), dev, "sbbox")
+    _check(order, i32, (ng, s), dev, "order")
+    _check(cnt, i32, (ng,), dev, "cnt")
     lib = _lib()
     prim = torch.empty(n, dtype=i32, device=dev)
     u = torch.empty(n, dtype=f32, device=dev)
@@ -302,8 +343,9 @@ def worklist_intersect_kernel(tables: WorklistTables, ro, rd, tmin, tmax,
     inst = torch.empty(n, dtype=i32, device=dev)
     err = lib.worklist_intersect_launch(
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
-        tables.tab.data_ptr(), tables.bbox.data_ptr(), order.data_ptr(),
-        cnt.data_ptr(), s, sup, tables.n_prims, prim.data_ptr(),
+        tables.tab.data_ptr(), tables.bbox.data_ptr(),
+        tables.sbbox.data_ptr(), order.data_ptr(), cnt.data_ptr(), s, sup,
+        group, tables.n_prims, prim.data_ptr(),
         u.data_ptr(), v.data_ptr(), t.data_ptr(), pos.data_ptr(),
         nrm.data_ptr(), inst.data_ptr(), cuda_build.stream_handle(dev),
     )
@@ -323,7 +365,7 @@ def _lib():
     fn = lib.worklist_intersect_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, p, p, p, i, i, i,
+        fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, i, i,
                        p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
@@ -331,13 +373,14 @@ def _lib():
 
 def worklist_intersect(tables: WorklistTables, ro, rd, tmin, tmax) -> Hit:
     """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] over the packed
-    tables: precull, then the plain version for CPU tensors and the CUDA
-    kernel for CUDA tensors."""
+    tables: precull (work lists per GROUP_RAYS rays), then the plain
+    version for CPU tensors and the CUDA kernel for CUDA tensors."""
     if ro.device.type not in ("cpu", "cuda"):
         raise ValueError(f"worklist_intersect: unsupported device {ro.device}")
     order, cnt = precull(ro, rd, tmin, tmax, tables.sbbox)
     if ro.device.type == "cpu":
-        return worklist_intersect_plain(tables, ro, rd, tmin, tmax, order, cnt)[0]
+        return worklist_intersect_plain(tables, ro, rd, tmin, tmax, order,
+                                        cnt)[0]
     return worklist_intersect_kernel(tables, ro, rd, tmin, tmax, order, cnt)
 
 

@@ -60,6 +60,7 @@ OWN_KERNELS = {
     "regroup_tritest": ("::tritest_kernel(",),
     "regroup_unpack": ("::unpack_kernel(",),
     "instanced_intersect": ("::instanced_intersect_kernel(",),
+    "candidate_cull": ("::candidate_cull_kernel(",),
 }
 
 

@@ -19,7 +19,12 @@ the instances of small, many-instance shapes into one world-space soup
 for the flat intersectors and keeps the big shapes as work items.
 
 The JAX package's C++ helper for the world expansion (ops/native.py) is
-not carried over: this is its numpy path, the same arithmetic.
+not carried over: this is its numpy path, the same arithmetic. One
+difference: the work items' world boxes are computed from the rotated
+supercluster corners in float64 and rounded outward to float32 (the JAX
+package computes them in float32, rounded to nearest), so each box holds
+its supercluster's box; the work-item intersector tests each ray against
+them, not only each group of rays.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ class InstancedTables:
     # work items (one per live (instance, supercluster) pair)
     wi_sup: np.ndarray  # i32 [Nis] global supercluster id
     wi_inst: np.ndarray  # i32 [Nis] instance id
-    wi_bbox: np.ndarray  # f32 [Nis, 6] world box
+    wi_bbox: np.ndarray  # f32 [Nis, 6] world box, rounded outward
     # per-instance transform rows:
     # [0:9] inverse rotation Ri (row-major; obj = world @ Ri + oi)
     # [9:12] oi, [12:21] forward rotation R (normals: n_w = n_s @ R)
@@ -67,6 +72,15 @@ def _shape_morton_order(verts: np.ndarray) -> np.ndarray:
     ext = np.maximum(cen.max(axis=0) - lo, 1e-30)
     qv = np.clip(((cen - lo) / ext) * ((1 << 21) - 1), 0, (1 << 21) - 1)
     return np.argsort(_morton3(qv.astype(np.uint64)), kind="stable")
+
+
+def _f32_outward(x: np.ndarray, up: bool) -> np.ndarray:
+    """float64 -> the nearest float32 at or above x (up) or at or below
+    it."""
+    f = x.astype(np.float32)
+    if up:
+        return np.where(f < x, np.nextafter(f, np.float32(np.inf)), f)
+    return np.where(f > x, np.nextafter(f, np.float32(-np.inf)), f)
 
 
 def _valid_instances(flat: FlatScene) -> tuple[np.ndarray, np.ndarray]:
@@ -190,11 +204,12 @@ def build_instanced_tables(scene, flat: FlatScene, sup: int = 32,
             ],
             axis=1,
         )  # [ns, 8, 3]
-        rots = g.inst_frame[members, :3]  # [m, 3, 3]
-        orgs = g.inst_frame[members, 3]  # [m, 3]
-        wc = np.einsum("nkj,mji->mnki", corners, rots) + orgs[:, None, None, :]
-        blo = wc.min(axis=2)  # [m, ns, 3]
-        bhi = wc.max(axis=2)
+        rots = g.inst_frame[members, :3].astype(np.float64)  # [m, 3, 3]
+        orgs = g.inst_frame[members, 3].astype(np.float64)  # [m, 3]
+        wc = (np.einsum("nkj,mji->mnki", corners.astype(np.float64), rots)
+              + orgs[:, None, None, :])
+        blo = _f32_outward(wc.min(axis=2), up=False)  # [m, ns, 3]
+        bhi = _f32_outward(wc.max(axis=2), up=True)
         m = len(members)
         wi_sup_l.append(np.tile(
             np.arange(ns, dtype=np.int32) + np.int32(shape_sup_offset[sid]), m))

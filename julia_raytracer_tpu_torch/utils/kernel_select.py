@@ -41,10 +41,12 @@ class SelectCosts(NamedTuple):
 
 # fitted by chip_smoke.py (phase regroup_vs_worklist) on an NVIDIA H100
 # 80GB HBM3, power limit 700.00 W, from testing.heavy_scene()'s 262,144
-# sorted bounce rays; 4 significant digits
+# sorted bounce rays, with the warp-walk worklist kernel (its pass cost
+# fell 10.6x from the 0.1267 the block-walk kernel gave); 4 significant
+# digits
 H100_COSTS = SelectCosts(
-    us_wl_pass=0.1267, us_rg_pass=0.04129, us_rg_pair=0.01862,
-    us_rg_ray=0.02230, ms_rg_fixed=0.1277,
+    us_wl_pass=0.01197, us_rg_pass=0.03353, us_rg_pair=0.01822,
+    us_rg_ray=0.02253, ms_rg_fixed=0.09270,
 )
 RATIO_THRESHOLD = 0.35
 

@@ -88,11 +88,13 @@ def test_kernels_reject_bad_input(dev):
                            torch.zeros(8, device=dev))
 
 
-@pytest.mark.parametrize("sup", [2, 8, wl.WL_SUPER])
-def test_worklist_kernel_equals_plain(dev, sup):
-    """Sphere grid (1,030 quads) at n = 5,000 rays (not a multiple of
-    1024): camera rays, rays from inside the room with zero direction
-    components, finite and dead (tmax = -1) lanes. Bit-equal expected."""
+@pytest.mark.parametrize("sup,group", [(2, 32), (8, 64), (16, 32),
+                                       (wl.WL_SUPER, 32), (wl.WL_SUPER, 1024)])
+def test_worklist_kernel_equals_plain(dev, sup, group):
+    """Sphere grid (1,030 quads) at n = 5,000 rays (not a multiple of the
+    group): camera rays, rays from inside the room with zero direction
+    components, finite and dead (tmax = -1) lanes, work lists per `group`
+    rays. Bit-equal expected."""
     _, cfg = build_device_scene(sphere_grid_scene(2, 16), device="cpu")
     tables = wl.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance,
                             sup=sup, device=dev)
@@ -108,9 +110,9 @@ def test_worklist_kernel_equals_plain(dev, sup):
     tmax[::3] = g.uniform(0.2, 3.0, len(tmax[::3]))
     args = [torch.tensor(x, dtype=torch.float32, device=dev) for x in
             (ro, rd, np.full(n, 1e-4), tmax)]
-    order, cnt = wl.precull(*args, tables.sbbox)
-    got = wl.worklist_intersect_kernel(tables, *args, order, cnt)
-    want, work = wl.worklist_intersect_plain(tables, *args, order, cnt)
+    order, cnt = wl.precull(*args, tables.sbbox, group)
+    got = wl.worklist_intersect_kernel(tables, *args, order, cnt, group)
+    want, work = wl.worklist_intersect_plain(tables, *args, order, cnt, group)
     torch.cuda.synchronize()
     check_hits(want, got)
     assert work["pairs"] > 0 and 0.3 < float(got.hit.float().mean()) < 1.0
@@ -264,21 +266,48 @@ def test_cluster_kernels_equal_plain(dev):
         check_hits(wl.worklist_intersect(tables, *rays), got)
 
 
+@pytest.mark.parametrize("group", [32, 256, 1024])
+def test_candidate_cull_kernel_equals_plain(dev, group):
+    """The candidate cull's keys bit-equal to its plain version at n =
+    5,000 rays (a ragged last group) over the work items of a reduced
+    instanced scene, with dead lanes and rays from inside the room; and
+    the precull's lists on the card equal those of the plain keys."""
+    _, cfg = build_device_scene(instanced_scene(3, (8, 6)), instancing=True,
+                                hybrid_budget=0, device="cpu")
+    tables = ii.upload(cfg.inst_tables, dev)
+    rays = _room_rays(dev, 5000, 6)
+    got = ii.candidate_keys_kernel(*rays, tables.wi_bbox, group)
+    want = ii.candidate_keys_plain(*rays, tables.wi_bbox, group)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (-(-5000 // group), len(tables.wi_sup))
+    assert torch.equal(got, want)
+    finite = torch.isfinite(want)
+    assert bool(finite.any()) and not bool(finite.all())  # padding, dead rays
+    order, tlow, cnt = ii.precull(*rays, tables.wi_bbox, group)
+    assert torch.equal(cnt, finite.sum(dim=1, dtype=torch.int32))
+    assert torch.equal(tlow, want.gather(1, order.long()))
+    with pytest.raises(ValueError):
+        ii.candidate_keys_kernel(*rays, tables.wi_bbox, 48)
+
+
+@pytest.mark.parametrize("group", [32, 128, 256])
 @pytest.mark.parametrize("hybrid", [False, True])
-def test_instanced_kernel_equals_plain(dev, hybrid):
+def test_instanced_kernel_equals_plain(dev, hybrid, group):
     """The work-item kernel bit-equal to its plain version at n = 5,000
     rays on a reduced instanced scene (pure) or on the work items a hybrid
-    build leaves; the whole intersector within check_vs_flat of the dense
-    reference over the same scene flattened."""
+    build leaves, with candidate lists per 32, 128 and 256 rays; the whole
+    intersector within check_vs_flat of the dense reference over the same
+    scene flattened."""
     scene = hybrid_scene(4, 4, 3, 12) if hybrid else instanced_scene(3, (8, 6))
     d, cfg = build_device_scene(scene, instancing=True,
                                 hybrid_budget=300 if hybrid else 0,
                                 device="cpu")
     tables = ii.upload(cfg.inst_tables, dev)
     rays = _room_rays(dev, 5000, 4)
-    lists = ii.precull(*rays, tables.wi_bbox)
-    got = ii.instanced_intersect_kernel(tables, *rays, *lists)
-    want, work = ii.instanced_intersect_plain(tables, *rays, *lists)
+    lists = ii.precull(*rays, tables.wi_bbox, group)
+    got = ii.instanced_intersect_kernel(tables, *rays, *lists, group=group)
+    want, work = ii.instanced_intersect_plain(tables, *rays, *lists,
+                                              group=group)
     torch.cuda.synchronize()
     assert work["pairs"] > 0
     for a, b in zip(got, want):

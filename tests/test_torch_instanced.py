@@ -215,11 +215,13 @@ def test_instanced_intersectors_match_flat(builds, which):
     assert (np.abs(_np(d.prim_verts)[hp]).sum(axis=(1, 2)) > 0).all()
 
 
-def test_kernel_order_stops_early():
-    """The plain version walks each block's candidates front to back and
+@pytest.mark.parametrize("group", [1024, ii.GROUP_RAYS])
+def test_kernel_order_stops_early(group):
+    """The plain version walks each warp's candidates front to back and
     stops once no ray can improve: two instances of one wall, one behind
-    the other, so every ray hits the front one and no block visits the
-    back one; the hits equal those of walking every candidate."""
+    the other, so every ray hits the front one and no warp visits the
+    back one; the hits equal those of walking every candidate. With lists
+    at the JAX package's 1,024-ray blocks and at the kernel's groups."""
     wall = ShapeData(quads=np.array([[0, 1, 2, 3]], np.int32),
                      positions=np.array([[-2, -2, 0], [2, -2, 0], [2, 2, 0],
                                          [-2, 2, 0]], np.float32))
@@ -235,18 +237,72 @@ def test_kernel_order_stops_early():
     rays = [torch.from_numpy(x.astype(np.float32)) for x in (
         ro, np.tile([0.0, 0.0, -1.0], (n, 1)), np.full(n, 1e-4),
         np.full(n, 3.4e38))]
-    lists = ii.precull(*rays, tables.wi_bbox)
-    assert lists[2].tolist() == [2, 2]  # both walls are candidates
-    hit, work = ii.instanced_intersect_plain(tables, *rays, *lists)
-    assert work["block_items"] == 2  # the front wall only, in each block
+    lists = ii.precull(*rays, tables.wi_bbox, group)
+    # both walls are candidates of every group
+    assert lists[2].tolist() == [2] * (n // group)
+    hit, work = ii.instanced_intersect_plain(tables, *rays, *lists, group=group)
+    warps = n // ii.WARP
+    assert work["groups"] == warps
+    assert work["steps"] == work["votes"] == warps  # the front wall only
+    # each ray wants the front wall's one cluster: its 2 real triangles
+    assert work["pairs"] == n and work["tri_slots"] == 2 * n
     assert bool(hit.hit.all()) and (hit.instance == 1).all()
-    # without the stopping rule (every t_low at -inf) the hits are equal
+    # without the stopping rule (every t_low at -inf) the hits are equal;
+    # each warp then visits the back wall too, and no ray enters it
     full, work_all = ii.instanced_intersect_plain(
         tables, *rays, lists[0], torch.full_like(lists[1], -float("inf")),
-        lists[2])
-    assert work_all["block_items"] == int(lists[2].sum())
+        lists[2], group=group)
+    assert work_all["steps"] == 2 * warps and work_all["votes"] == warps
     for a, b in zip(hit, full):
         assert torch.equal(a, b)
+
+
+def _beam_keys_numpy(ro, rd, tmin, tmax, wib, group):
+    """beam_precull's per-block keys (pallas_cluster.py:1786-1817) in numpy
+    float32 over groups of `group` rays, with the JAX function's zero
+    padding to whole groups."""
+    n = len(ro)
+    ng = -(-n // group)
+    pad = ng * group - n
+    ro, rd = (np.pad(x, ((0, pad), (0, 0))) for x in (ro, rd))
+    tmin, tmax = (np.pad(x, (0, pad)) for x in (tmin, tmax))
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        di = np.float32(1.0) / np.where(rd == 0.0, np.float32(1e-30), rd)
+        t0 = (wib[None, :, 0:3] - ro[:, None]) * di[:, None]
+        t1 = (wib[None, :, 3:6] - ro[:, None]) * di[:, None]
+        enter = np.minimum(t0, t1).max(axis=-1)
+        exit_ = np.maximum(t0, t1).min(axis=-1)
+        enter = np.maximum(enter, tmin[:, None])
+        exit_ = np.minimum(exit_, tmax[:, None])
+        ray_hit = enter <= exit_ * np.float32(1.00000024)
+    enter_m = np.where(ray_hit, np.maximum(enter, np.float32(0.0)),
+                       np.float32(np.inf))
+    return enter_m.reshape(ng, group, -1).min(axis=1)
+
+
+@pytest.mark.parametrize("group", sorted({1024, ii.GROUP_RAYS, 32}))
+def test_cull_keys_match_jax_beam_precull(builds, group):
+    """The candidate cull's plain version (what csrc/candidate_cull.cu
+    computes) against the JAX beam_precull's keys recomputed in numpy over
+    the same groups, equal; and precull's lists from them: the count of
+    finite keys, the items in stable key order, t_low the sorted keys."""
+    _, _, (_, cfg), _ = builds
+    rays = [x[:2000] for x in instanced_test_rays()]  # a ragged last group
+    wib = cfg.inst_tables.wi_bbox.reshape(-1, 6).astype(np.float32)
+    want = _beam_keys_numpy(*rays, wib, group)
+    targs = [torch.from_numpy(x) for x in rays]
+    got = ii.candidate_keys_plain(*targs, torch.from_numpy(wib), group)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    finite = np.isfinite(want)
+    assert finite.any()
+    if group == 32:  # larger groups of these rays enter all five items
+        assert not finite.all(), "the cull drops some (group, item) pairs"
+    order, tlow, cnt = ii.precull(*targs, torch.from_numpy(wib), group)
+    np.testing.assert_array_equal(cnt.numpy(), finite.sum(axis=1))
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(want, axis=1, kind="stable"))
+    np.testing.assert_array_equal(tlow.numpy(), np.sort(want, axis=1))
 
 
 @pytest.mark.parametrize("budget", [60, 1_000_000])

@@ -127,15 +127,19 @@ def test_plain_matches_bruteforce(case):
                                   case["inst"][got.prim.numpy()[hit]])
     work = case["work"]
     if hit.any():
-        assert 0 < work["block_pairs"] <= work["warp_pairs"] <= work["pairs"]
+        assert 0 < work["votes"] <= work["steps"]
+        assert 0 < work["warp_pairs"] <= work["pairs"]
+        assert 0 < work["tri_slots"] <= work["pairs"] * wl.TRIS
+        assert work["groups"] == -(-len(hit) // wl.WARP)
 
 
-def _precull_numpy(ro, rd, tmin, tmax, sbbox):
+def _precull_numpy(ro, rd, tmin, tmax, sbbox, group):
     """pallas_cluster.py precull (:1262-1289) in numpy float32, with the
-    JAX function's zero padding to whole 1024-ray blocks."""
+    JAX function's zero padding to whole blocks, over groups of `group`
+    rays (the JAX package's blocks are 1,024)."""
     n = len(ro)
-    nb = -(-n // 1024)
-    pad = nb * 1024 - n
+    nb = -(-n // group)
+    pad = nb * group - n
     ro, rd = (np.pad(x, ((0, pad), (0, 0))) for x in (ro, rd))
     tmin, tmax = (np.pad(x, (0, pad)) for x in (tmin, tmax))
     s = len(sbbox)
@@ -150,16 +154,21 @@ def _precull_numpy(ro, rd, tmin, tmax, sbbox):
         enter = np.maximum(enter, tmin[:, None])
         exit_ = np.minimum(exit_, tmax[:, None])
         ray_hit = enter <= exit_ * np.float32(1.00000024)
-    blk_hit = ray_hit.reshape(nb, 1024, s).any(axis=1)
+    blk_hit = ray_hit.reshape(nb, group, s).any(axis=1)
     enter_m = np.where(ray_hit, np.maximum(enter, np.float32(0.0)), np.float32(np.inf))
-    blk_enter = enter_m.reshape(nb, 1024, s).min(axis=1)
+    blk_enter = enter_m.reshape(nb, group, s).min(axis=1)
     key = np.where(blk_hit, blk_enter, np.float32(np.inf))
     return np.argsort(key, axis=1, kind="stable"), blk_hit.sum(axis=1)
 
 
-def test_precull_matches_jax_logic(case):
-    order, cnt = _precull_numpy(*case["rays"], case["tables"].sbbox.numpy())
-    got_order, got_cnt = case["order"].numpy(), case["cnt"].numpy()
+@pytest.mark.parametrize("group", [1024, wl.GROUP_RAYS])
+def test_precull_matches_jax_logic(case, group):
+    """At the JAX package's 1,024-ray blocks and at the kernel's groups."""
+    order, cnt = _precull_numpy(*case["rays"], case["tables"].sbbox.numpy(),
+                                group)
+    targs = [torch.from_numpy(x) for x in case["rays"]]
+    got_order, got_cnt = (x.numpy() for x in wl.precull(
+        *targs, case["tables"].sbbox, group))
     np.testing.assert_array_equal(got_cnt, cnt)
     assert got_order.dtype == got_cnt.dtype == np.int32
     for b, c in enumerate(cnt):
