@@ -1,12 +1,15 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's hand-written CUDA kernels from julia_raytracer_tpu_torch/csrc
 with nvcc (one process per source, all at once), checks each kernel against
 its plain PyTorch version on the card at the main paths' shapes and times
 both beside the card's bound and, where one exists, a single PyTorch call
-computing the same function. It holds the whole regroup intersector against
+computing the same function (a kernel's `ms` is its device time, launches
+replayed from a CUDA graph; `call_ms` counts the host's launch too). The
+shares of the dense kernel's tests that reach the reciprocal are counted
+by its pre-test's plain mirror. It holds the whole regroup intersector against
 the worklist intersector on the heavy scene's rays and fits the H100's
 kernel-selection costs from their stage times. The candidate-cull kernel and
 the work-item kernel of the instanced path run on the instanced scene's
@@ -34,6 +37,13 @@ it:
 and holds small renders of the paths on the card against the same renders
 on the CPU.
 
+`--parent DIR`: DIR holds an earlier checkout of the repository (`git
+archive` of a commit). The dense kernel's and the tri-test's inputs are
+saved, and child processes time both kernels through each tree's own
+wrappers (`make_dense_intersect`, `regroup_tritest`) on them, in turns
+(parent, this, this, parent), each child checking its results against
+this tree's plain versions bit for bit.
+
 Exits non-zero, printing no result, when no CUDA device is available or any
 phase fails. On success the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,10 +51,14 @@ phase fails. On success the last line is
 
 from __future__ import annotations
 
+import argparse
 import json
+import inspect
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,7 +73,7 @@ from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.integrator import (
-    _sort_key, sort_bounds, trace_wavefront,
+    _host_prims, _sort_key, sort_bounds, trace_wavefront,
 )
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
@@ -106,9 +120,16 @@ LIVE_SHARES = (0.45, 0.2, 0.1, 0.03)
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 arithmetic of one Moller-Trumbore test in dense_intersect.cu
-# (6 edges, 9 pvec, 5 det, 1 divide, 3 tvec, 6 u, 9 qvec, 6 v, 6 t, 1 u+v)
+# fp32 arithmetic of one Moller-Trumbore test in dense_intersect.cu by how
+# far its pre-test lets it go (compares and selects not counted): every
+# test 25 (9 pvec, 5 det, 3 tvec, 5 u numerator, |det|, 2|det|, 2^-23
+# |det|), past the pre-test 24 more (9 qvec, the reciprocal, u, 6 v, 6 t,
+# u + v)
+DENSE_OPS = (25, 24)
+# the test with its 6 edge subtractions and no pre-test (the count of the
+# kernel before its table was precomputed)
 DENSE_OPS_PER_TRI_TEST = 52
+PRETEST_SUBSET = 16384  # rays of the labelled subset of the pre-test share
 RAY_IN_BYTES = 32  # origin, direction, tmin, tmax
 HIT_OUT_BYTES = 44  # prim, u, v, t, position, normal, instance
 
@@ -160,6 +181,61 @@ def median_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call of fn, without the host's launch: `reps`
+    calls captured in a CUDA graph, the graph replayed three times, the
+    median replay over reps. A kernel of a few tens of microseconds takes
+    as long as its host-side launch, which median_ms counts."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def profiled_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of fn: the durations of the device
+    activities (kernels, copies, sets) that torch.profiler records over
+    `reps` calls, summed and divided by reps. Unlike device_ms it takes a
+    call that reads back to the host, and unlike median_ms it leaves out
+    the host's time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
+def kernel_ms(fn, reps: int = REPS) -> dict:
+    """A kernel's `ms` (device time, device_ms) and `call_ms` (one call
+    between CUDA events, the host's launch included)."""
+    return dict(ms=device_ms(fn, reps), call_ms=median_ms(fn, reps))
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
     the HBM rate and the operations over the fp32 rate."""
@@ -191,9 +267,37 @@ def _bit_equal(got, ref) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, ref, strict=True))
 
 
-def phase_intersect(dev, table) -> dict:
+def _pretest_counts(table, ro, rd) -> dict:
+    """The plain mirror of the dense kernel's pre-test (pretest_pass) on
+    these rays: the tests the kernel runs (second triangles of quads with
+    p3 == p4 are skipped) and those that pass the pre-test and reach the
+    reciprocal, the same on the first PRETEST_SUBSET rays, and the (warp
+    of 32 rays, test) pairs in which some lane reaches it (a warp runs the
+    reciprocal's path if any lane does)."""
+    quads = torch.from_numpy(table.quads).to(ro.device)
+    tested = quads[:, 18] == 0.0
+    c = dict(tests=0, reach=0, sub_tests=0, sub_reach=0, warp_tests=0,
+             warp_reach=0)
+    n = ro.shape[0] // 32 * 32
+    for second in (False, True):
+        reach = di.pretest_pass(ro, rd, quads, second)
+        if second:
+            reach = reach[:, tested]
+        c["tests"] += reach.numel()
+        c["reach"] += int(reach.sum())
+        c["sub_tests"] += reach[:PRETEST_SUBSET].numel()
+        c["sub_reach"] += int(reach[:PRETEST_SUBSET].sum())
+        warp = reach[:n].view(n // 32, 32, -1).any(dim=1)
+        c["warp_tests"] += warp.numel()
+        c["warp_reach"] += int(warp.sum())
+    return c
+
+
+def phase_intersect(dev, table, turn_inputs: dict | None) -> dict:
     """262,144 rays (camera rays and bounce-like rays from inside the box)
-    against the Cornell quads: kernel vs plain version on the card."""
+    against the Cornell quads: kernel vs plain version on the card, the
+    pre-test's reach counted by its plain mirror; the rays and the plain
+    version's result go into `turn_inputs` when it is a dict."""
     g = np.random.default_rng(0)
     half = N_RAYS // 2
     ro = np.empty((N_RAYS, 3), np.float32)
@@ -207,18 +311,34 @@ def phase_intersect(dev, table) -> dict:
     args = [torch.from_numpy(x).to(dev) for x in
             (ro, rd, np.full(N_RAYS, 1e-4, np.float32), tmax)]
     got = di.dense_intersect(table, *args)
-    ref = di.dense_intersect_plain(table, *args)
+    ref = di.dense_intersect_plain(table.prims, *args)
     torch.cuda.synchronize()
     err = check_hits(ref, got)
     require(_bit_equal(got, ref), "dense kernel and plain version differ")
     require(got.hit.float().mean() > 0.5, "too few intersect hits")
-    plain_ms = median_ms(lambda: di.dense_intersect_plain(table, *args))
-    ms = median_ms(lambda: di.dense_intersect(table, *args))
-    q = table.shape[0]
-    tests = 2 * q - int((table[:, 6:9] == table[:, 9:12]).all(dim=1).sum())
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound(N_RAYS * (RAY_IN_BYTES + HIT_OUT_BYTES) + table.numel() * 4,
-                        N_RAYS * tests * DENSE_OPS_PER_TRI_TEST))
+    plain_ms = median_ms(lambda: di.dense_intersect_plain(table.prims, *args))
+    t = kernel_ms(lambda: di.dense_intersect(table, *args))
+    c = _pretest_counts(table, args[0], args[1])
+    n_bytes = (N_RAYS * (RAY_IN_BYTES + HIT_OUT_BYTES) + table.quads.nbytes
+               + table.prims.numel() * 4)
+    out = dict(max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
+               pretest=c, **bound(n_bytes, c["tests"] * DENSE_OPS[0]
+                                  + c["reach"] * DENSE_OPS[1]))
+    old_bound = bound(n_bytes, c["tests"] * DENSE_OPS_PER_TRI_TEST)["bound_ms"]
+    if turn_inputs is not None:
+        turn_inputs.update(dense_args=[x.cpu() for x in args],
+                           dense_ref=[x.cpu() for x in ref])
+    log(f"dense_intersect: {N_RAYS} rays x {c['tests'] // N_RAYS} triangle "
+        f"tests; share of tests that pass the pre-test and reach the "
+        f"reciprocal (plain mirror): {c['sub_reach'] / c['sub_tests']:.4f} on "
+        f"a subset, the first {PRETEST_SUBSET} rays; "
+        f"{c['reach'] / c['tests']:.4f} on all; (warp, test) pairs with a "
+        f"lane that reaches it {c['warp_reach'] / c['warp_tests']:.4f}; kernel "
+        f"{out['ms']:.4f} ms (device; {out['call_ms']:.4f} ms with the "
+        f"host's launch), bound {out['bound_ms']:.4f} ms ({out['bound_by']}; "
+        f"{old_bound:.4f} ms at {DENSE_OPS_PER_TRI_TEST} operations a test, "
+        f"the count before the pre-test)")
+    return out
 
 
 def _adversarial_planes(g, p, n, dev):
@@ -248,11 +368,11 @@ def phase_compact(dev) -> dict:
     require(torch.equal(got[:, :total], ref[:, :total]), "compact not bit-exact")
     require(torch.equal(lib, ref[:, :total]), "vals[:, alive] differs")
     plain_ms = median_ms(lambda: lc.compact_planes_plain(vals, alive, COMPACT_CAP))
-    ms = median_ms(lambda: lc.compact_planes(vals, alive, COMPACT_CAP))
+    t = kernel_ms(lambda: lc.compact_planes(vals, alive, COMPACT_CAP))
     library_ms = median_ms(lambda: vals[:, alive])
     n_bytes = vals.numel() * 4 + alive.numel() + STATE_PLANES * COMPACT_CAP * 4
     return dict(max_abs_err=int_max_abs_err(got[:, :total], ref[:, :total]),
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **t, plain_ms=plain_ms, library_ms=library_ms,
                 **bound(n_bytes, 0))
 
 
@@ -275,10 +395,10 @@ def phase_expand(dev) -> dict:
     require(torch.equal(got, ref), "expand not bit-exact")
     require(torch.equal(lib, ref), "masked_scatter differs")
     plain_ms = median_ms(lambda: lc.expand_planes_plain(narrow, alive, fallback))
-    ms = median_ms(lambda: lc.expand_planes(narrow, alive, fallback))
+    t = kernel_ms(lambda: lc.expand_planes(narrow, alive, fallback))
     library_ms = median_ms(library)
     n_bytes = (narrow.numel() + 2 * fallback.numel()) * 4 + alive.numel()
-    return dict(max_abs_err=int_max_abs_err(got, ref), ms=ms,
+    return dict(max_abs_err=int_max_abs_err(got, ref), **t,
                 plain_ms=plain_ms, library_ms=library_ms, **bound(n_bytes, 0))
 
 
@@ -346,7 +466,7 @@ def _worklist_case(tables, rays) -> dict:
     same_prim = float((got.prim == ref.prim).float().mean())
     require(bit_equal, f"worklist kernel and plain version differ (same prim "
             f"{same_prim:.6f}, max |dt| {err})")
-    ms = median_ms(lambda: wl.worklist_intersect_kernel(tables, *rays, order, cnt))
+    t = kernel_ms(lambda: wl.worklist_intersect_kernel(tables, *rays, order, cnt))
     plain_ms = median_ms(
         lambda: wl.worklist_intersect_plain(tables, *rays, order, cnt),
         PLAIN_WORKLIST_REPS)
@@ -356,7 +476,7 @@ def _worklist_case(tables, rays) -> dict:
                    + tables.sbbox.numel()) * 4
     list_bytes = (order.numel() + cnt.numel()) * 4
     return dict(
-        max_abs_err=err, bit_equal=bit_equal, same_prim=same_prim, ms=ms,
+        max_abs_err=err, bit_equal=bit_equal, same_prim=same_prim, **t,
         plain_ms=plain_ms, plain_wall_s=plain_wall, precull_ms=precull_ms,
         library_ms=None, hit_rate=float(got.hit.float().mean()),
         mean_list=float(cnt.float().mean()), **work,
@@ -440,11 +560,13 @@ def _float_err(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def phase_regroup(dev, renderer, bounce) -> dict:
+def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
     """The three regroup kernels on the heavy scene's 262,144 bounce rays:
     each against its plain version on the card, bit for bit, with its
     bound and, for pack, the library gather of the rays in the stable
-    (super, tile, lane) order."""
+    (super, tile, lane) order; the tri-test's walk counters. The
+    tri-test's inputs and the plain version's result go into `turn_inputs`
+    when it is a dict."""
     tables = renderer.intersect.tables
     rays8 = _rays8(bounce)
     plan, n_groups, grp_super = _plan(tables, rays8)
@@ -473,7 +595,7 @@ def phase_regroup(dev, renderer, bounce) -> dict:
             "the gather rays[stable nonzero order] differs from pack")
     pack = dict(
         max_abs_err=_float_err(packed, ref),
-        ms=median_ms(lambda: rg.regroup_pack(plan, rays8, n_slots)),
+        **kernel_ms(lambda: rg.regroup_pack(plan, rays8, n_slots)),
         plain_ms=median_ms(lambda: rg.regroup_pack_plain(plan, rays8, n_slots),
                            PLAIN_REPS),
         library_ms=median_ms(lambda: rays8[order]),
@@ -488,21 +610,33 @@ def phase_regroup(dev, renderer, bounce) -> dict:
         lambda: rg.regroup_tritest_plain(packed, tables, grp_super))
     require(torch.equal(tri, tri_ref),
             "regroup_tritest kernel and plain version differ")
+    if turn_inputs is not None:
+        turn_inputs.update(
+            packed=packed.cpu(), grp_super=grp_super.cpu(), tri_ref=tri_ref.cpu(),
+            tables={k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in tables._asdict().items()})
     # the tables the function must read: each wanted cluster's 8 KB once,
     # and the boxes of the supers its groups test
     table_bytes = (work["clusters"] * wl.ROWS * wl.TRIS
                    + torch.unique(grp_super).numel() * tables.sup * 8) * 4
     tritest = dict(
         max_abs_err=int_max_abs_err(tri, tri_ref),
-        ms=median_ms(lambda: rg.regroup_tritest(packed, tables, grp_super)),
+        **kernel_ms(lambda: rg.regroup_tritest(packed, tables, grp_super)),
         plain_ms=plain_ms, library_ms=None, **work,
         **bound(packed.numel() * 4 + table_bytes + grp_super.numel() * 4
                 + tri.numel() * 4,
                 work["passes"] * wl.TRIS * wl.OPS_PER_TRI_TEST))
-    log(f"regroup_tritest: (slot, cluster) passes {work['passes']}, (group, "
-        f"cluster) table loads {work['group_passes']}, distinct clusters "
-        f"{work['clusters']}, slots {packed.shape[0]}, plain version "
-        f"{plain_ms / 1e3:.2f} s")
+    log(f"regroup_tritest: {packed.shape[0]} slots in {n_groups} groups, "
+        f"{work['warps']} warps, {work['votes']} of them vote (the rest hold "
+        f"only padding and leave), (warp, cluster) table loads "
+        f"{work['warp_pairs']} ((group, cluster) pairs {work['group_passes']}, "
+        f"distinct clusters {work['clusters']}), (slot, cluster) passes in "
+        f"the bound {work['passes']}, slots per table load "
+        f"{work['passes'] / max(work['warp_pairs'], 1):.3f}, lanes busy in the "
+        f"triangle loop {work['tri_slots'] / max(work['passes'] * wl.TRIS, 1):.4f}"
+        f" (of each pass's 32 lanes x 4 test slots, those that hold a real "
+        f"triangle), kernel {tritest['ms']:.4f} ms, bound "
+        f"{tritest['bound_ms']:.4f} ms, plain version {plain_ms / 1e3:.2f} s")
 
     # ---- unpack
     res = rg.regroup_unpack(plan, tri)
@@ -511,23 +645,26 @@ def phase_regroup(dev, renderer, bounce) -> dict:
     require(torch.equal(res, res_ref), "regroup_unpack kernel and plain version differ")
     unpack = dict(
         max_abs_err=int_max_abs_err(res, res_ref),
-        ms=median_ms(lambda: rg.regroup_unpack(plan, tri)),
+        **kernel_ms(lambda: rg.regroup_unpack(plan, tri)),
         plain_ms=median_ms(lambda: rg.regroup_unpack_plain(plan, tri), PLAIN_REPS),
         library_ms=None,
         # + the (tri, t) of each set bit's slot, each ray's result written
         **bound(plan_bytes + set_bits * 8 + res.numel() * 4, 0))
-    stages = dict(rays8=rays8, res=res)
+    stages = dict(rays8=rays8, res=res, plan=plan, packed=packed, tri=tri,
+                  grp_super=grp_super)
     return dict(regroup_pack=pack, regroup_tritest=tritest,
                 regroup_unpack=unpack), stages
 
 
-def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
+def phase_regroup_vs_worklist(dev, renderer, primary, bounce, stages, soups):
     """The whole regroup intersector (count, three kernels, merge) against
     the worklist intersector (precull, kernel) on the heavy scene's camera
     and bounce rays: check_hits, both times, the fallbacks; both again on
     the bounce rays with fewer of them live; then the H100's SelectCosts
     fitted from the stage times on the bounce rays and kernel_select's
-    pass counts of the same rays."""
+    pass counts of the same rays, and regroup="auto"'s choice with the
+    module's and the fitted costs on each of `soups` ({name: (verts,
+    instances)}: the heavy scene and the hybrid's flattened soup)."""
     tables = renderer.intersect.tables
     out = {}
     for name, rays in (("camera", primary), ("bounce", bounce)):
@@ -539,8 +676,12 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
         err = check_hits(h_wl, h_rg)
         rg_ms = median_ms(lambda: rg.regroup_intersect(tables, *rays), 5)
         wl_ms = median_ms(lambda: wl.worklist_intersect(tables, *rays), 5)
+        rg_dev = profiled_ms(lambda: rg.regroup_intersect(tables, *rays))
+        wl_dev = profiled_ms(lambda: wl.worklist_intersect(tables, *rays))
         out[name] = dict(
             regroup_ms=rg_ms, worklist_ms=wl_ms, ratio=rg_ms / wl_ms,
+            regroup_device_ms=rg_dev, worklist_device_ms=wl_dev,
+            device_ratio=rg_dev / wl_dev,
             fallbacks=fb, max_abs_dt=err,
             same_prim=float((h_rg.prim == h_wl.prim).float().mean()),
             hit_rate=float(h_wl.hit.float().mean()),
@@ -549,7 +690,10 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
             f"{out[name]['live']:.4f}): within check_hits (same prim "
             f"{out[name]['same_prim']:.6f}, max |dt| {err}), regroup "
             f"{rg_ms:.4f} ms (fallbacks in the first call: {fb}), worklist "
-            f"{wl_ms:.4f} ms, measured ratio {rg_ms / wl_ms:.4f}")
+            f"{wl_ms:.4f} ms, measured ratio {rg_ms / wl_ms:.4f} (one call "
+            f"between CUDA events); device time (profiler) regroup "
+            f"{rg_dev:.4f} ms, worklist {wl_dev:.4f} ms, ratio "
+            f"{rg_dev / wl_dev:.4f}")
 
     # ---- the liveness gate's crossover on this card: the bounce rays with
     # a seeded share of them dead (tmax = -1, sorted last), regroup with no
@@ -570,20 +714,25 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
             f"{rg_ms:.4f} ms, worklist {wl_ms:.4f} ms, ratio "
             f"{rg_ms / wl_ms:.4f}")
 
-    # ---- stage times on the bounce rays and the cost fit
-    rays8 = stages["rays8"]
-    t_count = median_ms(lambda: _plan(tables, rays8))
-    t_merge = median_ms(lambda: rg.merge(tables, rays8, stages["res"]))
-    t_pack = kernels["regroup_pack"]["ms"]
-    t_unpack = kernels["regroup_unpack"]["ms"]
-    t_tri = kernels["regroup_tritest"]["ms"]
+    # ---- stage times on the bounce rays and the cost fit, every term in
+    # device time by the profiler (profiled_ms), the whole calls included
+    rays8, plan, packed = stages["rays8"], stages["plan"], stages["packed"]
+    t_plan = median_ms(lambda: _plan(tables, rays8))
+    t_count = profiled_ms(lambda: rg.count_stage(rays8, tables.sbbox))
+    t_pack = profiled_ms(lambda: rg.regroup_pack(plan, rays8, packed.shape[0]))
+    t_tri = profiled_ms(lambda: rg.regroup_tritest(packed, tables,
+                                                   stages["grp_super"]))
+    t_unpack = profiled_ms(lambda: rg.regroup_unpack(plan, stages["tri"]))
+    t_merge = profiled_ms(lambda: rg.merge(tables, rays8, stages["res"]))
     n_clusters = -(-renderer.config.n_prims // 64)
     np_rays = [x.cpu().numpy() for x in bounce]
     counts = ks.count_passes(*np_rays, tables.bbox[:n_clusters, :6].cpu().numpy(),
                              device=dev)
-    t_rg, t_wl = out["bounce"]["regroup_ms"], out["bounce"]["worklist_ms"]
-    # the signed remainder: negative when the stages timed one by one add
-    # up to more than the whole call, and then the fit is flagged
+    t_rg = out["bounce"]["regroup_device_ms"]
+    t_wl = out["bounce"]["worklist_device_ms"]
+    # the signed remainder (the live count, the group map, the copies):
+    # negative when the stages timed one by one add up to more than the
+    # whole call, and then the fit is flagged
     fixed = t_rg - (t_count + t_pack + t_tri + t_unpack + t_merge)
     costs = ks.SelectCosts(
         us_wl_pass=t_wl * 1e3 / counts["passes_wl"],
@@ -591,27 +740,42 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, kernels, stages):
         us_rg_pair=(t_pack + t_unpack) * 1e3 / counts["pairs"],
         us_rg_ray=(t_count + t_merge) * 1e3 / N_RAYS,
         ms_rg_fixed=fixed)
-    log(f"regroup stages on the bounce rays: count + read + group map "
-        f"{t_count:.4f} ms, pack {t_pack:.4f}, tri-test {t_tri:.4f}, unpack "
-        f"{t_unpack:.4f}, merge {t_merge:.4f}, rest {fixed:.4f} (whole "
-        f"{t_rg:.4f}); kernel_select counts on these rays {counts}")
+    log(f"regroup stages on the bounce rays (device times by the profiler): "
+        f"count stage {t_count:.4f} ms ({t_plan:.4f} ms with the group count "
+        f"read back and the group map, _plan, between CUDA events), pack "
+        f"{t_pack:.4f}, tri-test {t_tri:.4f}, unpack {t_unpack:.4f}, merge "
+        f"{t_merge:.4f}, rest {fixed:.4f} (whole {t_rg:.4f}; worklist "
+        f"{t_wl:.4f}); kernel_select counts on these rays {counts}")
     log(f"fitted H100 SelectCosts: {costs._asdict()}"
         + ("" if fixed >= 0.0 else " FLAGGED: the stages timed apart sum to "
            f"{-fixed:.4f} ms more than the whole, so ms_rg_fixed < 0"))
     out["fit_flagged"] = fixed < 0.0
-    verts, inst = renderer.config.host_prim_verts, renderer.config.host_prim_instance
-    for label, c in (("module costs", ks.H100_COSTS), ("fitted costs", costs)):
-        sel = ks.select_bounce_kernel(verts, inst, costs=c, device=dev)
-        log(f"kernel_select with the {label}: predicted ratio {sel['ratio']} "
-            f"on {sel['n_rays']} synthetic bounce rays (measured on this "
-            f"run's bounce rays {t_rg / t_wl:.4f}) -> {sel['kernel']} "
-            f"(threshold {sel['threshold']}, passes wl {sel['passes_wl']} rg "
-            f"{sel['passes_rg']}, pairs {sel['pairs']}, probe {sel['probe_s']} s)")
-        out[label.split()[0] + "_prediction"] = {
-            k: sel[k] for k in ("ratio", "kernel", "t_wl_ms", "t_rg_ms")}
+    out["auto"] = {}
+    for scene, (verts, inst) in soups.items():
+        for order in ("sorted", "as sampled"):
+            t0 = time.perf_counter()
+            sc = ks.bounce_counts(verts, inst, device=dev,
+                                  sort_rays=order == "sorted")
+            probe_s = time.perf_counter() - t0
+            # the renderer's decision counts the rays sorted
+            for label, c in (("module", ks.H100_COSTS), ("fitted", costs)):
+                sel = ks.decide(ks.ratio_from_counts(sc, c))
+                log(f"regroup='auto' on {scene} ({len(verts)} quads) with the "
+                    f"{label} costs: predicted ratio {sel['ratio']} on "
+                    f"{sel['n_rays']} synthetic bounce rays counted {order} -> "
+                    f"{sel['kernel']} (threshold {sel['threshold']}, passes wl "
+                    f"{sel['passes_wl']} rg {sel['passes_rg']}, pairs "
+                    f"{sel['pairs']}, probe {probe_s:.1f} s)"
+                    + (f"; measured on this run's heavy bounce rays "
+                       f"{t_rg / t_wl:.4f} in device time"
+                       if scene == "heavy" else ""))
+                out["auto"].setdefault(scene, {})[f"{label}, {order}"] = {
+                    k: sel[k] for k in ("ratio", "kernel", "passes_wl",
+                                        "passes_rg", "pairs")}
     out["fitted_costs"] = costs._asdict()
-    out["stages_ms"] = dict(count=t_count, pack=t_pack, tritest=t_tri,
-                            unpack=t_unpack, merge=t_merge, rest=fixed)
+    out["stages_ms"] = dict(plan=t_plan, count=t_count, pack=t_pack,
+                            tritest=t_tri, unpack=t_unpack, merge=t_merge,
+                            rest=fixed)
     out["counts"] = counts
     return out
 
@@ -644,9 +808,10 @@ def phase_cluster(dev, renderer, rays, need_pairs: int) -> dict:
         require(_bit_equal(got, want), f"{name} kernel and plain version differ")
         err = check_hits(want, got)
         wl_dt = check_hits(ref, got)
-        ms = median_ms(lambda: kernel(tables, *rays), CLUSTER_REPS)
+        t = kernel_ms(lambda: kernel(tables, *rays), CLUSTER_REPS)
+        ms = t["ms"]
         out[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
             bound_pairs=need_pairs,
             **work, **bound(n * (RAY_IN_BYTES + HIT_OUT_BYTES) + box_bytes
                             + work["clusters"] * wl.ROWS * wl.TRIS * 4,
@@ -752,8 +917,9 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
     require(_bit_equal(got, want),
             "instanced_intersect kernel and plain version differ")
     err = check_hits(want, got)
-    ms = median_ms(lambda: ii.instanced_intersect_kernel(tables, *bounce, *lists),
-                   CLUSTER_REPS)
+    t = kernel_ms(lambda: ii.instanced_intersect_kernel(tables, *bounce, *lists),
+                  CLUSTER_REPS)
+    ms = t["ms"]
     precull_ms = median_ms(lambda: ii.precull(*bounce, tables.wi_bbox),
                            CLUSTER_REPS)
     n, ng = bounce[0].shape[0], lists[2].shape[0]
@@ -764,7 +930,7 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
     n_bytes = (n * (RAY_IN_BYTES + HIT_OUT_BYTES) + ng * 4
                + work["steps"] * 16 + work["supers"] * tables.sup * 32
                + work["instances"] * 96 + work["clusters"] * wl.ROWS * wl.TRIS * 4)
-    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+    out = dict(max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
                precull_ms=precull_ms, **work,
                candidates=int(lists[2].sum()),
                **bound(n_bytes, work["pairs"] * wl.TRIS * wl.OPS_PER_TRI_TEST))
@@ -889,11 +1055,12 @@ def phase_cull(tables, rays) -> dict:
     got = ii.candidate_keys_kernel(*rays, boxes)
     want = ii.candidate_keys_plain(*rays, boxes)
     require(torch.equal(got, want), "candidate_cull kernel and plain differ")
-    ms = median_ms(lambda: ii.candidate_keys_kernel(*rays, boxes))
+    t = kernel_ms(lambda: ii.candidate_keys_kernel(*rays, boxes))
+    ms = t["ms"]
     plain_ms = median_ms(lambda: ii.candidate_keys_plain(*rays, boxes),
                          PLAIN_REPS)
     ng, items = got.shape
-    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+    out = dict(max_abs_err=0.0, **t, plain_ms=plain_ms, library_ms=None,
                finite_keys=int(torch.isfinite(got).sum()),
                **bound(rays[0].shape[0] * RAY_IN_BYTES + items * 24
                        + ng * items * 4,
@@ -1071,7 +1238,77 @@ def rng_agrees(dev) -> None:
             "rng draws differ on the card")
 
 
+# Run in a child process by kernels_in_turns (argv: a tree, the inputs
+# file): rows 1 and 9 through that tree's own wrappers, each result held to
+# the plain version's bit for bit, then their device times (device_ms).
+_TURN_CHILD = """
+import json, os, sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from julia_raytracer_tpu_torch.ops import dense_intersect as di
+from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
+REPS = @REPS@
+@DEVICE_MS@
+x = torch.load(sys.argv[2], weights_only=False)
+dev = torch.device("cuda", 0)
+dense = di.make_dense_intersect(x["verts"], x["inst"], dev)
+args = [a.to(dev) for a in x["dense_args"]]
+tables = wl.WorklistTables(**{k: v.to(dev) if torch.is_tensor(v) else v
+                              for k, v in x["tables"].items()})
+packed, grp = x["packed"].to(dev), x["grp_super"].to(dev)
+equal = dict(
+    dense=all(torch.equal(a.cpu(), b) for a, b in zip(dense(*args), x["dense_ref"])),
+    tritest=torch.equal(rg.regroup_tritest(packed, tables, grp).cpu(), x["tri_ref"]))
+print(json.dumps(dict(
+    package=os.path.dirname(os.path.dirname(di.__file__)),
+    equal=equal, dense_ms=device_ms(lambda: dense(*args)),
+    tritest_ms=device_ms(lambda: rg.regroup_tritest(packed, tables, grp)))))
+"""
+
+
+def kernels_in_turns(parent: str, turn_inputs: dict) -> dict:
+    """Device times of the dense kernel and the tri-test of the tree in
+    `parent` and of this one, each through its own wrappers in a child
+    process on the same saved inputs, in turns: parent, this, this,
+    parent -> {kernel: {"parent_ms": [..], "ms_turns": [..]}}."""
+    code = (_TURN_CHILD.replace("@REPS@", str(REPS))
+            .replace("@DEVICE_MS@", inspect.getsource(device_ms)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = (os.path.abspath(parent), here, here, os.path.abspath(parent))
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "turn_inputs.pt")
+        torch.save(turn_inputs, path)
+        for tree in trees:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code, tree, path],
+                                  cwd=tree, capture_output=True, text=True,
+                                  timeout=600)
+            require(proc.returncode == 0,
+                    f"the in-turns timing of {tree} failed:\n{proc.stderr[-4000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            require(os.path.samefile(os.path.dirname(got["package"]), tree),
+                    f"the child for {tree} imported {got['package']}")
+            for name, same in got["equal"].items():
+                require(same, f"{tree}'s {name} kernel and this tree's plain "
+                        "version differ")
+            log(f"in turns, {tree}: dense {got['dense_ms']:.4f} ms, tri-test "
+                f"{got['tritest_ms']:.4f} ms (device; child process "
+                f"{time.perf_counter() - t0:.1f} s)")
+            runs.append(got)
+    return {name: dict(parent_ms=[runs[0][key], runs[3][key]],
+                       ms_turns=[runs[1][key], runs[2][key]])
+            for name, key in (("dense_intersect", "dense_ms"),
+                              ("regroup_tritest", "tritest_ms"))}
+
+
 def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--parent", help="an earlier checkout whose dense "
+                      "kernel and tri-test are timed beside these, in turns")
+    opts = args.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1105,10 +1342,14 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.build_seconds.items())})")
     for name, info in cuda_build.ptxas_info.items():
         log(f"ptxas {name}:\n{info}")
-
     cornell = Renderer(cornell_scene(), Params(
         resolution=MAIN_RES, samples=WARM_SPP + TIMED_SPP, batch=WARM_SPP,
         bounces=MAIN_BOUNCES, sampler="path"), device=dev)
+    # with --parent: the inputs of the two kernels timed in turns
+    turn_inputs = None
+    if opts.parent:
+        verts, inst_ids = _host_prims(cornell.dscene, cornell.config)
+        turn_inputs = dict(verts=verts, inst=inst_ids)
     t0 = time.perf_counter()
     spheres_scene = sphere_grid_scene()
     spheres = Renderer(spheres_scene, Params(
@@ -1153,7 +1394,8 @@ def main() -> int:
         wl.worklist_intersect(spheres.intersect.tables, *sp_primary),
         sp_primary[1], dev)
     phases = {
-        "dense_intersect": phase_intersect(dev, cornell.intersect.table),
+        "dense_intersect": phase_intersect(dev, cornell.intersect.table,
+                                           turn_inputs),
         "lane_compact": phase_compact(dev),
         "lane_expand": phase_expand(dev),
         "worklist_intersect": phase_worklist(dev, spheres, sp_primary,
@@ -1167,15 +1409,23 @@ def main() -> int:
     phases["instanced_intersect"]["hybrid_group_sweep"] = phase_hybrid_sweep(
         dev, inst["hybrid"])
     heavy_primary, heavy_bounce = _heavy_rays(heavy, dev)
-    rg_phases, stages = phase_regroup(dev, heavy, heavy_bounce)
+    rg_phases, stages = phase_regroup(dev, heavy, heavy_bounce, turn_inputs)
     phases.update(rg_phases)
+    if opts.parent:
+        for name, turns in kernels_in_turns(opts.parent, turn_inputs).items():
+            phases[name].update(turns)
+        del turn_inputs
     for name, p in phases.items():
         lib = "none" if p["library_ms"] is None else f"{p['library_ms']:.4f} ms"
         log(f"phase {name}: ok, max_abs_err {p['max_abs_err']}, kernel "
-            f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
+            f"{p['ms']:.4f} ms (device; {p['call_ms']:.4f} ms with the host's "
+            f"launch), plain {p['plain_ms']:.4f} ms, bound "
             f"{p['bound_ms']:.4f} ms ({p['bound_by']}), library call {lib}")
-    versus = phase_regroup_vs_worklist(dev, heavy, heavy_primary, heavy_bounce,
-                                       rg_phases, stages)
+    hyb = inst["hybrid"].config
+    versus = phase_regroup_vs_worklist(
+        dev, heavy, heavy_primary, heavy_bounce, stages,
+        dict(heavy=(heavy.config.host_prim_verts, heavy.config.host_prim_instance),
+             hybrid_soup=(hyb.hyb_world_verts, hyb.hyb_world_inst)))
     del stages
     no_host_sync(spheres, dev)
     log("worklist intersect under set_sync_debug_mode('error'): no host sync")
@@ -1291,10 +1541,12 @@ def main() -> int:
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],
         )
-        for extra in ("primary", "sorted_rays_ms", "passes", "group_passes",
-                      "clusters", "pairs", "bound_pairs", "groups", "steps",
-                      "votes", "warp_pairs", "precull_ms", "candidates",
-                      "finite_keys", "group_sweep", "hybrid_group_sweep"):
+        for extra in ("call_ms", "parent_ms", "ms_turns", "pretest", "primary",
+                      "sorted_rays_ms", "passes", "group_passes",
+                      "clusters", "pairs", "bound_pairs", "warps", "groups",
+                      "steps", "votes", "warp_pairs", "tri_slots",
+                      "precull_ms", "candidates", "finite_keys",
+                      "group_sweep", "hybrid_group_sweep"):
             if extra in p:
                 entry[extra] = p[extra]
         kernels.append(entry)

@@ -4,9 +4,9 @@
 // unit-triangle test of a ray against one triangle of a cluster table
 // (tri_test, on the table, or tri_test_k, on one triangle's 12
 // coefficients), and the closest hit over one cluster's 128 triangles
-// (closest_tri). Included by regroup_intersect.cu and cluster_intersect.cu,
-// and through warp_walk.cuh by worklist_intersect.cu and
-// instanced_intersect.cu; the plain PyTorch versions are _cluster_cull,
+// (closest_tri). Included by cluster_intersect.cu, and through
+// warp_walk.cuh by worklist_intersect.cu, instanced_intersect.cu and
+// regroup_intersect.cu; the plain PyTorch versions are _cluster_cull,
 // _tri_tests and _closest_tri in ops/worklist_intersect.py, which repeat
 // this arithmetic in the same order (bit for bit when the kernels are built
 // with -fmad=false).

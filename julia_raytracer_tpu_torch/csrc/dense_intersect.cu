@@ -21,46 +21,96 @@
 // Built with -fmad=false and IEEE division so each operation rounds as the
 // separate PyTorch elementwise ops of the plain version do.
 //
-// What bounds it on an H100: per ray two triangle tests of ~35 flops per
-// quad (36 tests, ~1.3 kflop, for the 18-quad Cornell box; 224 at the
-// 112-quad cap) with 32 B read and 44 B written. At the main path's 262,144
-// rays that is ~0.3 GFLOP and ~20 MB: microseconds against the card's
-// 67 TFLOP/s (fp32, no tensor cores) and 3.35 TB/s, so launch overhead and
-// occupancy dominate. The design keeps the whole quad table in shared
-// memory (q x 16 floats, <= 7 KB), loaded once per block, so the inner loop
-// reads only shared memory and registers, with one global read per ray
-// input and one global write per output.
+// What bounds it on an H100: operations. Per ray two triangle tests per
+// quad (36 for the 18-quad Cornell box, 224 at the 112-quad cap) with 32 B
+// read and 44 B written; at the main path's 262,144 rays that is ~20 MB
+// against ~0.3 GFLOP, microseconds at the card's 3.35 TB/s and 67 TFLOP/s
+// (fp32, no tensor cores). The old design reloaded the quad corners into
+// shared memory in every 256-thread block and recomputed each test's two
+// edges; it ran 0.033 ms a launch on the card (device time, CUDA-graph
+// replay; the 0.0656 ms that PERF.md's table gave it before counted the
+// host's launch; PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W). This
+// design:
+//   - The quad table is prepared once on the host when the intersector is
+//     built (ops/dense_intersect.py build_quad_params): per triangle its
+//     first vertex and its two edges, the same float32 subtractions the
+//     plain version does on the device, and per quad the flag p3 == p4.
+//     It reaches the kernel as a by-value __grid_constant__ parameter
+//     (CUDA >= 12.1 takes up to 32,764 B of them; 112 quads are 8,960 B),
+//     and the quad loop is unrolled over the table's capacity (32 or 112
+//     quads, a uniform break at q), so every operand sits at a fixed offset
+//     of the constant bank: the counterpart of the TPU kernel's baked-in
+//     constants without a compile per scene (a runtime loop would load each
+//     operand by a register-indexed constant load). There is no shared
+//     memory and no barrier, and the launch copies the parameter, so scenes
+//     on several streams cannot clash.
+//   - A pre-test on undivided quantities skips the reciprocal and the rest
+//     of a test that must miss: det == 0, or u's numerator uu with U = uu *
+//     sign(det) outside [-2^-23 |det|, 2 |det|], where rounding cannot
+//     bring u = uu * (1 / det) into [0, 1]: U > 2 |det| gives u > 1 even
+//     with the reciprocal's rounding in the denormal range, and U < -2^-23
+//     |det| gives u < 0 without an underflow to -0 (which would pass u >=
+//     0). NaN fails both compares and falls through to the exact test, and
+//     so does an overflow of 2 |det|. Everything after it keeps the plain
+//     version's operation order, so the results stay bit-equal;
+//     tests/test_torch_dense_intersect.py holds its plain mirror
+//     (pretest_pass) to never reject a hit. A warp skips the rest of a
+//     test only where all its lanes reject: on coherent camera rays often,
+//     on bounce rays seldom, where the branch costs more than it saves
+//     (PERF.md section 6).
+//   - The reconstruction pass reads the winner's corners, normal and
+//     instance from the [Q, 16] device table, once per ray (its index
+//     differs between lanes, which the constant bank would serialise).
 
 #include <cuda_runtime.h>
+
+#if CUDART_VERSION < 12010
+#error "dense_intersect.cu passes its quad table as a kernel parameter of up to 8,960 B: CUDA >= 12.1"
+#endif
 
 namespace {
 
 constexpr int kMaxPrims = 112;
+constexpr int kSmallCap = 32;  // the unrolled loop's capacity for q <= 32
 constexpr int kStride = 16;  // p1 p2 p3 p4 (12), normal (3), instance bits (1)
+// a1 e1 e2 (tri 1), a2 f1 f2 (tri 2), degenerate flag, pad
+constexpr int kQuadWords = 20;
 constexpr int kThreads = 256;
+constexpr float kNegTol = 1.1920928955078125e-07f;  // 2^-23
+
+struct QuadParams {
+  float w[kMaxPrims * kQuadWords];
+};
 
 struct TriHit {
   bool hit;
   float u, v, t;
 };
 
-// Moller-Trumbore in the same operation order as the plain version.
-__device__ __forceinline__ TriHit moller(
-    float rox, float roy, float roz, float rdx, float rdy, float rdz,
-    float tmin, float tmax, const float* a, const float* b, const float* c) {
-  const float e1x = b[0] - a[0], e1y = b[1] - a[1], e1z = b[2] - a[2];
-  const float e2x = c[0] - a[0], e2y = c[1] - a[1], e2z = c[2] - a[2];
+// Moller-Trumbore against the triangle with first vertex k[0..2] and edges
+// k[3..5], k[6..8] (fixed offsets of the parameter), in the same operation
+// order as the plain version, after the pre-test (this file's head note).
+__device__ __forceinline__ TriHit moller(float rox, float roy, float roz,
+                                         float rdx, float rdy, float rdz,
+                                         float tmin, float tmax,
+                                         const float* k) {
+  TriHit h = {false, 0.0f, 0.0f, 0.0f};
+  const float e1x = k[3], e1y = k[4], e1z = k[5];
+  const float e2x = k[6], e2y = k[7], e2z = k[8];
   const float pvx = rdy * e2z - rdz * e2y;
   const float pvy = rdz * e2x - rdx * e2z;
   const float pvz = rdx * e2y - rdy * e2x;
   const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-  const float tvx = rox - a[0], tvy = roy - a[1], tvz = roz - a[2];
-  TriHit h;
-  h.u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float tvx = rox - k[0], tvy = roy - k[1], tvz = roz - k[2];
+  const float uu = tvx * pvx + tvy * pvy + tvz * pvz;
+  const float d_abs = fabsf(det);
+  const float s = det < 0.0f ? -uu : uu;
+  if (det == 0.0f || s > 2.0f * d_abs || s < -(d_abs * kNegTol)) return h;
   const float qvx = tvy * e1z - tvz * e1y;
   const float qvy = tvz * e1x - tvx * e1z;
   const float qvz = tvx * e1y - tvy * e1x;
+  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
+  h.u = uu * inv_det;
   h.v = (rdx * qvx + rdy * qvy + rdz * qvz) * inv_det;
   h.t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
   h.hit = (det != 0.0f) && (h.u >= 0.0f) && (h.u <= 1.0f) && (h.v >= 0.0f) &&
@@ -68,18 +118,17 @@ __device__ __forceinline__ TriHit moller(
   return h;
 }
 
+// One thread per ray; the quads unrolled up to kCap (>= q).
+template <int kCap>
 __global__ void __launch_bounds__(kThreads) dense_intersect_kernel(
     const float* __restrict__ ro, const float* __restrict__ rd,
     const float* __restrict__ tmin_in, const float* __restrict__ tmax_in,
+    const __grid_constant__ QuadParams quads,
     const float* __restrict__ prims, int q, int n,
     int* __restrict__ prim_out, float* __restrict__ u_out,
     float* __restrict__ v_out, float* __restrict__ t_out,
     float* __restrict__ pos_out, float* __restrict__ nrm_out,
     int* __restrict__ inst_out) {
-  __shared__ float s[kMaxPrims * kStride];
-  for (int k = threadIdx.x; k < q * kStride; k += blockDim.x) s[k] = prims[k];
-  __syncthreads();
-
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float rox = ro[3 * i], roy = ro[3 * i + 1], roz = ro[3 * i + 2];
@@ -89,22 +138,19 @@ __global__ void __launch_bounds__(kThreads) dense_intersect_kernel(
   float bu = 0.0f, bv = 0.0f;
   int best = -1;
 
-  for (int p = 0; p < q; ++p) {
-    const float* r = s + p * kStride;
-    const float* p1 = r;
-    const float* p2 = r + 3;
-    const float* p3 = r + 6;
-    const float* p4 = r + 9;
-    TriHit h = moller(rox, roy, roz, rdx, rdy, rdz, tmin, best_t, p1, p2, p4);
+#pragma unroll
+  for (int p = 0; p < kCap; ++p) {
+    if (p >= q) break;
+    const float* k = quads.w + p * kQuadWords;
+    TriHit h = moller(rox, roy, roz, rdx, rdy, rdz, tmin, best_t, k);
     if (h.hit && h.t < best_t) {
       best_t = h.t;
       bu = h.u;
       bv = h.v;
       best = p;
     }
-    const bool degenerate = p3[0] == p4[0] && p3[1] == p4[1] && p3[2] == p4[2];
-    if (!degenerate) {
-      h = moller(rox, roy, roz, rdx, rdy, rdz, tmin, best_t, p3, p4, p2);
+    if (k[18] == 0.0f) {  // p3 != p4
+      h = moller(rox, roy, roz, rdx, rdy, rdz, tmin, best_t, k + 9);
       if (h.hit && h.t < best_t) {
         best_t = h.t;
         bu = 1.0f - h.u;
@@ -117,7 +163,7 @@ __global__ void __launch_bounds__(kThreads) dense_intersect_kernel(
   float px = 0.0f, py = 0.0f, pz = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
   int inst = 0;
   if (best >= 0) {
-    const float* r = s + best * kStride;
+    const float* r = prims + best * kStride;
     const bool lower = bu + bv <= 1.0f;
     const float iu = lower ? bu : 1.0f - bu;
     const float iv = lower ? bv : 1.0f - bv;
@@ -126,13 +172,13 @@ __global__ void __launch_bounds__(kThreads) dense_intersect_kernel(
     const float* a = lower ? r : r + 6;
     const float* b = lower ? r + 3 : r + 9;
     const float* c = lower ? r + 9 : r + 3;
-    px = a[0] * iw + b[0] * iu + c[0] * iv;
-    py = a[1] * iw + b[1] * iu + c[1] * iv;
-    pz = a[2] * iw + b[2] * iu + c[2] * iv;
-    nx = r[12];
-    ny = r[13];
-    nz = r[14];
-    inst = __float_as_int(r[15]);
+    px = __ldg(a) * iw + __ldg(b) * iu + __ldg(c) * iv;
+    py = __ldg(a + 1) * iw + __ldg(b + 1) * iu + __ldg(c + 1) * iv;
+    pz = __ldg(a + 2) * iw + __ldg(b + 2) * iu + __ldg(c + 2) * iv;
+    nx = __ldg(r + 12);
+    ny = __ldg(r + 13);
+    nz = __ldg(r + 14);
+    inst = __float_as_int(__ldg(r + 15));
   }
   prim_out[i] = best;
   u_out[i] = bu;
@@ -149,14 +195,24 @@ __global__ void __launch_bounds__(kThreads) dense_intersect_kernel(
 
 }  // namespace
 
+// quads: host pointer to q x 20 floats (build_quad_params), copied into the
+// launch's parameters; prims: device [q, 16] (build_prim_table).
 extern "C" int dense_intersect_launch(
     const float* ro, const float* rd, const float* tmin, const float* tmax,
-    const float* prims, int q, int n, int* prim, float* u, float* v, float* t,
-    float* pos, float* nrm, int* inst, cudaStream_t stream) {
+    const float* quads, const float* prims, int q, int n, int* prim,
+    float* u, float* v, float* t, float* pos, float* nrm, int* inst,
+    cudaStream_t stream) {
   if (q < 0 || q > kMaxPrims || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  QuadParams params = {};
+  for (int k = 0; k < q * kQuadWords; ++k) params.w[k] = quads[k];
   const int blocks = (n + kThreads - 1) / kThreads;
-  dense_intersect_kernel<<<blocks, kThreads, 0, stream>>>(
-      ro, rd, tmin, tmax, prims, q, n, prim, u, v, t, pos, nrm, inst);
+  if (q <= kSmallCap) {
+    dense_intersect_kernel<kSmallCap><<<blocks, kThreads, 0, stream>>>(
+        ro, rd, tmin, tmax, params, prims, q, n, prim, u, v, t, pos, nrm, inst);
+  } else {
+    dense_intersect_kernel<kMaxPrims><<<blocks, kThreads, 0, stream>>>(
+        ro, rd, tmin, tmax, params, prims, q, n, prim, u, v, t, pos, nrm, inst);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,8 +36,9 @@
 //            with the slot's own tmax (not its running best, as the TPU
 //            kernel culls, pallas_regroup.py:452-461), the 128 triangles of
 //            a cluster it wants in index order with a strict `<` against
-//            its running best (cluster_test.cuh); out (tri, t bits), tri =
-//            -1 and t = tmax on a miss (:544-553);
+//            its running best (the first minimum, as warp_closest finds
+//            it); out (tri, t bits), tri = -1 and t = tmax on a miss or on
+//            a triangle >= 2q (:544-553);
 //   unpack:  per ray, supers in index order, (tri, t) of its slot merged
 //            where t > 0 and t < best (strict, :368-372); best starts at
 //            +inf and tri at -1; out (tri, t bits).
@@ -45,30 +46,48 @@
 // What bounds them on an H100: pack and unpack move bytes (the bits once,
 // 32 B in and out per set bit for pack, 8 B per set bit for unpack), the
 // tri-test does operations (128 triangle tests of 40 fp32 operations per
-// (slot, cluster) pair that passes the cull). The tri-test keeps one
-// super's 128 boxes (4 KB) and one cluster's table (8 KB) in shared memory,
-// loads a cluster only when a slot of the group wants it
-// (__syncthreads_or), and every thread reads the same triangle at once
-// (shared-memory broadcast), as worklist_intersect.cu does. TMA, warp
-// specialisation and persistent CTAs are later work.
+// (slot, cluster) pair that passes the cull).
+//
+// The tri-test walks per warp (warp_walk.cuh's warp_super_step, with its
+// running-best re-cull turned off): the 32 slots of a warp lie in one group,
+// so in one supercluster, and take one step. Each slot culls the super's
+// clusters against its tmax into a mask, the warp ORs the masks once (the
+// mask vote), and each set cluster's table goes from device memory into
+// registers (4 triangles a lane, coalesced read-only loads) for the slots
+// that want it, each tested on all 32 lanes with a (t, index) shuffle-min
+// that finds the serial strict `<`'s first minimum. A warp none of whose
+// slots can enter a box (tmin > tmax * slack: the padding slots, at tmax =
+// -1) writes its misses and leaves. There is no shared memory and no
+// block-wide barrier, so several 128-thread CTAs share an SM. The old
+// design (one 1024-thread CTA a group, a block-wide __syncthreads_or and
+// an 8 KB shared-memory load per cluster any slot wanted, each wanting slot
+// running its 128 tests alone on one lane) took 10.83 ms on the heavy
+// scene's bounce rays against a 0.1400 ms bound; this design takes 1.156
+// ms, in turns with it on one card (PERF.md section 6, NVIDIA H100 80GB
+// HBM3, 700 W). There 38,830 of 42,144 warps vote, each slot culls the
+// super's 128 boxes, and 489,740 (warp, cluster) table loads (6 KB each,
+// 3.74 slots a load) feed 1,832,175 (slot, cluster) passes at 88% of the
+// lane slots on real triangles: the culls and the table loads, not the
+// tests, set its time.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "cluster_test.cuh"
+#include "warp_walk.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;  // rays per tile = slots per group = threads
+constexpr int kTile = 1024;  // rays per tile = slots per group
 constexpr int kWarps = kTile / 32;
-constexpr int kMaxSup = 128;  // clusters per supercluster (upper limit)
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSup = kMaskWords * kWarp;  // clusters per supercluster
 
-// Exclusive rank of `flag` among the CTA's 1024 threads, in thread order.
+// Exclusive rank of `flag` among the CTA's 1024 threads (pack, unpack), in
+// thread order.
 // Every thread of the CTA must call it.
 __device__ __forceinline__ int block_rank(bool flag, int* warp_off) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(kFull, flag);
+  const unsigned ballot = __ballot_sync(kFullMask, flag);
   if (lane == 0) warp_off[warp] = __popc(ballot);
   __syncthreads();
   if (warp == 0) {
@@ -76,7 +95,7 @@ __device__ __forceinline__ int block_rank(bool flag, int* warp_off) {
     const int c = warp_off[lane];
     int inc = c;
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, inc, o);
+      const int y = __shfl_up_sync(kFullMask, inc, o);
       if (lane >= o) inc += y;
     }
     warp_off[lane] = inc - c;
@@ -122,62 +141,44 @@ __global__ void __launch_bounds__(kTile) pack_kernel(
   }
 }
 
-// grid (groups): one CTA per 1024 packed slots of one super, one thread per
-// slot.
-__global__ void __launch_bounds__(kTile) tritest_kernel(
+constexpr int kTriThreads = 128;  // 4 independent warps per CTA
+constexpr int kCtasPerGroup = kTile / kTriThreads;
+
+// grid (groups * 8): 128 threads per CTA, one thread per packed slot; the
+// 8 CTAs of a group share its supercluster.
+__global__ void __launch_bounds__(kTriThreads) tritest_kernel(
     const float* __restrict__ packed, const float* __restrict__ tab,
     const float* __restrict__ bbox, const int* __restrict__ grp_super,
     int sup, int q, int* __restrict__ out) {
-  __shared__ __align__(16) float tile[kRows * kTris];  // one cluster, 8 KB
-  __shared__ float boxes[kMaxSup * 8];                  // one supercluster
-
-  const int s = grp_super[blockIdx.x];
-  const size_t slot = static_cast<size_t>(blockIdx.x) * kTile + threadIdx.x;
-  for (int e = threadIdx.x; e < sup * 8; e += kTile) {
-    boxes[e] = bbox[static_cast<size_t>(s) * sup * 8 + e];
-  }
+  const int s = __ldg(grp_super + blockIdx.x / kCtasPerGroup);
+  const size_t slot =
+      static_cast<size_t>(blockIdx.x) * kTriThreads + threadIdx.x;
   const float4* p = reinterpret_cast<const float4*>(packed + slot * 8);
-  const float4 a = p[0], b = p[1];
+  const float4 a = __ldg(p), c = __ldg(p + 1);
   Ray r;
   r.ox = a.x;
   r.oy = a.y;
   r.oz = a.z;
   r.dx = a.w;
-  r.dy = b.x;
-  r.dz = b.y;
-  r.tmin = b.z;
+  r.dy = c.x;
+  r.dz = c.y;
+  r.tmin = c.z;
   set_inverse_dir(r);
-  const float tmax = b.w;
-  float best = tmax;
-  int best_tri = -1;
-  __syncthreads();  // boxes
-
-  for (int ci = 0; ci < sup; ++ci) {
-    const bool want = cluster_cull(r, tmax, boxes + ci * 8);
-    if (!__syncthreads_or(want)) continue;  // also fences the old tile
-    const int cl = s * sup + ci;
-    const float4* src = reinterpret_cast<const float4*>(
-        tab + static_cast<size_t>(cl) * kRows * kTris);
-    float4* dst = reinterpret_cast<float4*>(tile);
-    for (int e = threadIdx.x; e < kRows * kTris / 4; e += kTile) {
-      dst[e] = src[e];
-    }
-    __syncthreads();
-    if (want) {
-      int arg = -1;
-      for (int j = 0; j < kTris; ++j) {
-        float t, u, v;
-        if (tri_test(r, tile, j, best, t, u, v)) {
-          best = t;
-          arg = j;
-        }
-      }
-      if (arg >= 0) best_tri = cl * kTris + arg;
-    }
+  const float tmax = c.w;
+  // a box test passes only if tmin <= enter <= exit * slack <= tmax * slack,
+  // so a slot that fails this enters no cluster (and NaN fails it)
+  const bool enter = r.tmin <= tmax * kSlack;
+  Best b = {tmax, 0.0f, 0.0f, -1, 0, 0};
+  if (__any_sync(kFullMask, enter)) {
+    warp_super_step<false>(r, tmax, enter, b,
+                           bbox + static_cast<size_t>(s) * sup * 8,
+                           tab + static_cast<size_t>(s) * sup * kRows * kTris,
+                           sup, s * sup, 0);
   }
+  const int best_tri = b.cluster >= 0 ? b.cluster * kTris + b.arg : -1;
   const bool valid = best_tri >= 0 && best_tri < 2 * q;
-  out[2 * slot] = valid ? best_tri : -1;
-  out[2 * slot + 1] = __float_as_int(valid ? best : tmax);
+  reinterpret_cast<int2*>(out)[slot] =
+      make_int2(valid ? best_tri : -1, __float_as_int(valid ? b.t : tmax));
 }
 
 // grid (tiles): one CTA per 1024-ray tile, one thread per ray.
@@ -233,12 +234,13 @@ extern "C" int regroup_tritest_launch(const float* packed, const float* tab,
                                       const float* bbox, const int* grp_super,
                                       int groups, int sup, int q, int* out,
                                       cudaStream_t stream) {
-  if (groups < 0 || sup < 1 || sup > kMaxSup || q < 0) {
+  if (groups < 0 || groups > INT_MAX / kCtasPerGroup || sup < 1 || sup > kMaxSup ||
+      q < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (groups == 0) return 0;
-  tritest_kernel<<<groups, kTile, 0, stream>>>(packed, tab, bbox, grp_super,
-                                               sup, q, out);
+  tritest_kernel<<<groups * kCtasPerGroup, kTriThreads, 0, stream>>>(
+      packed, tab, bbox, grp_super, sup, q, out);
   return static_cast<int>(cudaGetLastError());
 }
 

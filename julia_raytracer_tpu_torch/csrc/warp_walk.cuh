@@ -1,6 +1,7 @@
-// The inner step that the worklist kernel (worklist_intersect.cu) and the
-// work-item kernel (instanced_intersect.cu) share: one warp of 32 rays
-// against the clusters of one supercluster, with no block-wide barrier.
+// The inner step that the worklist kernel (worklist_intersect.cu), the
+// work-item kernel (instanced_intersect.cu) and the regroup tri-test
+// (regroup_intersect.cu) share: one warp of 32 rays against the clusters
+// of one supercluster, with no block-wide barrier.
 //
 //   1. Each ray slab-tests every cluster box of the supercluster against
 //      [tmin, min(tmax, best)] (cluster_cull, best at the step's start)
@@ -9,8 +10,11 @@
 //   2. The warp ORs the masks once (__reduce_or_sync): the mask vote.
 //   3. For each set cluster in index order, each ray whose bit is set
 //      culls the cluster again against its running best (best only
-//      shrinks, so this keeps no cluster the step-start cull dropped); the
-//      rays that still want it are the ballot.
+//      shrinks, so this keeps no cluster the step-start cull dropped; the
+//      template parameter kRecull, true unless a caller asks otherwise);
+//      the rays that still want it are the ballot. The regroup tri-test
+//      (regroup_intersect.cu) turns the re-cull off: its slots test every
+//      cluster their tmax lets in, as the TPU kernel does.
 //   4. If any does, the warp loads the cluster's 12 transform rows through
 //      the read-only path, 4 triangles a lane (one coalesced float4 per row
 //      and lane), and tests the wanting rays one after another: the ray's
@@ -25,7 +29,7 @@
 // slot that holds a padding or degenerate triangle runs the never-hit
 // transform: the plain versions count the real ones, `tri_slots`), and a
 // table is loaded once per (warp, cluster) that some ray wants. The plain
-// PyTorch versions of both kernels take the clusters of a step in the same
+// PyTorch versions of the kernels take the clusters of a step in the same
 // order against the same running best.
 
 #pragma once
@@ -119,6 +123,7 @@ __device__ __forceinline__ int warp_closest(const Ray& r, float best,
 // note). boxes: its `sup` cluster boxes [sup][8]; tab: its tables
 // [sup][16][128]; cluster0: the global id of its first cluster; tag: kept
 // with a hit found here. Every lane of the warp must call it.
+template <bool kRecull = true>
 __device__ __forceinline__ void warp_super_step(
     const Ray& r, float tmax, bool enter, Best& b,
     const float* __restrict__ boxes, const float* __restrict__ tab, int sup,
@@ -147,7 +152,7 @@ __device__ __forceinline__ void warp_super_step(
       bits &= bits - 1u;
       const int j = w * kWarp + jj;
       bool want = (mask[w] >> jj) & 1u;
-      if (want) {
+      if (kRecull && want) {
         float box[8];
         load_box(boxes + j * 8, box);
         want = cluster_cull(r, min_nan(tmax, b.t), box);

@@ -2,10 +2,15 @@
 csrc/dense_intersect.cu and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel julia_raytracer_tpu/ops/pallas_intersect.py
-(_make_kernel via make_bruteforce_pallas). The quad table is built once
-per scene on the host: [Q, 16] float32 rows of the four corners, the
-quad's constant element normal (computed in float64 as the TPU kernel's
-_quad_normal_const does) and the instance id's bits.
+(_make_kernel via make_bruteforce_pallas). The quad tables are built once
+per scene on the host (make_dense_table): [Q, 16] float32 rows of the four
+corners, the quad's constant element normal (computed in float64 as the
+TPU kernel's _quad_normal_const does) and the instance id's bits, on the
+rays' device; and [Q, 20] float32 rows of each triangle's first vertex and
+two edges (the plain version's own float32 subtractions) and the flag p3
+== p4, kept on the host and passed to the kernel as a launch parameter.
+`pretest_pass` is the plain mirror of the kernel's pre-test, which skips
+the reciprocal of a test whose exact result must be a miss.
 
 Semantics of both versions (see the .cu file): quads in index order,
 strict `<` against a running best t that starts at tmax, so the lowest
@@ -24,6 +29,7 @@ kernel's launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +39,10 @@ from julia_raytracer_tpu_torch.ops.traversal import Hit
 
 MAX_PRIMS = 112
 STRIDE = 16
+# the kernel's parameter rows: a1 e1 e2 of (p1, p2, p4), a2 f1 f2 of (p3,
+# p4, p2), the flag p3 == p4, a pad word
+QUAD_WORDS = 20
+NEG_TOL = 2.0**-23  # the pre-test's margin below u = 0
 
 
 def _quad_normal_const(p: np.ndarray) -> np.ndarray:
@@ -64,6 +74,57 @@ def build_prim_table(prim_verts: np.ndarray, prim_instance=None) -> np.ndarray:
     )
     table[:, 15] = inst.view(np.float32)
     return table
+
+
+def build_quad_params(table: np.ndarray) -> np.ndarray:
+    """[Q, 16] table (build_prim_table) -> [Q, 20] float32 rows of the
+    kernel's parameter: per triangle its first vertex and its two edges,
+    the same float32 subtractions `_moller` does, and the flag p3 == p4
+    (1.0: the second triangle is skipped)."""
+    t = np.asarray(table, np.float32)
+    p1, p2, p3, p4 = t[:, 0:3], t[:, 3:6], t[:, 6:9], t[:, 9:12]
+    out = np.zeros((len(t), QUAD_WORDS), np.float32)
+    for k, (a, b, c) in enumerate(((p1, p2, p4), (p3, p4, p2))):
+        out[:, 9 * k:9 * k + 3] = a
+        out[:, 9 * k + 3:9 * k + 6] = b - a
+        out[:, 9 * k + 6:9 * k + 9] = c - a
+    out[:, 18] = (p3 == p4).all(axis=1)
+    return out
+
+
+class DenseTable(NamedTuple):
+    """The dense intersector's two tables for one quad soup."""
+
+    prims: torch.Tensor  # f32 [Q, 16] on the rays' device
+    quads: np.ndarray  # f32 [Q, 20] on the host: the kernel's parameter
+
+
+def make_dense_table(prim_verts: np.ndarray, prim_instance, device) -> DenseTable:
+    """[Q, 4, 3] corners (+ [Q] instance ids) -> both tables, the [Q, 16]
+    one on `device`."""
+    table = build_prim_table(prim_verts, prim_instance)
+    return DenseTable(torch.as_tensor(table, device=device),
+                      build_quad_params(table))
+
+
+def pretest_pass(ro, rd, quads: torch.Tensor, second: bool = False):
+    """Plain mirror of the kernel's pre-test for rays ro/rd [N, 3] against
+    the triangles of quads [Q, 20] (the first of each quad, or the second)
+    -> [N, Q] bool: the tests that pass it and go on to the reciprocal. A
+    test that fails it (det == 0, or u's numerator outside [-2^-23 |det|,
+    2 |det|] in det's orientation) must be a miss of the exact test."""
+    k = 9 if second else 0
+    a, e1, e2 = ([quads[:, k + 3 * j + i] for i in range(3)] for j in range(3))
+    rox, roy, roz = (ro[:, i:i + 1] for i in range(3))
+    rdx, rdy, rdz = (rd[:, i:i + 1] for i in range(3))
+    pvx = rdy * e2[2] - rdz * e2[1]
+    pvy = rdz * e2[0] - rdx * e2[2]
+    pvz = rdx * e2[1] - rdy * e2[0]
+    det = e1[0] * pvx + e1[1] * pvy + e1[2] * pvz
+    uu = (rox - a[0]) * pvx + (roy - a[1]) * pvy + (roz - a[2]) * pvz
+    d_abs = det.abs()
+    s = torch.where(det < 0.0, -uu, uu)
+    return ~((det == 0.0) | (s > 2.0 * d_abs) | (s < -(d_abs * NEG_TOL)))
 
 
 def _moller(ro, rd, tmin, tmax, a, b, c):
@@ -152,20 +213,25 @@ def _check(x, dtype, shape, device, name):
         raise ValueError(f"{name} must be contiguous")
 
 
-def dense_intersect(table, ro, rd, tmin, tmax) -> Hit:
-    """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] against the quad
-    table [Q, 16] (build_prim_table). Plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors."""
+def dense_intersect(table: DenseTable, ro, rd, tmin, tmax) -> Hit:
+    """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] against the quads of
+    `table` (make_dense_table). Plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors."""
+    prims, quads = table
     if ro.device.type == "cpu":
-        return dense_intersect_plain(table, ro, rd, tmin, tmax)
+        return dense_intersect_plain(prims, ro, rd, tmin, tmax)
     if ro.device.type != "cuda":
         raise ValueError(f"dense_intersect: unsupported device {ro.device}")
-    n, q = ro.shape[0], table.shape[0]
+    n, q = ro.shape[0], prims.shape[0]
     dev = ro.device
     f32 = torch.float32
-    _check(table, f32, (q, STRIDE), dev, "table")
+    _check(prims, f32, (q, STRIDE), dev, "prims")
     if q > MAX_PRIMS:
         raise ValueError(f"dense intersector takes <= {MAX_PRIMS} quads, got {q}")
+    if (quads.dtype != np.float32 or quads.shape != (q, QUAD_WORDS)
+            or not quads.flags.c_contiguous):
+        raise ValueError(f"quads: expected float32 ({q}, {QUAD_WORDS}) "
+                         f"C-contiguous, got {quads.dtype} {quads.shape}")
     _check(ro, f32, (n, 3), dev, "ro")
     _check(rd, f32, (n, 3), dev, "rd")
     _check(tmin, f32, (n,), dev, "tmin")
@@ -180,9 +246,9 @@ def dense_intersect(table, ro, rd, tmin, tmax) -> Hit:
     inst = torch.empty(n, dtype=torch.int32, device=dev)
     err = lib.dense_intersect_launch(
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-        table.data_ptr(), q, n, prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-        t.data_ptr(), pos.data_ptr(), nrm.data_ptr(), inst.data_ptr(),
-        cuda_build.stream_handle(dev),
+        quads.ctypes.data, prims.data_ptr(), q, n, prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), t.data_ptr(), pos.data_ptr(),
+        nrm.data_ptr(), inst.data_ptr(), cuda_build.stream_handle(dev),
     )
     cuda_build.check(err, "dense_intersect")
     if n:  # the launcher launches nothing for no rays
@@ -201,15 +267,14 @@ def _lib():
     fn = lib.dense_intersect_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def make_dense_intersect(prim_verts: np.ndarray, prim_instance, device):
     """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup."""
-    table = torch.as_tensor(build_prim_table(prim_verts, prim_instance),
-                            device=device)
+    table = make_dense_table(prim_verts, prim_instance, device)
 
     def intersect(ro, rd, tmin, tmax):
         return dense_intersect(table, ro, rd, tmin, tmax)

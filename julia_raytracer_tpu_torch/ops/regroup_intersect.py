@@ -15,8 +15,8 @@ chunk of `chunk_blocks` 1024-ray tiles:
     box -> bits [T, S, 1024] (bool), the set bits per (tile, super) and
     per super, each super's segment of packed slots padded to whole
     1024-slot groups, the slot of each (tile, super) pair's first ray,
-    and the group -> super map. One host read per chunk (the group count
-    and the live rays) decides between regroup and the worklist fallback.
+    and the group -> super map. A host read of the group count decides
+    whether the packed rows fit (Fallback, below).
   regroup_pack (kernel): each set bit's ray payload (ox oy oz dx dy dz
     tmin tmax) to its slot, stable by (super, tile, lane).
   regroup_tritest (kernel): each group of 1024 slots against its super's
@@ -31,9 +31,10 @@ Fallback: a chunk whose packed rows exceed the capacity (`blk_cap`
 so the same `blk_cap` falls back at the same counts) or whose share of
 live rays (tmax > 0) is under `livegate` goes to the worklist kernel
 over the same tables: the JAX package's own rule (pallas_regroup.py:
-613-627, :923-929), a lax.cond there and one host read here.
-`regroup_intersect.host_syncs` counts those reads and
-`regroup_intersect.fallbacks` the chunks that fell back.
+613-627, :923-929), a lax.cond there and host reads here: the live count
+first, so that a chunk the gate sends to the worklist skips the count
+stage, then the group count. `regroup_intersect.host_syncs` counts those
+reads and `regroup_intersect.fallbacks` the chunks that fell back.
 
 Differences from the JAX function, none of which changes a hit: the tri
 test culls per slot rather than per 128-slot row, and in fp32 (no bf16
@@ -41,7 +42,10 @@ split3); segments carry no slack; the `JRT_RG_*` environment knobs are
 arguments, and the uv-fast test (`JRT_RG_UVFAST`, not winner-exact) is
 not ported. Across superclusters an exact t tie may pick another prim
 than the worklist kernel's front-to-back walk: hold the two to
-testing.check_hits, not bit equality.
+testing.check_hits, not bit equality. At tmax = +inf (the renderer sends
+FLT_MAX) the JAX intersectors turn a live ray whose 128-ray row enters a
+cluster without a hit into a hit at t = FLT_MAX, their miss fill
+(pallas_regroup.py:531-537); here, as in the port's worklist, it misses.
 """
 
 from __future__ import annotations
@@ -131,8 +135,15 @@ def regroup_tritest_plain(packed, tables: wl.WorklistTables, grp_super):
     """Plain version of the tri-test kernel -> (out [slots, 2] i32, work),
     where work counts the (slot, cluster) pairs that pass the cull
     (`passes`, each 128 triangle tests), the (group, cluster) pairs with
-    at least one (`group_passes`: the kernel's table loads) and the
-    distinct clusters among them (`clusters`).
+    at least one (`group_passes`) and the distinct clusters among them
+    (`clusters`); and what the kernel's per-warp walk pays for them: the
+    warps it launches (`warps`, 32 slots each), those with a slot that can
+    enter a box (tmin <= tmax * SLACK), each one mask vote (`votes`; the
+    others leave at once), the (warp, cluster) pairs with a slot that
+    wants the cluster, each one table load (`warp_pairs`), and the real
+    (not padding) triangles of the passes' clusters (`tri_slots`: over
+    passes x 128, the share of the triangle loop's lane slots that test a
+    real triangle).
 
     The kernel culls with the slot's tmax, never its running best, so the
     clusters a slot tests do not depend on what it has hit, and its
@@ -168,6 +179,7 @@ def regroup_tritest_plain(packed, tables: wl.WorklistTables, grp_super):
     cl_p = sc[slot_p] * sup + ci_p
     t_pair = torch.empty(slot_p.shape[0], device=dev)
     tri_pair = torch.empty(slot_p.shape[0], dtype=torch.int64, device=dev)
+    hit_pair = torch.empty(slot_p.shape[0], dtype=torch.bool, device=dev)
     for lo in range(0, slot_p.shape[0], PLAIN_PAIRS):  # the tri tests
         k = slice(lo, lo + PLAIN_PAIRS)
         sp = slot_p[k]
@@ -177,9 +189,11 @@ def regroup_tritest_plain(packed, tables: wl.WorklistTables, grp_super):
         arg = torch.argmin(t, dim=1, keepdim=True)  # first minimum
         t_pair[k] = t.gather(1, arg)[:, 0]
         tri_pair[k] = cl_p[k] * TRIS + arg[:, 0]
+        hit_pair[k] = hit.gather(1, arg)[:, 0]
     best = tmax.clone()
     best.scatter_reduce_(0, slot_p, t_pair, "amin")
-    won = t_pair == best[slot_p]  # a hit is < tmax, so tmax never ties
+    # a pair without a hit never wins, not even at tmax = +inf
+    won = hit_pair & (t_pair == best[slot_p])
     no_tri = torch.iinfo(torch.int64).max
     best_tri = torch.full((n,), no_tri, dtype=torch.int64, device=dev)
     best_tri.scatter_reduce_(0, slot_p[won], tri_pair[won], "amin")
@@ -187,9 +201,14 @@ def regroup_tritest_plain(packed, tables: wl.WorklistTables, grp_super):
     valid = (best_tri >= 0) & (best_tri < 2 * tables.n_prims)
     tri = torch.where(valid, best_tri, -1).to(torch.int32)
     t = torch.where(valid, best, tmax)
+    enter = tmin <= tmax * wl.SLACK
     work = dict(passes=slot_p.numel(),
                 group_passes=torch.unique((slot_p // TILE) * sup + ci_p).numel(),
-                clusters=torch.unique(cl_p).numel())
+                clusters=torch.unique(cl_p).numel(),
+                warps=n // wl.WARP,
+                votes=int(enter.view(-1, wl.WARP).any(dim=1).sum()),
+                warp_pairs=torch.unique((slot_p // wl.WARP) * sup + ci_p).numel(),
+                tri_slots=int(wl.real_tris(tables.tab)[cl_p].sum()))
     return torch.stack([tri, t.view(torch.int32)], dim=1), work
 
 
@@ -362,21 +381,27 @@ def _capacity_exceeded(n_groups: int, n_super: int, blk_cap: int) -> bool:
     return rows > rows_cap or rows + n_super * GRP > blk_cap
 
 
+def _fallback(tables, rays8):
+    regroup_intersect.fallbacks += 1
+    return wl.worklist_intersect(
+        tables, *(rays8[:, k].contiguous()
+                  for k in (slice(0, 3), slice(3, 6), 6, 7)))
+
+
 def _regroup_chunk(tables, rays8, blk_cap, livegate):
+    # the liveness gate first, so a chunk that falls back for it skips the
+    # count stage (the JAX package computes both before its lax.cond)
+    if livegate > 0.0:
+        live = int((rays8[:, 7] > 0.0).sum())
+        regroup_intersect.host_syncs += 1
+        if live < int(livegate * rays8.shape[0]):
+            return _fallback(tables, rays8)
     n_super = tables.sbbox.shape[0]
     plan = count_stage(rays8, tables.sbbox)
-    n_groups_t = plan.groups_s.sum(dtype=torch.int64)
-    live_t = (rays8[:, 7] > 0.0).sum()
-    n_groups, live = torch.stack([n_groups_t, live_t]).tolist()
+    n_groups = int(plan.groups_s.sum(dtype=torch.int64))
     regroup_intersect.host_syncs += 1
-    use_fb = _capacity_exceeded(n_groups, n_super, blk_cap)
-    if livegate > 0.0:
-        use_fb = use_fb or live < int(livegate * rays8.shape[0])
-    if use_fb:
-        regroup_intersect.fallbacks += 1
-        return wl.worklist_intersect(
-            tables, *(rays8[:, k].contiguous()
-                      for k in (slice(0, 3), slice(3, 6), 6, 7)))
+    if _capacity_exceeded(n_groups, n_super, blk_cap):
+        return _fallback(tables, rays8)
     grp_super = torch.repeat_interleave(
         torch.arange(n_super, dtype=torch.int32, device=rays8.device),
         plan.groups_s.long(), output_size=n_groups)

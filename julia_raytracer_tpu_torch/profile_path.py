@@ -52,7 +52,7 @@ SCENES = {"cornell": cornell_scene, "spheres": sphere_grid_scene,
 # the hand-written kernels: substrings of their device functions' names as
 # the profiler reports them (the compactor launches a count and a pack)
 OWN_KERNELS = {
-    "dense_intersect": ("::dense_intersect_kernel(",),
+    "dense_intersect": ("::dense_intersect_kernel<",),
     "lane_compact": ("::count_kernel(", "::compact_kernel("),
     "lane_expand": ("::expand_kernel(",),
     "worklist_intersect": ("::worklist_intersect_kernel(",),

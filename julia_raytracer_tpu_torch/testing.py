@@ -100,6 +100,62 @@ def check_vs_flat(ref, got, max_t_mismatch: float = 0.0) -> dict:
                 t_mismatch_lanes=np.flatnonzero(~close).tolist())
 
 
+def dense_soup(q: int = 112, seed: int = 3) -> np.ndarray:
+    """[q, 4, 3] float32 random quads at mixed scales (edges from 1e-15
+    to 1e15), a third of them degenerate (p3 == p4), quad 5 all zero, and
+    quad 1 the 4 x 1 rectangle at z = 0 from the origin, where a ray down
+    from x = -2^-149 gets u = -2^-151, which rounds to -0 and passes u >= 0
+    (adversarial_rays sends it): the dense intersector's adversarial soup
+    (112, its cap, by default)."""
+    g = np.random.default_rng(seed)
+    scale = 10.0 ** g.choice([-15, -3, 0, 0, 0, 2, 15], size=(q, 1))
+    base = g.uniform(-1, 1, (q, 3)) * np.maximum(scale, 1.0)
+    e1 = g.uniform(-1, 1, (q, 3)) * scale
+    e2 = g.uniform(-1, 1, (q, 3)) * scale
+    verts = np.stack([base, base + e1, base + e1 + e2, base + e2], axis=1)
+    verts[::3, 3] = verts[::3, 2]
+    verts[5:6] = 0.0
+    verts[1:2] = [[0, 0, 0], [4, 0, 0], [4, 1, 0], [0, 1, 0]]
+    return verts.astype(np.float32)
+
+
+def adversarial_rays(verts: np.ndarray, g: np.random.Generator):
+    """(origins, directions) [n, 3] float32 against the quads verts [q, 4,
+    3]: rays through vertices, edge midpoints and inner points of their
+    triangles, along an edge, parallel to a face (zero det) and nearly so
+    (tiny det), from a vertex; with -0.0 components, NaN and +-inf
+    entries; and, when verts has a quad 1 (dense_soup's), rays straight
+    down onto it from x = -2^-148, -2^-149, -0.0 and 2^-149."""
+    q = len(verts)
+    tri = np.concatenate([verts[:, [0, 1, 3]], verts[:, [2, 3, 1]]])  # [2q, 3, 3]
+    pick = g.integers(0, 2 * q, 400)
+    a, b, c = (tri[pick, k].astype(np.float64) for k in range(3))
+    n = np.cross(b - a, c - a)
+    rays = []
+    for target in (a, b, c, (a + b) / 2, (b + c) / 2, (a + c) / 2,
+                   a + 0.3 * (b - a) + 0.7 * (c - a), (a + b + c) / 3):
+        o = target + n * g.uniform(0.1, 3.0, (len(a), 1)) + g.normal(size=a.shape) * 1e-3
+        rays.append((o, target - o))  # unnormalised: through the point
+    rays.append((a - (b - a), b - a))  # along an edge, from behind it
+    rays.append((a + n, b - a))  # parallel to the face: det == 0
+    rays.append((a + n, (b - a) + n * 1e-12))  # tiny det
+    rays.append((a, n))  # from a vertex, along the normal
+    o = np.concatenate([r[0] for r in rays])
+    d = np.concatenate([r[1] for r in rays])
+    d[::11] = -0.0
+    d[::11, 0] = 1.0
+    o[::13, 1] = -0.0
+    o[::17, 2] = np.nan
+    d[::19, 1] = np.nan
+    d[::23, 2] = np.inf
+    o[::29, 0] = -np.inf
+    if q > 1:
+        x = np.array([-2.0**-148, -2.0**-149, -0.0, 2.0**-149])
+        o = np.concatenate([o, np.stack([x, np.full(4, 0.25), np.ones(4)], 1)])
+        d = np.concatenate([d, np.tile([0.0, 0.0, -1.0], (4, 1))])
+    return o.astype(np.float32), d.astype(np.float32)
+
+
 def image_close(got, want) -> tuple[float, float]:
     """Render agreement: image means within 1e-3 relative and >= 99% of
     pixels within 1e-3 absolute. Exact equality is not required: two

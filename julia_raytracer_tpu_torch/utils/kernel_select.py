@@ -10,6 +10,17 @@ per-unit costs, and take regroup only on a decisive predicted win
 (ratio < RATIO_THRESHOLD). The counts equal the JAX package's for the
 same rays (tests/test_torch_kernel_select.py).
 
+One change to the method: the renderer's decision (select_bounce_kernel)
+counts the sampled rays in the order the wavefront sort dispatches them
+(integrator._sort_key over the quads' bounds), because the renderer sorts
+every scene that this selection runs on (SORT_MIN_PRIMS 50,000 <
+REGROUP_MIN_PRIMS 150,000). Counted as sampled, the rays cost the
+worklist 5x the passes per ray that the sorted bounce rays of
+testing.heavy_scene() do, and the prediction (0.263 on the H100 costs
+below) sat far from the measured dispatch ratio (0.84); PERF.md section 6.
+predict_ratio counts them as sampled unless asked, as the JAX package
+does.
+
 The per-unit costs are a SelectCosts. The JAX package's were measured on
 a TPU v5e and none of them is used here: H100_COSTS were fitted by
 chip_smoke.py (phase regroup_vs_worklist) from the stage times of both
@@ -41,12 +52,14 @@ class SelectCosts(NamedTuple):
 
 # fitted by chip_smoke.py (phase regroup_vs_worklist) on an NVIDIA H100
 # 80GB HBM3, power limit 700.00 W, from testing.heavy_scene()'s 262,144
-# sorted bounce rays, with the warp-walk worklist kernel (its pass cost
-# fell 10.6x from the 0.1267 the block-walk kernel gave); 4 significant
-# digits
+# sorted bounce rays: every term from device time (torch.profiler), the
+# stages' and the two whole calls', the whole regroup call's remainder as
+# the fixed cost; with the warp-walk worklist and tri-test kernels (the
+# tri-test's pass cost fell 9.6x from 0.03353 with the block-walk
+# kernel); 4 significant digits
 H100_COSTS = SelectCosts(
-    us_wl_pass=0.01197, us_rg_pass=0.03353, us_rg_pair=0.01822,
-    us_rg_ray=0.02253, ms_rg_fixed=0.09270,
+    us_wl_pass=0.01051, us_rg_pass=0.003500, us_rg_pair=0.01744,
+    us_rg_ray=0.02000, ms_rg_fixed=0.08695,
 )
 RATIO_THRESHOLD = 0.35
 
@@ -193,30 +206,68 @@ def count_passes(o, d, tmin, tmax, cbbox, device="cpu") -> dict:
                 pairs=pairs, rows_rg=rows_rg)
 
 
-def predict_ratio(verts_np, inst_np, n_rays: int = 65536, seed: int = 11,
-                  costs: SelectCosts = H100_COSTS, device="cpu") -> dict:
-    """Predicted t_regroup / t_worklist for one synthetic bounce dispatch
-    of `n_rays` rays, the pass counts on `device`."""
+def wavefront_order(verts_np, o, d):
+    """The permutation the renderer's wavefront sort gives rays o/d
+    (numpy) in a scene of quads verts_np: a stable argsort of its key over
+    the quads' bounds."""
+    # imported here: the integrator imports this module
+    from julia_raytracer_tpu_torch.render.integrator import _sort_key
+    pv = torch.as_tensor(np.asarray(verts_np, np.float32).reshape(-1, 3))
+    key = _sort_key(torch.from_numpy(o), torch.from_numpy(d),
+                    pv.amin(dim=0), pv.amax(dim=0))
+    return torch.argsort(key, stable=True).numpy()
+
+
+def bounce_counts(verts_np, inst_np, n_rays: int = 65536, seed: int = 11,
+                  device="cpu", sort_rays: bool = False) -> dict:
+    """count_passes of `n_rays` synthetic bounce rays (bounce_rays) over
+    the scene's cluster boxes, on `device`; with `sort_rays`, in the
+    wavefront sort's order."""
     _, _, bbox, n_clusters = build_cluster_tables(
         np.asarray(verts_np, np.float64), inst_np)
     o, d, tmin, tmax = bounce_rays(verts_np, n_rays, seed)
-    st = count_passes(o, d, tmin, tmax, bbox[:n_clusters, 0:6], device)
+    if sort_rays:
+        order = wavefront_order(verts_np, o, d)
+        o, d, tmin, tmax = (x[order] for x in (o, d, tmin, tmax))
+    return dict(n_rays=n_rays,
+                **count_passes(o, d, tmin, tmax, bbox[:n_clusters, 0:6], device))
+
+
+def ratio_from_counts(st: dict, costs: SelectCosts = H100_COSTS) -> dict:
+    """Predicted times and t_regroup / t_worklist from bounce_counts."""
     t_wl = st["passes_wl"] * costs.us_wl_pass * 1e-3
     t_rg = (st["passes_rg"] * costs.us_rg_pass * 1e-3
             + st["pairs"] * costs.us_rg_pair * 1e-3
-            + n_rays * costs.us_rg_ray * 1e-3
+            + st["n_rays"] * costs.us_rg_ray * 1e-3
             + costs.ms_rg_fixed)
-    return dict(n_rays=n_rays, **st, t_wl_ms=round(t_wl, 1),
-                t_rg_ms=round(t_rg, 1), ratio=round(t_rg / max(t_wl, 1e-9), 3))
+    return dict(st, t_wl_ms=round(t_wl, 1), t_rg_ms=round(t_rg, 1),
+                ratio=round(t_rg / max(t_wl, 1e-9), 3))
+
+
+def predict_ratio(verts_np, inst_np, n_rays: int = 65536, seed: int = 11,
+                  costs: SelectCosts = H100_COSTS, device="cpu",
+                  sort_rays: bool = False) -> dict:
+    """Predicted t_regroup / t_worklist for one synthetic bounce dispatch
+    of `n_rays` rays, the pass counts on `device` (bounce_counts)."""
+    return ratio_from_counts(
+        bounce_counts(verts_np, inst_np, n_rays, seed, device, sort_rays),
+        costs)
+
+
+def decide(st: dict) -> dict:
+    """kernel_select's rule on a predicted ratio: regroup only on a
+    decisive win."""
+    kernel = "regroup" if st["ratio"] < RATIO_THRESHOLD else "worklist"
+    return dict(st, kernel=kernel, threshold=RATIO_THRESHOLD)
 
 
 def select_bounce_kernel(verts_np, inst_np, costs: SelectCosts = H100_COSTS,
                          device="cpu") -> dict:
     """{"kernel": "regroup" | "worklist", "ratio", "threshold", ...}: regroup
-    only on a decisive predicted win."""
+    only on a decisive predicted win, the rays counted in the wavefront
+    sort's order."""
     t0 = time.time()
-    st = predict_ratio(verts_np, inst_np, costs=costs, device=device)
+    st = predict_ratio(verts_np, inst_np, costs=costs, device=device,
+                       sort_rays=True)
     st["probe_s"] = round(time.time() - t0, 1)
-    st["kernel"] = "regroup" if st["ratio"] < RATIO_THRESHOLD else "worklist"
-    st["threshold"] = RATIO_THRESHOLD
-    return st
+    return decide(st)

@@ -22,8 +22,9 @@ from julia_raytracer_tpu_torch.render.renderer import (
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.testing import (
-    check_hits, check_vs_flat, cornell_scene, hybrid_scene, image_close,
-    instanced_scene, render_instanced, sphere_grid_scene,
+    adversarial_rays, check_hits, check_vs_flat, cornell_scene, dense_soup,
+    hybrid_scene, image_close, instanced_scene, render_instanced,
+    sphere_grid_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -36,27 +37,49 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("q", [0, 1, 37, di.MAX_PRIMS])
+def _same_bits(got, want) -> bool:
+    """Every field of two Hit tuples equal bit for bit (NaN included)."""
+    return all(torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+               for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("q", [0, 1, 18, 37, di.MAX_PRIMS])
 def test_dense_intersect_kernel_equals_plain(dev, q):
+    """Random quads (half of them degenerate) at n = 5,000 random rays (not
+    a multiple of the block size), then the adversarial soup's first q
+    quads (mixed scales) against its adversarial rays (through vertices
+    and along edges, zero and tiny det, -0.0, NaN and +-inf components)
+    with tmin 1e-4, -0.0 or -1 and tmax finite, +-inf or -1: bit-equal."""
     g = np.random.default_rng(q)
     base = g.uniform(-1, 1, (q, 3)).astype(np.float32)
     e1 = g.uniform(-0.5, 0.5, (q, 3)).astype(np.float32)
     e2 = g.uniform(-0.5, 0.5, (q, 3)).astype(np.float32)
     verts = np.stack([base, base + e1, base + e1 + e2, base + e2], axis=1)
     verts[::2, 3] = verts[::2, 2]  # degenerate quads
-    table = torch.from_numpy(
-        di.build_prim_table(verts, g.integers(0, 50, q))).to(dev)
-    n = 5000  # not a multiple of the block size
+    n = 5000
     ro = g.uniform(-2, 2, (n, 3)).astype(np.float32)
     rd = (g.normal(size=(n, 3)) - 0.3 * ro).astype(np.float32)
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
     tmax = np.where(g.random(n) < 0.1, -1.0, 1e30).astype(np.float32)
-    args = [torch.from_numpy(x).to(dev) for x in
-            (ro, rd, np.full(n, 1e-4, np.float32), tmax)]
-    got = di.dense_intersect(table, *args)
-    want = di.dense_intersect_plain(table, *args)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    tmin = np.full(n, 1e-4, np.float32)
+    cases = [(verts, ro, rd, tmin, tmax)]
+    if q:
+        soup = dense_soup()[:q]
+        ro, rd = adversarial_rays(soup, g)
+        m = len(ro)
+        tmin = np.where(np.arange(m) % 3 == 0, -0.0, 1e-4).astype(np.float32)
+        tmin[1::7] = -1.0
+        tmax = g.uniform(0.5, 5.0, m).astype(np.float32)
+        tmax[::4], tmax[1::4], tmax[2::9] = np.inf, -np.inf, -1.0
+        cases.append((soup, ro, rd, tmin, tmax))
+    for verts, *rays in cases:
+        table = di.make_dense_table(verts, g.integers(0, 50, q), dev)
+        args = [torch.from_numpy(x).to(dev) for x in rays]
+        got = di.dense_intersect(table, *args)
+        want = di.dense_intersect_plain(table.prims, *args)
+        assert _same_bits(got, want)
+    assert bool(got.hit.any()) == (q > 0)
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.01, 0.3, 1.0])
@@ -81,7 +104,7 @@ def test_kernels_reject_bad_input(dev):
     vals = torch.zeros((3, 1000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):  # not a multiple of 1024 lanes
         lc.compact_planes(vals, torch.zeros(1000, dtype=torch.bool, device=dev), 8)
-    table = torch.zeros((4, di.STRIDE), device=dev)
+    table = di.make_dense_table(np.zeros((4, 4, 3), np.float32), None, dev)
     with pytest.raises(ValueError):  # strided rays
         ro = torch.zeros((8, 6), device=dev)[:, :3]
         di.dense_intersect(table, ro, ro, torch.zeros(8, device=dev),
@@ -150,17 +173,22 @@ def test_sphere_render_on_card_matches_cpu(dev):
     image_close(r.get_image(st), rc.get_image(stc))
 
 
-def _soup_tables(dev):
-    """12,000 small quads in the unit cube (2 superclusters), 7 instances."""
+def _soup_quads():
+    """12,000 small morton-ordered quads in the unit cube (2 superclusters
+    of 128 clusters)."""
     g = np.random.default_rng(11)
     centers = g.random((12000, 3))
     centers = centers[np.argsort((centers * 64).astype(np.int64)
                                  @ np.array([4096, 64, 1]))]
     e1 = g.normal(size=(12000, 3)) * 0.02
     e2 = g.normal(size=(12000, 3)) * 0.02
-    pv = np.stack([centers, centers + e1, centers + e1 + e2, centers + e2],
-                  axis=1).astype(np.float32)
-    return wl.pack_tables(pv, np.arange(12000) % 7, device=dev)
+    return np.stack([centers, centers + e1, centers + e1 + e2, centers + e2],
+                    axis=1).astype(np.float32)
+
+
+def _soup_tables(dev):
+    """The soup's tables, 7 instances."""
+    return wl.pack_tables(_soup_quads(), np.arange(12000) % 7, device=dev)
 
 
 @pytest.mark.parametrize("divergent", [False, True])
@@ -209,6 +237,56 @@ def test_regroup_kernels_equal_plain(dev, divergent):
         *(x.cpu() for x in rays))
     for a, b in zip(got, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("sup", [1, 16, 64, 128])
+def test_regroup_tritest_kernel_equals_plain(dev, sup):
+    """The tri-test's warp walk bit-equal to its plain version on packed
+    slots built by hand: 12 groups of 1024 slots over the soup's
+    superclusters of `sup` clusters, group 3 all padding (tmax = -1),
+    divergent rays from inside the soup with NaN origins and directions,
+    +-inf tmax and -0.0 components, and rays at the quads of cluster 0,
+    whose 64 quads cluster 1 repeats: where the two are in one super, the
+    lower index wins every tie (no slot answers with cluster 1)."""
+    g = np.random.default_rng(sup)
+    pv = _soup_quads()
+    pv[64:128] = pv[0:64]
+    tables = wl.pack_tables(pv, np.arange(len(pv)) % 7, sup=sup, device=dev)
+    n_super = tables.sbbox.shape[0]
+    groups = 12
+    grp_super = np.minimum(np.arange(groups) % 3, n_super - 1).astype(np.int32)
+    n = groups * 1024
+    o = g.random((n, 3))
+    d = g.normal(size=(n, 3))
+    # slots 0-1023 (group 0, super 0) aim at the quads of cluster 0
+    quad = g.integers(0, 64, 1024)
+    centre = pv[quad].mean(axis=1)
+    nrm = np.cross(pv[quad, 1] - pv[quad, 0], pv[quad, 3] - pv[quad, 0])
+    o[:1024] = centre + 0.01 * nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+    d[:1024] = centre - o[:1024]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-4)
+    tmax = np.where(g.random(n) < 0.1, np.inf, 3.0e38)
+    tmax[::17] = g.uniform(0.01, 0.5, len(tmax[::17]))
+    tmax[5::23] = -np.inf
+    o[7::31, 1] = np.nan
+    d[9::37, 2] = np.nan
+    d[11::41, 0] = -0.0
+    packed = np.concatenate([o, d, tmin[:, None], tmax[:, None]], axis=1)
+    packed[3 * 1024:4 * 1024] = 0.0
+    packed[3 * 1024:4 * 1024, 7] = -1.0
+    packed = torch.tensor(packed, dtype=torch.float32, device=dev)
+    grp = torch.from_numpy(grp_super).to(dev)
+    got = rg.regroup_tritest(packed, tables, grp)
+    want, work = rg.regroup_tritest_plain(packed, tables, grp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert work["passes"] > 0 and work["votes"] == work["warps"] - 32
+    tri = got[:, 0]
+    assert bool((tri[:1024] >= 0).float().mean() > 0.5)
+    assert bool((tri[3 * 1024:4 * 1024] == -1).all())
+    if sup > 1:
+        assert not bool((tri // 128 == 1).any())
 
 
 def test_heavy_path_render_on_card_matches_cpu(dev):

@@ -87,3 +87,31 @@ def test_decision_follows_the_threshold(soup):
         assert (sel["kernel"] == "regroup") == (sel["ratio"] < sel["threshold"])
         assert sel["threshold"] == tks.RATIO_THRESHOLD == 0.35
     assert all(c > 0 for c in tks.H100_COSTS)
+
+
+def test_decision_counts_rays_in_wavefront_order(soup):
+    """select_bounce_kernel counts the sampled rays in the order the
+    renderer's wavefront sort gives them: count_passes of the rays
+    permuted by a stable argsort of integrator._sort_key over the quads'
+    bounds. Sorted rows are coherent, so the worklist's passes fall."""
+    import torch
+
+    from julia_raytracer_tpu_torch.render.integrator import _sort_key
+    pv, inst = soup
+    o, d, tmin, tmax = tks.bounce_rays(pv, 8192, seed=5)
+    flat = torch.from_numpy(pv.reshape(-1, 3))
+    key = _sort_key(torch.from_numpy(o), torch.from_numpy(d),
+                    flat.amin(dim=0), flat.amax(dim=0)).numpy()
+    order = np.argsort(key, kind="stable")
+    np.testing.assert_array_equal(tks.wavefront_order(pv, o, d), order)
+    assert (np.diff(key[order]) >= 0).all()
+    sampled = tks.bounce_counts(pv, inst, 8192, 5)
+    got = tks.bounce_counts(pv, inst, 8192, 5, sort_rays=True)
+    _, _, bbox, n_clusters = tks.build_cluster_tables(pv.astype(np.float64), inst)
+    want = tks.count_passes(o[order], d[order], tmin[order], tmax[order],
+                            bbox[:n_clusters, 0:6])
+    assert got == dict(n_rays=8192, **want)
+    assert got["passes_wl"] < sampled["passes_wl"]
+    assert got["n_super"] == sampled["n_super"]
+    sel = tks.select_bounce_kernel(pv, inst)
+    assert sel["ratio"] == tks.predict_ratio(pv, inst, sort_rays=True)["ratio"]

@@ -29,6 +29,7 @@ N_RAYS = 1024 + 333  # not a multiple of the 1024-ray tile
 # packed capacity in 128-slot blocks, room for 4x the rays here: the JAX
 # tri-test's interpret-mode grid runs over the whole capacity
 BLK_CAP = 512
+F32_MAX = np.float32(3.4028235e38)
 
 
 def _soup(n_prims, rng):
@@ -48,7 +49,7 @@ def _soup(n_prims, rng):
     ).astype(np.float32)
 
 
-def _rays(rng, n, divergent, dead=0.1):
+def _rays(rng, n, divergent, dead=0.1, tmax_live=3.0e38):
     if divergent:
         o = rng.random((n, 3)).astype(np.float32)
         d = rng.normal(size=(n, 3)).astype(np.float32)
@@ -56,7 +57,7 @@ def _rays(rng, n, divergent, dead=0.1):
         o = np.tile(np.array([[0.5, 0.5, -1.0]], np.float32), (n, 1))
         d = (rng.random((n, 3)) - [0.5, 0.5, -1.5]).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = np.full(n, 3.0e38, np.float32)
+    tmax = np.full(n, tmax_live, np.float32)
     tmax[rng.random(n) < dead] = -1.0  # dead lanes, as the integrator sends them
     return o, d.astype(np.float32), np.full(n, 1e-4, np.float32), tmax
 
@@ -71,11 +72,14 @@ def soup():
     return pv, inst, wl.pack_tables(pv, inst), jax_rg
 
 
-@pytest.fixture(scope="module", params=["coherent", "divergent"])
+@pytest.fixture(scope="module", params=["coherent", "divergent", "coherent_inf"])
 def case(request, soup):
+    """`coherent_inf`: the coherent rays with tmax = +inf on the live
+    lanes, so that live slots enter clusters that hold no hit."""
     pv, inst, tables, jax_rg = soup
     rays = _rays(np.random.default_rng(5), N_RAYS,
-                 request.param == "divergent")
+                 request.param == "divergent",
+                 tmax_live=np.inf if request.param.endswith("_inf") else 3.0e38)
     targs = [torch.from_numpy(x) for x in rays]
     fb0 = rg.regroup_intersect.fallbacks
     got = rg.regroup_intersect(tables, *targs, blk_cap=BLK_CAP)
@@ -83,13 +87,24 @@ def case(request, soup):
     want = jax_rg(*(jnp.asarray(x) for x in rays))
     order, cnt = wl.precull(*targs, tables.sbbox)
     worklist = wl.worklist_intersect_plain(tables, *targs, order, cnt)[0]
-    return dict(rays=rays, targs=targs, tables=tables, inst=inst, got=got,
-                want=want, worklist=worklist)
+    return dict(name=request.param, rays=rays, targs=targs, tables=tables,
+                inst=inst, got=got, want=want, worklist=worklist)
 
 
 def test_regroup_matches_jax_regroup(case):
+    """At tmax = +inf the JAX intersectors, its worklist as well, turn a
+    live ray whose 128-ray row enters a cluster and hits nothing in it into
+    a hit at t = FLT_MAX, their miss fill (pallas_regroup.py:531-537: the
+    fill is below tmax); the port answers the miss there, as its worklist
+    intersector does. The renderer sends FLT_MAX, never +inf."""
     got = case["got"]
-    check_hits(case["want"], got)
+    want = [np.asarray(f) for f in case["want"][:8]]
+    fill = want[0] & (want[4] == F32_MAX)
+    assert fill.any() == case["name"].endswith("_inf")
+    check_hits([f[~fill] for f in want], [f.numpy()[~fill] for f in got])
+    assert not got.hit.numpy()[fill].any()
+    assert np.isinf(got.t.numpy()[fill]).all()
+    assert not case["worklist"].hit.numpy()[fill].any()
     hit = got.hit.numpy()
     assert 0.05 < hit.mean() < 0.95
     assert not hit[case["rays"][3] < 0].any()  # dead lanes never hit
@@ -99,6 +114,14 @@ def test_regroup_matches_jax_regroup(case):
     np.testing.assert_array_equal(got.instance.numpy()[~hit], 0)
     np.testing.assert_array_equal(got.instance.numpy()[hit],
                                   case["inst"][got.prim.numpy()[hit]])
+    if case["name"].endswith("_inf"):
+        # live rays that enter a supercluster and hit nothing in it miss
+        # here as in the JAX regroup, with t = +inf
+        plan = rg.count_stage(_rays8(case["targs"]), case["tables"].sbbox)
+        entered = plan.bits.any(dim=1).reshape(-1)[:N_RAYS].numpy()
+        live = case["rays"][3] > 0
+        assert np.isinf(case["rays"][3][live]).all()
+        assert (entered & live & ~hit).sum() > 0
 
 
 def test_regroup_matches_port_worklist(case):
@@ -126,6 +149,79 @@ def test_count_stage_and_tritest_work(case):
     out, work = rg.regroup_tritest_plain(packed, tables, grp_super)
     assert torch.equal(out, rg.regroup_tritest(packed, tables, grp_super))
     assert 0 < work["group_passes"] <= work["passes"]
+
+
+def _numpy_walk_counts(packed, tables, grp_super):
+    """Brute force in numpy float32: every slot against every cluster of
+    its group's supercluster with the kernels' slab test (cluster_cull:
+    NaN-propagating min/max, 1e-30 for a zero direction, the 1.00000024
+    slack) against its tmax -> the counters of the tri-test's walk."""
+    p = packed.numpy()
+    sup, tab = tables.sup, tables.tab.numpy()
+    boxes = tables.bbox.numpy().reshape(-1, sup, 8)
+    n = len(p)
+    sc = np.repeat(grp_super.numpy(), rg.TILE)
+    o, d, tmin, tmax = p[:, 0:3], p[:, 3:6], p[:, 6], p[:, 7]
+    inv = np.float32(1.0) / np.where(d == 0, np.float32(1e-30), d)
+    b = boxes[sc]  # [n, sup, 8]
+    with np.errstate(over="ignore", invalid="ignore"):
+        t0 = (b[:, :, 0:3] - o[:, None]) * inv[:, None]
+        t1 = (b[:, :, 3:6] - o[:, None]) * inv[:, None]
+    enter = np.maximum(np.minimum(t0, t1).max(axis=2), tmin[:, None])
+    exit_ = np.minimum(np.maximum(t0, t1).min(axis=2), tmax[:, None])
+    want = enter <= exit_ * np.float32(1.00000024)  # [n, sup]
+    warp_want = want.reshape(n // 32, 32, sup).any(axis=1)
+    can_enter = tmin <= tmax * np.float32(1.00000024)
+    real = (tab[:, 6:9] != 0).any(axis=1).sum(axis=1)  # [C]
+    cl = sc[:, None] * sup + np.arange(sup)[None]
+    return dict(passes=int(want.sum()), warps=n // 32,
+                votes=int(can_enter.reshape(-1, 32).any(axis=1).sum()),
+                warp_pairs=int(warp_want.sum()),
+                tri_slots=int(real[cl][want].sum()))
+
+
+def test_tritest_walk_counters_match_numpy(case):
+    """The plain tri-test's counts of the kernel's per-warp walk (warps,
+    mask votes, (warp, cluster) table loads, real-triangle lane slots)
+    equal a numpy brute force over every (slot, cluster) pair; padding
+    slots vote in no warp of their own."""
+    tables = case["tables"]
+    plan = rg.count_stage(_rays8(case["targs"]), tables.sbbox)
+    n_slots = int(plan.groups_s.sum()) * rg.TILE
+    packed = rg.regroup_pack(plan, _rays8(case["targs"]), n_slots)
+    grp_super = torch.repeat_interleave(torch.arange(2, dtype=torch.int32),
+                                        plan.groups_s.long())
+    _, work = rg.regroup_tritest_plain(packed, tables, grp_super)
+    want = _numpy_walk_counts(packed, tables, grp_super)
+    assert {k: work[k] for k in want} == want
+    # segments start on whole groups, live slots first: a warp votes iff
+    # it holds a live slot
+    assert work["votes"] == sum(-(-int(c) // 32) for c in plan.cnt_s)
+    assert work["votes"] < work["warps"]
+    assert work["group_passes"] <= work["warp_pairs"] <= work["passes"]
+    assert 0 < work["tri_slots"] <= work["passes"] * 128
+
+
+def test_tritest_infinite_tmax(case):
+    """Live slots at tmax = +inf get the triangles they get at 3e38 (the
+    scene lies well inside either), and a slot whose clusters hold no hit
+    answers -1 with t = +inf, as the kernel's walk does (no cluster of a
+    missing slot may win on t = tmax)."""
+    tables = case["tables"]
+    rays8 = _rays8(case["targs"])
+    plan = rg.count_stage(rays8, tables.sbbox)
+    n_slots = int(plan.groups_s.sum()) * rg.TILE
+    packed = rg.regroup_pack(plan, rays8, n_slots)
+    grp_super = torch.repeat_interleave(torch.arange(2, dtype=torch.int32),
+                                        plan.groups_s.long())
+    live = packed[:, 7] > 0
+    finite, _ = rg.regroup_tritest_plain(packed, tables, grp_super)
+    packed[live, 7] = float("inf")
+    inf, work = rg.regroup_tritest_plain(packed, tables, grp_super)
+    assert torch.equal(inf[:, 0], finite[:, 0])
+    miss = live & (inf[:, 0] == -1)
+    assert int(miss.sum()) > 0 and work["passes"] > 0
+    assert torch.isinf(inf[miss, 1].view(torch.float32)).all()
 
 
 def _rays8(targs):
@@ -185,8 +281,13 @@ def test_fallback_gives_the_worklist_result(soup, trigger):
         rays, kw = _rays(rng, N_RAYS, True, dead=0.9), {}
     targs = [torch.from_numpy(x) for x in rays]
     fb0 = rg.regroup_intersect.fallbacks
+    syncs = rg.regroup_intersect.host_syncs
     got = rg.regroup_intersect(tables, *targs, **kw)
     assert rg.regroup_intersect.fallbacks > fb0
+    # the gate reads the live count and skips the count stage; an overflow
+    # is seen in the group count, read after it
+    assert rg.regroup_intersect.host_syncs == syncs + (
+        1 if trigger == "livegate" else 2)
     order, cnt = wl.precull(*targs, tables.sbbox)
     want = wl.worklist_intersect_plain(tables, *targs, order, cnt)[0]
     for a, b in zip(got, want):
@@ -205,7 +306,8 @@ def test_make_regroup_intersect_and_bad_input(soup):
     rays = [torch.from_numpy(x) for x in _rays(np.random.default_rng(2), 300, False)]
     syncs = rg.regroup_intersect.host_syncs
     check_hits(isect.primary(*rays), isect(*rays))
-    assert rg.regroup_intersect.host_syncs == syncs + 1  # one read per chunk
+    # a live chunk: the live count, then the group count
+    assert rg.regroup_intersect.host_syncs == syncs + 2
     meta = [torch.zeros(s, device="meta") for s in ((4, 3), (4, 3), (4,), (4,))]
     with pytest.raises(ValueError):
         rg.regroup_intersect(tables, *meta)
@@ -232,14 +334,14 @@ def test_rays_that_enter_no_supercluster(soup):
 
 def test_chunks_agree(soup):
     """Rays over several chunks (20 tiles at chunk_blocks=16, the least
-    the JAX rule allows) give the one-chunk result exactly, one host read
-    per chunk."""
+    the JAX rule allows) give the one-chunk result exactly, two host
+    reads per live chunk."""
     _, _, tables, _ = soup
     rays = [torch.from_numpy(x)
             for x in _rays(np.random.default_rng(4), 20 * 1024 - 5, True)]
     whole = rg.regroup_intersect(tables, *rays)
     syncs = rg.regroup_intersect.host_syncs
     parts = rg.regroup_intersect(tables, *rays, chunk_blocks=16)
-    assert rg.regroup_intersect.host_syncs == syncs + 2
+    assert rg.regroup_intersect.host_syncs == syncs + 4
     for a, b in zip(whole, parts):
         assert torch.equal(a, b)
