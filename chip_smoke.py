@@ -38,9 +38,10 @@ and holds small renders of the paths on the card against the same renders
 on the CPU.
 
 `--parent DIR`: DIR holds an earlier checkout of the repository (`git
-archive` of a commit). The dense kernel's and the tri-test's inputs are
-saved, and child processes time both kernels through each tree's own
-wrappers (`make_dense_intersect`, `regroup_tritest`) on them, in turns
+archive` of a commit). The inputs of the dense kernel and of the three
+regroup kernels (pack, tri-test, unpack) are saved, and child processes
+time the four through each tree's own wrappers (`make_dense_intersect`,
+`regroup_pack`, `regroup_tritest`, `regroup_unpack`) on them, in turns
 (parent, this, this, parent), each child checking its results against
 this tree's plain versions bit for bit.
 
@@ -564,9 +565,9 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
     """The three regroup kernels on the heavy scene's 262,144 bounce rays:
     each against its plain version on the card, bit for bit, with its
     bound and, for pack, the library gather of the rays in the stable
-    (super, tile, lane) order; the tri-test's walk counters. The
-    tri-test's inputs and the plain version's result go into `turn_inputs`
-    when it is a dict."""
+    (super, tile, lane) order; the tri-test's walk counters and what the
+    pair walks meet. The three kernels' inputs and their plain versions'
+    results go into `turn_inputs` when it is a dict."""
     tables = renderer.intersect.tables
     rays8 = _rays8(bounce)
     plan, n_groups, grp_super = _plan(tables, rays8)
@@ -578,9 +579,22 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
     # the plan as pack and unpack must read it: every pair's count (to skip
     # the empty pairs), and the bits and slot base of the live pairs only
     plan_bytes = 4 * plan.cnt_ts.numel() + live_pairs * (rg.TILE + 4)
+    # what the pair walks of pack and unpack meet: the words (32 lanes) of
+    # the live pairs that hold a set bit, each one step of a walk, and how
+    # unevenly the tiles (one unpack CTA pair each) hold them
+    tile_words = plan.bits.view(nb, n_super, 32, 32).any(dim=-1).sum(dim=(1, 2))
+    words = int(tile_words.sum())
+    tile_pairs = (plan.cnt_ts > 0).sum(dim=1)
     log(f"regroup plan: {nb} tiles x {n_super} supers, {set_bits} set bits "
         f"of {live_lanes} lanes in {live_pairs} live (tile, super) pairs, "
-        f"{n_groups} groups of 1024 slots")
+        f"{n_groups} groups of 1024 slots; pair walks (pack, unpack): "
+        f"{live_pairs} live pairs of {nb * n_super} "
+        f"({live_pairs / (nb * n_super):.4f}), {words} non-empty words "
+        f"({words / max(live_pairs, 1):.2f} a live pair), {set_bits} set bits "
+        f"({set_bits / max(live_pairs, 1):.2f} a live pair, "
+        f"{set_bits / max(words, 1):.2f} a word); a tile's live pairs mean "
+        f"{live_pairs / nb:.2f}, max {int(tile_pairs.max())}, its non-empty "
+        f"words mean {words / nb:.2f}, max {int(tile_words.max())}")
 
     # ---- pack
     packed = rg.regroup_pack(plan, rays8, n_slots)
@@ -614,7 +628,9 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
         turn_inputs.update(
             packed=packed.cpu(), grp_super=grp_super.cpu(), tri_ref=tri_ref.cpu(),
             tables={k: v.cpu() if torch.is_tensor(v) else v
-                    for k, v in tables._asdict().items()})
+                    for k, v in tables._asdict().items()},
+            plan={k: v.cpu() for k, v in plan._asdict().items()},
+            rays8=rays8.cpu(), pack_ref=ref.cpu())
     # the tables the function must read: each wanted cluster's 8 KB once,
     # and the boxes of the supers its groups test
     table_bytes = (work["clusters"] * wl.ROWS * wl.TRIS
@@ -643,6 +659,8 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
     res_ref = rg.regroup_unpack_plain(plan, tri)
     torch.cuda.synchronize()
     require(torch.equal(res, res_ref), "regroup_unpack kernel and plain version differ")
+    if turn_inputs is not None:
+        turn_inputs.update(unpack_ref=res_ref.cpu())
     unpack = dict(
         max_abs_err=int_max_abs_err(res, res_ref),
         **kernel_ms(lambda: rg.regroup_unpack(plan, tri)),
@@ -1239,8 +1257,9 @@ def rng_agrees(dev) -> None:
 
 
 # Run in a child process by kernels_in_turns (argv: a tree, the inputs
-# file): rows 1 and 9 through that tree's own wrappers, each result held to
-# the plain version's bit for bit, then their device times (device_ms).
+# file): rows 1, 8, 9 and 10 through that tree's own wrappers, each result
+# held to this tree's plain version bit for bit, then their device times
+# (device_ms).
 _TURN_CHILD = """
 import json, os, sys
 import numpy as np
@@ -1258,21 +1277,35 @@ args = [a.to(dev) for a in x["dense_args"]]
 tables = wl.WorklistTables(**{k: v.to(dev) if torch.is_tensor(v) else v
                               for k, v in x["tables"].items()})
 packed, grp = x["packed"].to(dev), x["grp_super"].to(dev)
+plan = rg.Plan(**{k: v.to(dev) for k, v in x["plan"].items()})
+rays8, tri = x["rays8"].to(dev), x["tri_ref"].to(dev)
+n_slots = packed.shape[0]
 equal = dict(
     dense=all(torch.equal(a.cpu(), b) for a, b in zip(dense(*args), x["dense_ref"])),
-    tritest=torch.equal(rg.regroup_tritest(packed, tables, grp).cpu(), x["tri_ref"]))
+    pack=torch.equal(rg.regroup_pack(plan, rays8, n_slots).cpu().view(torch.int32),
+                     x["pack_ref"].view(torch.int32)),
+    tritest=torch.equal(rg.regroup_tritest(packed, tables, grp).cpu(), x["tri_ref"]),
+    unpack=torch.equal(rg.regroup_unpack(plan, tri).cpu(), x["unpack_ref"]))
 print(json.dumps(dict(
     package=os.path.dirname(os.path.dirname(di.__file__)),
     equal=equal, dense_ms=device_ms(lambda: dense(*args)),
-    tritest_ms=device_ms(lambda: rg.regroup_tritest(packed, tables, grp)))))
+    pack_ms=device_ms(lambda: rg.regroup_pack(plan, rays8, n_slots)),
+    tritest_ms=device_ms(lambda: rg.regroup_tritest(packed, tables, grp)),
+    unpack_ms=device_ms(lambda: rg.regroup_unpack(plan, tri)))))
 """
+
+# the kernels timed in turns: (name, the child's key, its log label)
+TURN_KERNELS = (("dense_intersect", "dense_ms", "dense"),
+                ("regroup_pack", "pack_ms", "pack"),
+                ("regroup_tritest", "tritest_ms", "tri-test"),
+                ("regroup_unpack", "unpack_ms", "unpack"))
 
 
 def kernels_in_turns(parent: str, turn_inputs: dict) -> dict:
-    """Device times of the dense kernel and the tri-test of the tree in
-    `parent` and of this one, each through its own wrappers in a child
-    process on the same saved inputs, in turns: parent, this, this,
-    parent -> {kernel: {"parent_ms": [..], "ms_turns": [..]}}."""
+    """Device times of the dense kernel and the three regroup kernels of
+    the tree in `parent` and of this one, each through its own wrappers in
+    a child process on the same saved inputs, in turns: parent, this,
+    this, parent -> {kernel: {"parent_ms": [..], "ms_turns": [..]}}."""
     code = (_TURN_CHILD.replace("@REPS@", str(REPS))
             .replace("@DEVICE_MS@", inspect.getsource(device_ms)))
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1294,20 +1327,21 @@ def kernels_in_turns(parent: str, turn_inputs: dict) -> dict:
             for name, same in got["equal"].items():
                 require(same, f"{tree}'s {name} kernel and this tree's plain "
                         "version differ")
-            log(f"in turns, {tree}: dense {got['dense_ms']:.4f} ms, tri-test "
-                f"{got['tritest_ms']:.4f} ms (device; child process "
+            times = ", ".join(f"{label} {got[key]:.4f} ms"
+                              for _, key, label in TURN_KERNELS)
+            log(f"in turns, {tree}: {times} (device; child process "
                 f"{time.perf_counter() - t0:.1f} s)")
             runs.append(got)
     return {name: dict(parent_ms=[runs[0][key], runs[3][key]],
                        ms_turns=[runs[1][key], runs[2][key]])
-            for name, key in (("dense_intersect", "dense_ms"),
-                              ("regroup_tritest", "tritest_ms"))}
+            for name, key, _ in TURN_KERNELS}
 
 
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--parent", help="an earlier checkout whose dense "
-                      "kernel and tri-test are timed beside these, in turns")
+                      "kernel and regroup kernels are timed beside these, "
+                      "in turns")
     opts = args.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1345,7 +1379,7 @@ def main() -> int:
     cornell = Renderer(cornell_scene(), Params(
         resolution=MAIN_RES, samples=WARM_SPP + TIMED_SPP, batch=WARM_SPP,
         bounces=MAIN_BOUNCES, sampler="path"), device=dev)
-    # with --parent: the inputs of the two kernels timed in turns
+    # with --parent: the inputs of the kernels timed in turns
     turn_inputs = None
     if opts.parent:
         verts, inst_ids = _host_prims(cornell.dscene, cornell.config)

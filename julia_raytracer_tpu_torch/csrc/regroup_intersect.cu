@@ -22,10 +22,11 @@
 // payload as 4 x 8-bit planes through bf16 dots, DMA 9-block windows into
 // slack-separated segments and carry residual blocks from step to step:
 // all of that exists because the TPU has no scatter, no warp vote and a
-// sequential grid. Here the rank of a lane among the set lanes of its tile
-// is a warp ballot + popc plus an exclusive scan of the 32 warp counts (as
-// in lane_compact.cu), each (tile, super) pair writes its rays straight to
-// their slots, and segments need no slack.
+// sequential grid. Here pack and unpack walk each (tile, super) pair per
+// warp (pair_walk, below): the warp reads the pair's bits as 32 words, a
+// lane ranks its set bit by the popcounts of the words before it (a
+// shuffle scan) and of its own word's lower bits, each pair writes its
+// rays straight to their slots, and segments need no slack.
 //
 // Semantics (each kernel identical to its plain PyTorch version in
 // ops/regroup_intersect.py, bit for bit when built with -fmad=false):
@@ -43,10 +44,31 @@
 //            where t > 0 and t < best (strict, :368-372); best starts at
 //            +inf and tri at -1; out (tri, t bits).
 //
-// What bounds them on an H100: pack and unpack move bytes (the bits once,
-// 32 B in and out per set bit for pack, 8 B per set bit for unpack), the
-// tri-test does operations (128 triangle tests of 40 fp32 operations per
-// (slot, cluster) pair that passes the cull).
+// What bounds them on an H100: pack and unpack move bytes (the bits of
+// the live pairs once, 32 B in and out per set bit for pack, 8 B per set
+// bit for unpack), the tri-test does operations (128 triangle tests of 40
+// fp32 operations per (slot, cluster) pair that passes the cull).
+//
+// Pack runs one warp a (tile, super) pair, 4 pairs to a 128-thread CTA: a
+// pair with no set bit (57% of them on the heavy scene's bounce rays) costs
+// its warp one load of its count, and a live pair's warp takes its words
+// that have a set bit, 4 at a time, reading their rays in coalesced 1 KB
+// spans and writing consecutive slots. Unpack runs two 512-thread CTAs a
+// tile, each holding the 64-bit keys of half its rays in shared memory:
+// each CTA lists the tile's live pairs, and its warps take them from the
+// list one at a time (a shared-memory counter) and walk the words of each
+// that hold its rays, each set lane folding its slot's (t, slot) into its
+// ray's key by atomicMin. The split and the list are for the tiles whose
+// rays enter many superclusters: on the heavy scene's bounce rays a tile
+// holds 745.7 non-empty words on average but up to 3,081, and the kernel
+// takes as long as its heaviest CTAs. The old designs ranked a pair's
+// lanes with three block-wide barriers: pack as one 1024-thread CTA a pair
+// (48,128 CTAs, most of them empty), unpack walking a tile's 188 supers in
+// series, each live pair a chain of dependent loads. On the heavy scene's
+// bounce rays they took 0.1632 and 0.1698 ms, these 0.0447 and 0.0431 ms,
+// in turns on one card, against 0.0218 and 0.0100 ms byte bounds (PERF.md
+// section 6, NVIDIA H100 80GB HBM3, 700 W): pack moves its bytes at half
+// the card's rate, and unpack's time follows its heaviest tiles' walks.
 //
 // The tri-test walks per warp (warp_walk.cuh's warp_super_step, with its
 // running-best re-cull turned off): the 32 slots of a warp lie in one group,
@@ -79,64 +101,120 @@
 namespace {
 
 constexpr int kTile = 1024;  // rays per tile = slots per group
-constexpr int kWarps = kTile / 32;
 constexpr int kMaxSup = kMaskWords * kWarp;  // clusters per supercluster
 
-// Exclusive rank of `flag` among the CTA's 1024 threads (pack, unpack), in
-// thread order.
-// Every thread of the CTA must call it.
-__device__ __forceinline__ int block_rank(bool flag, int* warp_off) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(kFullMask, flag);
-  if (lane == 0) warp_off[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    // exclusive scan of the 32 warp counts
-    const int c = warp_off[lane];
-    int inc = c;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFullMask, inc, o);
-      if (lane >= o) inc += y;
-    }
-    warp_off[lane] = inc - c;
-  }
-  __syncthreads();
-  const int rank = warp_off[warp] + __popc(ballot & ((1u << lane) - 1u));
-  __syncthreads();  // warp_off is rewritten by the next call
-  return rank;
+// The pair walk, which pack and unpack share: one warp reads a (tile,
+// super) pair's 1,024 bit bytes in one coalesced pass, 32 B a lane, so
+// that lane c holds word c (lanes 32c .. 32c+31 of the tile) as a 32-bit
+// mask. Popcounts and a shuffle scan give each word's offset, the set
+// lanes of the words before it. Then the warp takes the words with a set
+// bit among `walk_words` in index order, kBatch at a time, and lane j of
+// word c, if its bit is set, has ray = 32c + j (its lane in the tile) and
+// rank = off_c +
+// popc(mask_c & ((1 << j) - 1)) (its rank among the pair's set lanes, as
+// _ranks and its mirror pair_ranks_by_words in ops/regroup_intersect.py
+// give it). For a batch, every set lane first calls gather(ray, rank),
+// then apply(ray, rank, gathered): the batch's loads are in flight
+// together, not one device-memory latency a word. No shared memory, no
+// barrier.
+
+// 1 in bit k for each nonzero byte k of x
+__device__ __forceinline__ unsigned byte_flags(unsigned x) {
+  const unsigned hi = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((hi >> 7) * 0x01020408u) >> 24;  // no carry: each byte <= 15
 }
 
-// grid (tiles, supers): one CTA per (tile, super) pair, one thread per lane.
-__global__ void __launch_bounds__(kTile) pack_kernel(
+template <int kBatch, class Gather, class Apply>
+__device__ __forceinline__ void pair_walk(const uint8_t* __restrict__ bits,
+                                          int lane, unsigned walk_words,
+                                          Gather&& gather, Apply&& apply) {
+  const uint4* p = reinterpret_cast<const uint4*>(bits) + 2 * lane;
+  const uint4 a = __ldg(p), b = __ldg(p + 1);
+  const unsigned mask =
+      byte_flags(a.x) | byte_flags(a.y) << 4 | byte_flags(a.z) << 8 |
+      byte_flags(a.w) << 12 | byte_flags(b.x) << 16 | byte_flags(b.y) << 20 |
+      byte_flags(b.z) << 24 | byte_flags(b.w) << 28;
+  const int count = __popc(mask);
+  int inc = count;  // inclusive scan of the 32 words' counts
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, inc, o);
+    if (lane >= o) inc += y;
+  }
+  const int off = inc - count;
+  unsigned words = __ballot_sync(kFullMask, mask != 0) & walk_words;
+  while (words) {  // the same for the whole warp
+    int ray[kBatch], rank[kBatch];  // rank -1: the lane's bit is clear
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      rank[k] = -1;
+      ray[k] = 0;
+      if (words) {
+        const int c = __ffs(words) - 1;
+        words &= words - 1;
+        const unsigned m = __shfl_sync(kFullMask, mask, c);
+        const int o = __shfl_sync(kFullMask, off, c);
+        ray[k] = c * kWarp + lane;
+        if (m >> lane & 1u) rank[k] = o + __popc(m & ((1u << lane) - 1u));
+      }
+    }
+    decltype(gather(0, 0)) v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (rank[k] >= 0) v[k] = gather(ray[k], rank[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (rank[k] >= 0) apply(ray[k], rank[k], v[k]);
+    }
+  }
+}
+
+constexpr int kPackThreads = 128;  // 4 independent warps, one pair each
+constexpr int kPairsPerCta = kPackThreads / kWarp;
+constexpr int kWalkBatch = 4;  // words whose gathers are in flight together
+
+struct RayPayload {
+  float4 lo, hi;  // ox oy oz dx, dy dz tmin tmax
+};
+
+// grid (ceil(tiles * supers / 4)): one warp per (tile, super) pair, pairs
+// tile-major. A warp whose pair has no set bit reads its count and leaves;
+// the warp of pair (last tile, s) also writes super s's padding slots.
+__global__ void __launch_bounds__(kPackThreads) pack_kernel(
     const uint8_t* __restrict__ bits, const float* __restrict__ rays,
     const int* __restrict__ cnt_ts, const int* __restrict__ base_ts,
     const int* __restrict__ seg_base, const int* __restrict__ cnt_s,
-    int n_super, float* __restrict__ packed) {
-  __shared__ int warp_off[kWarps];
-  const int t = blockIdx.x, s = blockIdx.y;
-  const int pair = t * n_super + s;
-  if (cnt_ts[pair] > 0) {  // the same for the whole CTA
-    const bool set = bits[static_cast<size_t>(pair) * kTile + threadIdx.x] != 0;
-    const int rank = block_rank(set, warp_off);
-    if (set) {
-      const float4* src = reinterpret_cast<const float4*>(
-          rays + (static_cast<size_t>(t) * kTile + threadIdx.x) * 8);
-      float4* dst = reinterpret_cast<float4*>(
-          packed + static_cast<size_t>(base_ts[pair] + rank) * 8);
-      dst[0] = src[0];
-      dst[1] = src[1];
-    }
+    int tiles, int n_super, float* __restrict__ packed) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int pair = blockIdx.x * kPairsPerCta + (threadIdx.x >> 5);
+  if (pair >= tiles * n_super) return;  // the same for the whole warp
+  const int t = pair / n_super, s = pair - t * n_super;
+  if (__ldg(cnt_ts + pair) > 0) {
+    const float4* src =
+        reinterpret_cast<const float4*>(rays) + static_cast<size_t>(t) * kTile * 2;
+    float4* dst = reinterpret_cast<float4*>(packed) +
+                  static_cast<size_t>(__ldg(base_ts + pair)) * 2;
+    // consecutive set lanes of a word fill consecutive slots
+    pair_walk<kWalkBatch>(
+        bits + static_cast<size_t>(pair) * kTile, lane, kFullMask,
+        [&](int ray, int) {
+          return RayPayload{__ldg(src + 2 * ray), __ldg(src + 2 * ray + 1)};
+        },
+        [&](int, int rank, const RayPayload& r) {
+          dst[2 * rank] = r.lo;
+          dst[2 * rank + 1] = r.hi;
+        });
   }
-  if (t == static_cast<int>(gridDim.x) - 1) {
-    // the last tile's CTA fills the segment's padding (< 1024 slots)
-    const int count = cnt_s[s];
-    const int end = seg_base[s] + (count + kTile - 1) / kTile * kTile;
-    const int slot = seg_base[s] + count + threadIdx.x;
-    if (slot < end) {
-      float4* dst = reinterpret_cast<float4*>(
-          packed + static_cast<size_t>(slot) * 8);
-      dst[0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      dst[1] = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+  if (t == tiles - 1) {
+    // the segment's padding (< 1024 slots): zeros, tmax = -1
+    const int count = __ldg(cnt_s + s), first = __ldg(seg_base + s);
+    const int end = first + (count + kTile - 1) / kTile * kTile;
+    float4* dst = reinterpret_cast<float4*>(packed);
+    for (int slot = first + count + lane; slot < end; slot += kWarp) {
+      dst[2 * static_cast<size_t>(slot)] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      dst[2 * static_cast<size_t>(slot) + 1] =
+          make_float4(0.0f, 0.0f, 0.0f, -1.0f);
     }
   }
 }
@@ -181,32 +259,80 @@ __global__ void __launch_bounds__(kTriThreads) tritest_kernel(
       make_int2(valid ? best_tri : -1, __float_as_int(valid ? b.t : tmax));
 }
 
-// grid (tiles): one CTA per 1024-ray tile, one thread per ray.
-__global__ void __launch_bounds__(kTile) unpack_kernel(
+// An untouched key: above every (t bits << 32 | slot) of a finite t.
+constexpr unsigned long long kNoKey = ~0ull;
+constexpr int kUnpackSplit = 2;  // CTAs a tile, each 1024 / kUnpackSplit rays
+constexpr int kUnpackThreads = kTile / kUnpackSplit;
+constexpr int kUnpackWords = kWarp / kUnpackSplit;  // of a pair's 32
+
+// grid (tiles * kUnpackSplit): CTA (t, h) holds the keys of rays
+// kUnpackThreads h .. of tile t, one thread a ray, and walks only the
+// words of each pair that hold them. Per pass of kUnpackThreads supers,
+// each thread lists its super if the tile's pair with it is live, then
+// each warp takes the next listed pair (a
+// shared-memory counter, so that warps whose pairs hold few words take
+// more of them) and walks it, each set lane folding (t bits << 32 | slot)
+// into its ray's key by a shared-memory atomicMin where 0 < t < +inf (NaN
+// fails, as it fails the serial test). Positive finite floats order as
+// their bits, and a ray's slots rise with the super (segments are
+// super-major), so the least key is the serial walk's first minimum over
+// the supers in index order with a strict `<`, whatever the order of the
+// atomics.
+__global__ void __launch_bounds__(kUnpackThreads) unpack_kernel(
     const uint8_t* __restrict__ bits, const int* __restrict__ cnt_ts,
     const int* __restrict__ base_ts, const int* __restrict__ trires,
     int n_super, int* __restrict__ out) {
-  __shared__ int warp_off[kWarps];
-  const int t = blockIdx.x;
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_tri = -1;
-  for (int s = 0; s < n_super; ++s) {
-    const int pair = t * n_super + s;
-    if (cnt_ts[pair] == 0) continue;  // the same for the whole CTA
-    const bool set = bits[static_cast<size_t>(pair) * kTile + threadIdx.x] != 0;
-    const int rank = block_rank(set, warp_off);
-    if (set) {
-      const int2 res = reinterpret_cast<const int2*>(trires)[base_ts[pair] + rank];
-      const float tt = __int_as_float(res.y);
-      if (tt > 0.0f && tt < best) {
-        best = tt;
-        best_tri = res.x;
-      }
+  __shared__ unsigned long long key[kUnpackThreads];
+  __shared__ int2 live[kUnpackThreads];  // (super, slot of its first ray)
+  __shared__ int n_live, next;
+  const int t = blockIdx.x / kUnpackSplit, h = blockIdx.x % kUnpackSplit;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const unsigned walk_words = static_cast<unsigned>(
+      ((1ull << kUnpackWords) - 1) << (h * kUnpackWords));
+  const int ray0 = h * kUnpackThreads;
+  const int2* res = reinterpret_cast<const int2*>(trires);
+  key[threadIdx.x] = kNoKey;
+  for (int s0 = 0; s0 < n_super; s0 += kUnpackThreads) {
+    if (threadIdx.x == 0) n_live = next = 0;
+    __syncthreads();  // the counters reset (and the keys set)
+    const int s = s0 + threadIdx.x;
+    const size_t pair = static_cast<size_t>(t) * n_super + s;
+    const bool on = s < n_super && __ldg(cnt_ts + pair) > 0;
+    const unsigned vote = __ballot_sync(kFullMask, on);
+    int at = 0;
+    if (lane == 0 && vote) at = atomicAdd(&n_live, __popc(vote));
+    at = __shfl_sync(kFullMask, at, 0) + __popc(vote & ((1u << lane) - 1u));
+    if (on) live[at] = make_int2(s, __ldg(base_ts + pair));
+    __syncthreads();  // the list complete
+    for (;;) {
+      int i = 0;
+      if (lane == 0) i = atomicAdd(&next, 1);
+      i = __shfl_sync(kFullMask, i, 0);
+      if (i >= n_live) break;
+      const int2 e = live[i];
+      const int first = e.y;
+      pair_walk<kWalkBatch>(
+          bits + (static_cast<size_t>(t) * n_super + e.x) * kTile, lane,
+          walk_words,
+          [&](int, int rank) { return __ldg(&res[first + rank].y); },
+          [&](int ray, int rank, int t_bits) {
+            const float tt = __int_as_float(t_bits);
+            if (tt > 0.0f && tt < __int_as_float(0x7f800000)) {
+              atomicMin(&key[ray - ray0],
+                        static_cast<unsigned long long>(
+                            static_cast<unsigned>(t_bits)) << 32 |
+                            static_cast<unsigned>(first + rank));
+            }
+          });
     }
+    __syncthreads();  // every walk done before the list is rewritten or read
   }
-  const size_t i = static_cast<size_t>(t) * kTile + threadIdx.x;
-  out[2 * i] = best_tri;
-  out[2 * i + 1] = __float_as_int(best);
+  const unsigned long long k = key[threadIdx.x];
+  const size_t i = static_cast<size_t>(t) * kTile + ray0 + threadIdx.x;
+  reinterpret_cast<int2*>(out)[i] =
+      k == kNoKey ? make_int2(-1, 0x7f800000)  // (-1, +inf)
+                  : make_int2(__ldg(&res[static_cast<unsigned>(k)].x),
+                              static_cast<int>(k >> 32));
 }
 
 }  // namespace
@@ -219,12 +345,14 @@ extern "C" int regroup_pack_launch(const uint8_t* bits, const float* rays,
                                    const int* seg_base, const int* cnt_s,
                                    int tiles, int n_super, float* packed,
                                    cudaStream_t stream) {
-  if (tiles < 0 || n_super < 1 || n_super > 65535) {
+  if (tiles < 0 || n_super < 1 || tiles > INT_MAX / n_super) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0) return 0;
-  pack_kernel<<<dim3(tiles, n_super), kTile, 0, stream>>>(
-      bits, rays, cnt_ts, base_ts, seg_base, cnt_s, n_super, packed);
+  const int pairs = tiles * n_super;
+  pack_kernel<<<(pairs + kPairsPerCta - 1) / kPairsPerCta, kPackThreads, 0,
+                stream>>>(bits, rays, cnt_ts, base_ts, seg_base, cnt_s,
+                          tiles, n_super, packed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,11 +378,11 @@ extern "C" int regroup_unpack_launch(const uint8_t* bits, const int* cnt_ts,
                                      const int* base_ts, const int* trires,
                                      int tiles, int n_super, int* out,
                                      cudaStream_t stream) {
-  if (tiles < 0 || n_super < 1) {
+  if (tiles < 0 || n_super < 1 || tiles > INT_MAX / kUnpackSplit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0) return 0;
-  unpack_kernel<<<tiles, kTile, 0, stream>>>(bits, cnt_ts, base_ts, trires,
-                                             n_super, out);
+  unpack_kernel<<<tiles * kUnpackSplit, kUnpackThreads, 0, stream>>>(
+      bits, cnt_ts, base_ts, trires, n_super, out);
   return static_cast<int>(cudaGetLastError());
 }

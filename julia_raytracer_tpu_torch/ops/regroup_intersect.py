@@ -104,7 +104,13 @@ def count_stage(rays8: torch.Tensor, sbbox: torch.Tensor) -> Plan:
         exit_ = hi if exit_ is None else torch.minimum(exit_, hi)
     enter = torch.maximum(enter, r[..., 6])
     exit_ = torch.minimum(exit_, r[..., 7])
-    bits = enter <= exit_ * wl.SLACK  # [T, S, 1024]
+    return plan_from_bits(enter <= exit_ * wl.SLACK)
+
+
+def plan_from_bits(bits: torch.Tensor) -> Plan:
+    """The rest of the plan from bits [T, S, 1024] (bool): the counts, the
+    segments (super-major, each padded to whole 1024-slot groups) and the
+    slot of each (tile, super) pair's first ray."""
     i32 = torch.int32
     cnt_ts = bits.sum(dim=-1, dtype=i32)
     cnt_s = cnt_ts.sum(dim=0, dtype=i32)
@@ -116,8 +122,58 @@ def count_stage(rays8: torch.Tensor, sbbox: torch.Tensor) -> Plan:
 
 def _ranks(bits):
     """Exclusive rank of each set lane among its (tile, super)'s set
-    lanes, [T, S, 1024] i32 (what the kernels' ballot/popc scan gives)."""
+    lanes, [T, S, 1024] i32 (what the kernels' pair walk gives:
+    pair_ranks_by_words)."""
     return torch.cumsum(bits, dim=-1, dtype=torch.int32) - 1
+
+
+def _popc32(x):
+    """Set bits of each int64 in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def pair_ranks_by_words(bits):
+    """The kernels' pair walk in plain PyTorch, for the tests: each (tile,
+    super) pair's 1,024 bits as 32 words of 32, word c's offset the set
+    bits of the words before it, and lane j of word c ranked off_c +
+    popc(mask_c & ((1 << j) - 1)) -> [T, S, 1024] i32, the rank of each
+    set lane (_ranks there) and -1 elsewhere."""
+    nb, n_super, _ = bits.shape
+    j = torch.arange(32, dtype=torch.int64, device=bits.device)
+    set_ = bits.view(nb, n_super, 32, 32)
+    mask = (set_.to(torch.int64) << j).sum(dim=-1)  # [T, S, 32] words
+    count = _popc32(mask)
+    off = torch.cumsum(count, dim=-1) - count
+    rank = off[..., None] + _popc32(mask[..., None] & ((1 << j) - 1))
+    return torch.where(set_, rank, -1).view(nb, n_super, TILE).to(torch.int32)
+
+
+def unpack_by_keys(plan: Plan, trires):
+    """The unpack kernel's key-min merge in plain PyTorch, for the tests:
+    each set lane's key (t bits << 32 | slot) where 0 < t < +inf, the
+    least key per ray, (-1, +inf) where there is none, else (tri of the
+    key's slot, t) -> [T * 1024, 2] i32. Equal to regroup_unpack_plain's
+    serial walk: positive finite floats order as their bits, and a ray's
+    slots rise with the super."""
+    nb, _, _ = plan.bits.shape
+    dev = plan.bits.device
+    no_key = torch.iinfo(torch.int64).max  # above every key of a finite t
+    key = torch.full((nb * TILE,), no_key, dtype=torch.int64, device=dev)
+    t_i, s_i, lane = torch.nonzero(plan.bits, as_tuple=True)
+    slot = (plan.base_ts[t_i, s_i]
+            + pair_ranks_by_words(plan.bits)[t_i, s_i, lane]).long()
+    t_bits = trires[slot, 1].long()
+    tt = trires[slot, 1].view(torch.float32)
+    ok = (tt > 0.0) & (tt < float("inf"))
+    key.scatter_reduce_(0, (t_i * TILE + lane)[ok], ((t_bits << 32) | slot)[ok], "amin")
+    hit = key != no_key
+    tri = torch.full_like(key, -1)
+    tri[hit] = trires[key[hit] & 0xFFFFFFFF, 0].long()
+    t = torch.where(hit, key >> 32, 0x7F800000)
+    return torch.stack([tri, t], dim=1).to(torch.int32)
 
 
 def regroup_pack_plain(plan: Plan, rays8, n_slots: int):

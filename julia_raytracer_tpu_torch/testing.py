@@ -156,6 +156,58 @@ def adversarial_rays(verts: np.ndarray, g: np.random.Generator):
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def regroup_bits(n_super: int, tiles: int = 4, padding: bool = True,
+                 seed: int = 0) -> torch.Tensor:
+    """Hand-built regroup bits [tiles, n_super, 1024] (bool) for the pack
+    and unpack tests: pair (tile 0, super 0) has every lane set, (1, 0)
+    only lane 1,023 and (2, 0) only lane 0; the middle super (if there
+    are three or more) no set bit; lanes 600-631 of tiles 1 to T - 2 on no
+    super; of the other pairs about 57% empty (as on the heavy scene's
+    bounce rays) and the rest set at densities from 2% to 90%, with runs
+    of whole words. Without `padding` the last tile tops every super up to
+    whole 1024-slot groups, so no segment has a padding slot."""
+    g = np.random.default_rng(seed)
+    density = g.choice([0.02, 0.06, 0.3, 0.9], size=(tiles, n_super, 1))
+    bits = g.random((tiles, n_super, 1024)) < density
+    bits &= g.random((tiles, n_super, 1)) >= 0.57
+    run = g.integers(0, 30, size=(tiles, n_super))
+    runs = (np.arange(32)[None, None] >= run[..., None]) & (np.arange(32) < run[..., None] + 3)
+    bits |= np.repeat(runs, 32, axis=-1) & (density > 0.5)
+    bits[0, 0] = True
+    bits[1:3, 0] = False
+    bits[1, 0, 1023] = bits[2, 0, 0] = True
+    if n_super > 2:
+        bits[:, n_super // 2] = False
+    bits[1:-1, :, 600:632] = False
+    if not padding:
+        bits[-1] = False
+        short = -bits.sum(axis=(0, 2)) % 1024
+        for s in np.flatnonzero(short):
+            bits[-1, s, g.choice(1024, short[s], replace=False)] = True
+    return torch.from_numpy(bits)
+
+
+def adversarial_trires(n_slots: int, seed: int = 0) -> torch.Tensor:
+    """[n_slots, 2] i32 (tri, t bits) for the unpack tests: t drawn from
+    exact ties (0.5 and 0.25, so that a ray meets one t in several
+    supers), misses at tmax (tri -1, t 3e38 and FLT_MAX), +0 and -0, two
+    denormals (the least and 1e-40), NaN with two payloads and signs,
+    +inf, -inf, negative t and random positives; tri random."""
+    g = np.random.default_rng(seed)
+    pool = np.array([0.5, 0.5, 0.25, 0.25, 3e38, np.finfo(np.float32).max,
+                     0.0, -0.0, 1e-45, 1e-40, np.nan, np.inf, -np.inf, -1.5,
+                     1.0, 2.0], np.float32).view(np.int32)
+    pool[10] = np.int32(-4194303)  # 0xffc00001: a negative NaN
+    pool = np.append(pool, np.int32(0x7FC00002))  # another payload
+    t = pool[g.integers(0, len(pool), n_slots)]
+    rand = g.random(n_slots) < 0.2
+    t[rand] = g.uniform(0.01, 100.0, rand.sum()).astype(np.float32).view(np.int32)
+    tri = g.integers(0, 1 << 20, n_slots).astype(np.int32)
+    miss = (t == pool[4]) | (t == pool[5])
+    tri[miss] = -1
+    return torch.from_numpy(np.stack([tri, t], axis=1))
+
+
 def image_close(got, want) -> tuple[float, float]:
     """Render agreement: image means within 1e-3 relative and >= 99% of
     pixels within 1e-3 absolute. Exact equality is not required: two

@@ -22,9 +22,9 @@ from julia_raytracer_tpu_torch.render.renderer import (
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.testing import (
-    adversarial_rays, check_hits, check_vs_flat, cornell_scene, dense_soup,
-    hybrid_scene, image_close, instanced_scene, render_instanced,
-    sphere_grid_scene,
+    adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
+    cornell_scene, dense_soup, hybrid_scene, image_close, instanced_scene,
+    regroup_bits, render_instanced, sphere_grid_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -287,6 +287,39 @@ def test_regroup_tritest_kernel_equals_plain(dev, sup):
     assert bool((tri[3 * 1024:4 * 1024] == -1).all())
     if sup > 1:
         assert not bool((tri // 128 == 1).any())
+
+
+@pytest.mark.parametrize("padding", [True, False])
+@pytest.mark.parametrize("n_super", [1, 2, 188, 600])
+def test_regroup_pack_unpack_kernels_equal_plain(dev, n_super, padding):
+    """The pair walks of pack and unpack bit-equal to their plain versions
+    at 1, 2, 188 (the heavy scene's) and 600 supers (more than one of
+    unpack's 512-super passes), on hand-built plans (testing.regroup_bits:
+    a pair with every lane set, pairs with only lane 1,023 or lane 0, an
+    empty super from 3 supers on, most pairs empty; without padding every
+    segment is whole groups), ray payloads of random bits (NaNs included),
+    and unpack on the adversarial trires (ties across supers, misses at
+    tmax, +-0, denormals, NaN, +-inf, negative t). Pack's output is
+    allocated over stale values, so a slot it does not write shows."""
+    bits = regroup_bits(n_super, padding=padding, seed=n_super)
+    plan = rg.plan_from_bits(bits.to(dev))
+    n_slots = int(plan.groups_s.sum()) * 1024
+    g = torch.Generator().manual_seed(n_super)
+    rays8 = torch.randint(-2**31, 2**31 - 1, (bits.shape[0] * 1024, 8),
+                          generator=g, dtype=torch.int32).view(torch.float32).to(dev)
+    stale = torch.full((n_slots, 8), 7.0, device=dev)
+    del stale
+    packed = rg.regroup_pack(plan, rays8, n_slots)
+    want = rg.regroup_pack_plain(plan, rays8, n_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(packed.view(torch.int32), want.view(torch.int32))
+    trires = adversarial_trires(n_slots, seed=n_super).to(dev)
+    res = rg.regroup_unpack(plan, trires)
+    want = rg.regroup_unpack_plain(plan, trires)
+    torch.cuda.synchronize()
+    assert torch.equal(res, want)
+    assert torch.equal(res, rg.unpack_by_keys(plan, trires))
+    assert bool((res[:, 0] >= 0).any())
 
 
 def test_heavy_path_render_on_card_matches_cpu(dev):

@@ -22,7 +22,9 @@ import torch
 from julia_raytracer_tpu.ops.pallas_regroup import make_cluster_intersect_regroup
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
-from julia_raytracer_tpu_torch.testing import check_hits
+from julia_raytracer_tpu_torch.testing import (
+    adversarial_trires, check_hits, regroup_bits,
+)
 
 N_PRIMS = 12000
 N_RAYS = 1024 + 333  # not a multiple of the 1024-ray tile
@@ -345,3 +347,58 @@ def test_chunks_agree(soup):
     assert rg.regroup_intersect.host_syncs == syncs + 4
     for a, b in zip(whole, parts):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pairs", ["full", "lane0", "lane1023", "empty", "mixed"])
+def test_pair_ranks_by_words_equals_ranks(pairs):
+    """The kernels' word scan (pair_ranks_by_words: 32 words of 32 bits,
+    popcounts, each word's offset) ranks every set lane as _ranks does, on
+    pairs with all 1,024 lanes set, only lane 0, only lane 1,023, none,
+    and a mixed hand-built plan; unset lanes get -1."""
+    if pairs == "mixed":
+        bits = regroup_bits(5, seed=1)
+    else:
+        bits = torch.zeros((2, 3, rg.TILE), dtype=torch.bool)
+        if pairs == "full":
+            bits[:, 1] = True
+        elif pairs == "lane0":
+            bits[:, :, 0] = True
+        elif pairs == "lane1023":
+            bits[:, :, 1023] = True
+    got = rg.pair_ranks_by_words(bits)
+    assert got.dtype == torch.int32 and got.shape == bits.shape
+    assert torch.equal(got[bits], rg._ranks(bits)[bits])
+    assert (got[~bits] == -1).all()
+    if pairs == "full":
+        assert torch.equal(got[0, 1], torch.arange(rg.TILE, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("padding", [True, False])
+@pytest.mark.parametrize("n_super", [1, 2, 188, 600])
+def test_unpack_by_keys_equals_plain(n_super, padding):
+    """The unpack kernel's key-min merge (unpack_by_keys) equals the serial
+    walk (regroup_unpack_plain) on hand-built plans and adversarial trires:
+    exact t ties across supers, misses at tmax, +-0, denormals, NaN, +-inf
+    and negative t. Without padding every segment is whole groups."""
+    bits = regroup_bits(n_super, padding=padding, seed=n_super)
+    plan = rg.plan_from_bits(bits)
+    assert bool((plan.cnt_s % rg.TILE != 0).any()) == padding
+    n_slots = int(plan.groups_s.sum()) * rg.TILE
+    trires = adversarial_trires(n_slots, seed=n_super)
+    got = rg.unpack_by_keys(plan, trires)
+    want = rg.regroup_unpack_plain(plan, trires)
+    assert torch.equal(got, want)
+    # some rays meet their least t in two or more supers, and the first wins
+    t_i, s_i, lane = torch.nonzero(plan.bits, as_tuple=True)
+    slot = (plan.base_ts[t_i, s_i] + rg._ranks(plan.bits)[t_i, s_i, lane]).long()
+    ray = t_i * rg.TILE + lane
+    at_best = trires[slot, 1] == want[ray, 1]
+    ties = torch.bincount(ray[at_best], minlength=want.shape[0])
+    if n_super > 1:
+        assert int((ties > 1).sum()) > 0
+    # hits, and rays left at (-1, +inf); with few supers a ray, also
+    # misses merged at tmax
+    t = want[:, 1].view(torch.float32)
+    assert bool((want[:, 0] >= 0).any()) and bool(torch.isinf(t).any())
+    if n_super <= 2:
+        assert bool(((want[:, 0] == -1) & (t == 3e38)).any())
