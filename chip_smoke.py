@@ -38,9 +38,11 @@ and holds small renders of the paths on the card against the same renders
 on the CPU.
 
 `--parent DIR`: DIR holds an earlier checkout of the repository (`git
-archive` of a commit). The inputs of the dense kernel and of the three
-regroup kernels (pack, tri-test, unpack) are saved, and child processes
-time the four through each tree's own wrappers (`make_dense_intersect`,
+archive` of a commit). The inputs of the dense kernel, of the two cluster
+kernels without a work list and of the three regroup kernels (pack,
+tri-test, unpack) are saved, and child processes time the six through
+each tree's own wrappers (`make_dense_intersect`,
+`cluster_intersect_kernel`, `cluster_intersect_streamed_kernel`,
 `regroup_pack`, `regroup_tritest`, `regroup_unpack`) on them, in turns
 (parent, this, this, parent), each child checking its results against
 this tree's plain versions bit for bit.
@@ -798,23 +800,43 @@ def phase_regroup_vs_worklist(dev, renderer, primary, bounce, stages, soups):
     return out
 
 
-def phase_cluster(dev, renderer, rays, need_pairs: int) -> dict:
-    """Rows 4 and 5 (ops/cluster_intersect.py: each 1024-ray block sweeps
+def _box_culls(work, n: int, n_clusters: int) -> float:
+    """The slab tests a lane of a walking warp makes, on average: the
+    sweep culls every cluster box; the streamed kernel culls each
+    supercluster box and, in the (warp, supercluster) steps some ray
+    enters (`steps`), its 64 cluster boxes."""
+    if "steps" not in work:
+        return float(n_clusters)
+    n_warps = -(-n // wl.WARP)
+    return (n_warps * -(-n_clusters // ci.SUPER)
+            + work["steps"] * ci.SUPER) / n_warps
+
+
+def phase_cluster(dev, renderer, rays, need_pairs: int,
+                  turn_inputs: dict | None) -> dict:
+    """Rows 4 and 5 (ops/cluster_intersect.py: each warp of 32 rays sweeps
     every cluster, or every supercluster of 64 and then its clusters, each
     ray culling against its tmax) on the sphere grid's 262,144 pixel-order
     bounce rays: each kernel against its plain version on the card, bit for
     bit, and within check_hits of the worklist intersector on the same rays
-    (both pack the BVH-ordered quads, so prim ids agree). The bound counts
+    (both pack the BVH-ordered quads, so prim ids agree); the walks' table
+    loads (`loads`, counted by the plain versions). The bound counts
     the operations of what the function needs, `need_pairs`: the (ray,
     cluster) pairs that the worklist intersector, computing the same closest
     hits front to back against each ray's running best, tests on these
     rays; the kernels' own cull against tmax passes more. No PyTorch call
-    computes this function (library_ms null)."""
+    computes this function (library_ms null). The tables, the rays and the
+    plain versions' results go into `turn_inputs` when it is a dict."""
     cfg = renderer.config
     tables = ci.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance, dev)
     ref = wl.worklist_intersect(renderer.intersect.tables, *rays)
     n = rays[0].shape[0]
     out = {}
+    if turn_inputs is not None:
+        turn_inputs.update(
+            cluster_tables={k: v.cpu() if torch.is_tensor(v) else v
+                            for k, v in tables._asdict().items()},
+            cluster_rays=[x.cpu() for x in rays])
     for name, kernel, plain, box_bytes in (
             ("cluster_intersect", ci.cluster_intersect_kernel,
              ci.cluster_intersect_plain, ci.n_clusters(tables) * 32),
@@ -826,6 +848,8 @@ def phase_cluster(dev, renderer, rays, need_pairs: int) -> dict:
         require(_bit_equal(got, want), f"{name} kernel and plain version differ")
         err = check_hits(want, got)
         wl_dt = check_hits(ref, got)
+        if turn_inputs is not None:
+            turn_inputs[name + "_ref"] = [x.cpu() for x in want]
         t = kernel_ms(lambda: kernel(tables, *rays), CLUSTER_REPS)
         ms = t["ms"]
         out[name] = dict(
@@ -839,7 +863,12 @@ def phase_cluster(dev, renderer, rays, need_pairs: int) -> dict:
             f"bit-equal to its plain version, within check_hits of the "
             f"worklist (max |dt| {wl_dt}), (ray, cluster) pairs culled against "
             f"tmax {work['pairs']}, needed (the worklist's on these rays) "
-            f"{need_pairs}, clusters tested {work['clusters']}, kernel {ms:.4f} ms, plain "
+            f"{need_pairs}, clusters tested {work['clusters']}, (warp, "
+            f"cluster) table loads {work['loads']}, rays per table load "
+            f"{work['pairs'] / max(work['loads'], 1):.3f}, box culls a lane "
+            f"{_box_culls(work, n, ci.n_clusters(tables)):.1f}, kernel "
+            f"{ms:.4f} ms "
+            f"({t['call_ms']:.4f} ms with the host's launch), plain "
             f"{plain_ms:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
             f"({out[name]['bound_by']})")
     return out
@@ -1257,31 +1286,49 @@ def rng_agrees(dev) -> None:
 
 
 # Run in a child process by kernels_in_turns (argv: a tree, the inputs
-# file): rows 1, 8, 9 and 10 through that tree's own wrappers, each result
-# held to this tree's plain version bit for bit, then their device times
-# (device_ms).
+# file): rows 1, 4, 5, 8, 9 and 10 through that tree's own wrappers, each
+# result held to this tree's plain version bit for bit, then their device
+# times (device_ms; rows 4 and 5 over CLUSTER_REPS launches).
 _TURN_CHILD = """
 import json, os, sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
+from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 REPS = @REPS@
+CLUSTER_REPS = @CLUSTER_REPS@
 @DEVICE_MS@
 x = torch.load(sys.argv[2], weights_only=False)
 dev = torch.device("cuda", 0)
+
+
+def on_card(saved):
+    return wl.WorklistTables(**{k: v.to(dev) if torch.is_tensor(v) else v
+                                for k, v in saved.items()})
+
+
+def same(got, ref):
+    return all(torch.equal(a.cpu(), b) for a, b in zip(got, ref, strict=True))
+
+
 dense = di.make_dense_intersect(x["verts"], x["inst"], dev)
 args = [a.to(dev) for a in x["dense_args"]]
-tables = wl.WorklistTables(**{k: v.to(dev) if torch.is_tensor(v) else v
-                              for k, v in x["tables"].items()})
+tables = on_card(x["tables"])
 packed, grp = x["packed"].to(dev), x["grp_super"].to(dev)
 plan = rg.Plan(**{k: v.to(dev) for k, v in x["plan"].items()})
 rays8, tri = x["rays8"].to(dev), x["tri_ref"].to(dev)
 n_slots = packed.shape[0]
+ctables = on_card(x["cluster_tables"])
+crays = [a.to(dev) for a in x["cluster_rays"]]
 equal = dict(
-    dense=all(torch.equal(a.cpu(), b) for a, b in zip(dense(*args), x["dense_ref"])),
+    dense=same(dense(*args), x["dense_ref"]),
+    sweep=same(ci.cluster_intersect_kernel(ctables, *crays),
+               x["cluster_intersect_ref"]),
+    streamed=same(ci.cluster_intersect_streamed_kernel(ctables, *crays),
+                  x["cluster_intersect_streamed_ref"]),
     pack=torch.equal(rg.regroup_pack(plan, rays8, n_slots).cpu().view(torch.int32),
                      x["pack_ref"].view(torch.int32)),
     tritest=torch.equal(rg.regroup_tritest(packed, tables, grp).cpu(), x["tri_ref"]),
@@ -1289,6 +1336,11 @@ equal = dict(
 print(json.dumps(dict(
     package=os.path.dirname(os.path.dirname(di.__file__)),
     equal=equal, dense_ms=device_ms(lambda: dense(*args)),
+    sweep_ms=device_ms(lambda: ci.cluster_intersect_kernel(ctables, *crays),
+                       CLUSTER_REPS),
+    streamed_ms=device_ms(
+        lambda: ci.cluster_intersect_streamed_kernel(ctables, *crays),
+        CLUSTER_REPS),
     pack_ms=device_ms(lambda: rg.regroup_pack(plan, rays8, n_slots)),
     tritest_ms=device_ms(lambda: rg.regroup_tritest(packed, tables, grp)),
     unpack_ms=device_ms(lambda: rg.regroup_unpack(plan, tri)))))
@@ -1296,17 +1348,21 @@ print(json.dumps(dict(
 
 # the kernels timed in turns: (name, the child's key, its log label)
 TURN_KERNELS = (("dense_intersect", "dense_ms", "dense"),
+                ("cluster_intersect", "sweep_ms", "cluster sweep"),
+                ("cluster_intersect_streamed", "streamed_ms", "streamed sweep"),
                 ("regroup_pack", "pack_ms", "pack"),
                 ("regroup_tritest", "tritest_ms", "tri-test"),
                 ("regroup_unpack", "unpack_ms", "unpack"))
 
 
 def kernels_in_turns(parent: str, turn_inputs: dict) -> dict:
-    """Device times of the dense kernel and the three regroup kernels of
-    the tree in `parent` and of this one, each through its own wrappers in
-    a child process on the same saved inputs, in turns: parent, this,
-    this, parent -> {kernel: {"parent_ms": [..], "ms_turns": [..]}}."""
+    """Device times of the dense kernel, the two cluster kernels without a
+    work list and the three regroup kernels of the tree in `parent` and of
+    this one, each through its own wrappers in a child process on the same
+    saved inputs, in turns: parent, this, this, parent -> {kernel:
+    {"parent_ms": [..], "ms_turns": [..]}}."""
     code = (_TURN_CHILD.replace("@REPS@", str(REPS))
+            .replace("@CLUSTER_REPS@", str(CLUSTER_REPS))
             .replace("@DEVICE_MS@", inspect.getsource(device_ms)))
     here = os.path.dirname(os.path.abspath(__file__))
     trees = (os.path.abspath(parent), here, here, os.path.abspath(parent))
@@ -1339,8 +1395,8 @@ def kernels_in_turns(parent: str, turn_inputs: dict) -> dict:
 
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    args.add_argument("--parent", help="an earlier checkout whose dense "
-                      "kernel and regroup kernels are timed beside these, "
+    args.add_argument("--parent", help="an earlier checkout whose dense, "
+                      "cluster and regroup kernels are timed beside these, "
                       "in turns")
     opts = args.parse_args()
     if not torch.cuda.is_available():
@@ -1436,7 +1492,8 @@ def main() -> int:
                                              sp_bounce),
     }
     phases.update(phase_cluster(dev, spheres, sp_bounce,
-                                phases["worklist_intersect"]["pairs"]))
+                                phases["worklist_intersect"]["pairs"],
+                                turn_inputs))
     del sp_primary, sp_bounce
     phases["instanced_intersect"], phases["candidate_cull"] = phase_instanced(
         dev, inst["instanced"], inst_scenes["instanced"])
@@ -1577,8 +1634,8 @@ def main() -> int:
         )
         for extra in ("call_ms", "parent_ms", "ms_turns", "pretest", "primary",
                       "sorted_rays_ms", "passes", "group_passes",
-                      "clusters", "pairs", "bound_pairs", "warps", "groups",
-                      "steps", "votes", "warp_pairs", "tri_slots",
+                      "clusters", "pairs", "bound_pairs", "loads", "warps",
+                      "groups", "steps", "votes", "warp_pairs", "tri_slots",
                       "precull_ms", "candidates", "finite_keys",
                       "group_sweep", "hybrid_group_sweep"):
             if extra in p:

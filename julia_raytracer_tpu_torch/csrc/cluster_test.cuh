@@ -2,14 +2,12 @@
 // of a ray against a cluster box (cluster_cull, on slab_enter_exit, which
 // the candidate cull of candidate_cull.cu also uses) and the affine
 // unit-triangle test of a ray against one triangle of a cluster table
-// (tri_test, on the table, or tri_test_k, on one triangle's 12
-// coefficients), and the closest hit over one cluster's 128 triangles
-// (closest_tri). Included by cluster_intersect.cu, and through
-// warp_walk.cuh by worklist_intersect.cu, instanced_intersect.cu and
-// regroup_intersect.cu; the plain PyTorch versions are _cluster_cull,
-// _tri_tests and _closest_tri in ops/worklist_intersect.py, which repeat
-// this arithmetic in the same order (bit for bit when the kernels are built
-// with -fmad=false).
+// (tri_test_k, on the triangle's 12 coefficients). Included through
+// warp_walk.cuh by worklist_intersect.cu, instanced_intersect.cu,
+// regroup_intersect.cu and cluster_intersect.cu; the plain PyTorch
+// versions are _cluster_cull and _tri_tests in ops/worklist_intersect.py,
+// which repeat this arithmetic in the same order (bit for bit when the
+// kernels are built with -fmad=false).
 //
 // min/max propagate NaN as torch.minimum/maximum do (the sm_80+ min.NaN /
 // max.NaN instructions), so a NaN ray never enters a box in either version.
@@ -99,42 +97,4 @@ __device__ __forceinline__ bool tri_test_k(const Ray& r, const float* k,
   v = opy + t * dpy;
   return (dpz != 0.0f) && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
          (u + v <= 1.0f) && (t >= r.tmin) && (t < best);
-}
-
-// tri_test_k on triangle j of a cluster table `tab` laid out [16][128].
-__device__ __forceinline__ bool tri_test(const Ray& r, const float* tab,
-                                         int j, float best, float& t,
-                                         float& u, float& v) {
-  float k[12];
-#pragma unroll
-  for (int q = 0; q < 12; ++q) k[q] = tab[q * kTris + j];
-  return tri_test_k(r, k, best, t, u, v);
-}
-
-// Closest hit of ray r among the 128 triangles of the cluster table `tile`
-// ([16][128], in shared memory), in index order with a strict `<` against
-// the running `best`, so the first minimum wins. Returns the triangle, or
-// -1 when none is closer than best; on a hit, best, u and v take its t, u
-// and v, with u and v flipped on odd triangles (the second triangle of a
-// quad, (p3, p4, p2)).
-__device__ __forceinline__ int closest_tri(const Ray& r, const float* tile,
-                                           float& best, float& u_out,
-                                           float& v_out) {
-  int arg = -1;
-  float cu = 0.0f, cv = 0.0f;
-  for (int j = 0; j < kTris; ++j) {
-    float t, u, v;
-    if (tri_test(r, tile, j, best, t, u, v)) {
-      best = t;
-      cu = u;
-      cv = v;
-      arg = j;
-    }
-  }
-  if (arg >= 0) {
-    const bool odd = (arg & 1) != 0;
-    u_out = odd ? 1.0f - cu : cu;
-    v_out = odd ? 1.0f - cv : cv;
-  }
-  return arg;
 }

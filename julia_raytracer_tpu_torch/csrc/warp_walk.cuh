@@ -1,20 +1,26 @@
 // The inner step that the worklist kernel (worklist_intersect.cu), the
-// work-item kernel (instanced_intersect.cu) and the regroup tri-test
-// (regroup_intersect.cu) share: one warp of 32 rays against the clusters
-// of one supercluster, with no block-wide barrier.
+// work-item kernel (instanced_intersect.cu), the regroup tri-test
+// (regroup_intersect.cu) and the two cluster kernels without a work list
+// (cluster_intersect.cu) share: one warp of 32 rays against the clusters
+// of one supercluster (or one step of up to 128 clusters), with no
+// block-wide barrier.
 //
-//   1. Each ray slab-tests every cluster box of the supercluster against
+//   1. Each ray slab-tests every cluster box of the step against
 //      [tmin, min(tmax, best)] (cluster_cull, best at the step's start)
 //      into a mask of up to 128 bits; a ray that does not enter the step
-//      (`enter` false) keeps an empty mask.
+//      (`enter` false) keeps an empty mask. The template parameter
+//      kCullToBest (true unless a caller asks otherwise) picks that limit;
+//      the cluster kernels turn it off and cull against tmax alone, as
+//      their TPU kernels do.
 //   2. The warp ORs the masks once (__reduce_or_sync): the mask vote.
 //   3. For each set cluster in index order, each ray whose bit is set
 //      culls the cluster again against its running best (best only
 //      shrinks, so this keeps no cluster the step-start cull dropped; the
 //      template parameter kRecull, true unless a caller asks otherwise);
 //      the rays that still want it are the ballot. The regroup tri-test
-//      (regroup_intersect.cu) turns the re-cull off: its slots test every
-//      cluster their tmax lets in, as the TPU kernel does.
+//      (regroup_intersect.cu) and the cluster kernels turn the re-cull
+//      off: their rays test every cluster their tmax lets in, as the TPU
+//      kernels do.
 //   4. If any does, the warp loads the cluster's 12 transform rows through
 //      the read-only path, 4 triangles a lane (one coalesced float4 per row
 //      and lane), and tests the wanting rays one after another: the ray's
@@ -22,7 +28,8 @@
 //      against that ray's best, and a shuffle min over (t, index) finds
 //      the first minimum. Each lane tests against the ray's best at the
 //      cluster's start, so this is the hit the serial strict `<` over the
-//      128 triangles in index order finds (closest_tri), bit for bit.
+//      128 triangles in index order finds (_closest_tri of
+//      ops/worklist_intersect.py), bit for bit.
 //
 // So the triangle tests of a (ray, cluster) pair keep all 32 lanes busy,
 // whatever the number of rays in the warp that want the cluster (a lane
@@ -123,14 +130,14 @@ __device__ __forceinline__ int warp_closest(const Ray& r, float best,
 // note). boxes: its `sup` cluster boxes [sup][8]; tab: its tables
 // [sup][16][128]; cluster0: the global id of its first cluster; tag: kept
 // with a hit found here. Every lane of the warp must call it.
-template <bool kRecull = true>
+template <bool kRecull = true, bool kCullToBest = true>
 __device__ __forceinline__ void warp_super_step(
     const Ray& r, float tmax, bool enter, Best& b,
     const float* __restrict__ boxes, const float* __restrict__ tab, int sup,
     int cluster0, int tag) {
   const int lane = threadIdx.x & (kWarp - 1);
   unsigned mask[kMaskWords];
-  const float tlim = min_nan(tmax, b.t);
+  const float tlim = kCullToBest ? min_nan(tmax, b.t) : tmax;
 #pragma unroll
   for (int w = 0; w < kMaskWords; ++w) {
     unsigned m = 0u;

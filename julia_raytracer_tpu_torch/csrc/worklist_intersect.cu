@@ -30,7 +30,7 @@
 //   - each ray slab-tests each cluster box against [tmin, min(tmax, best)]
 //     with the 1.00000024 slack of the TPU kernel (cluster_cull), and its
 //     closest hit among the 128 triangles of a cluster it wants is the
-//     first minimum below its running best (closest_tri's result);
+//     first minimum below its running best (_closest_tri's result);
 //   - triangle 2i is (p1, p2, p4) of quad i, triangle 2i+1 is (p3, p4, p2)
 //     with its uv flipped;
 //   - out: prim = best triangle / 2 (-1 on a miss), t = best t (tmax on a

@@ -11,10 +11,11 @@ intersectors); they are reached through their factories.
     (ops/worklist_intersect.py) with superclusters of SUPER = 64 clusters
     (the JAX package's `build_super_bbox`), so prim ids are the worklist
     intersector's.
-  cluster_intersect_kernel / _plain: each 1024-ray block sweeps every
-    cluster in index order; each ray culls each cluster box against
-    [tmin, tmax] and tests the 128 triangles of a cluster it wants in
-    index order with a strict `<` against its running best.
+  cluster_intersect_kernel / _plain: each warp of 32 rays sweeps every
+    cluster in index order (in steps of up to 128); each ray culls each
+    cluster box against [tmin, tmax] and tests the 128 triangles of a
+    cluster it wants in index order with a strict `<` against its running
+    best.
   cluster_intersect_streamed_kernel / _plain: the same over the
     superclusters in index order, each ray culled against the supercluster
     box first and, inside one it enters, against each cluster box.
@@ -22,7 +23,13 @@ intersectors); they are reached through their factories.
 The kernel and its plain version compute the same function in the same
 order and agree bit for bit on the card; the plain versions also count
 the (ray, cluster) pairs that pass the cull (`pairs`), the work that
-bounds the kernels, and the clusters some ray tests (`clusters`).
+bounds the kernels, the clusters some ray tests (`clusters`), and the
+(warp of 32 consecutive rays, cluster) pairs in which some ray wants the
+cluster (`loads`): each one load of the cluster's table by the kernel's
+warp walk (csrc/warp_walk.cuh). The streamed version also counts the
+(warp, supercluster) pairs in which some ray enters the supercluster's
+box (`steps`): the streamed kernel's steps, each 64 box culls a lane,
+where the sweep culls all C boxes on every ray.
 `cluster_intersect` / `cluster_intersect_streamed` take the plain version
 for CPU tensors and the kernel for CUDA tensors (or raise). Each kernel
 wrapper's `.launches` counts its launches.
@@ -73,11 +80,15 @@ class _Record:
         self.binst = torch.zeros(n, device=dev)
         self.pairs = 0
         self.clusters = 0
+        self.loads = 0
 
     def test(self, tables, ro, rd, tmin, idx, cl: int) -> None:
-        """Rays `idx` want cluster `cl`: closest_tri of the .cu file."""
+        """Rays `idx` (ascending) want cluster `cl`: their closest hits
+        among its 128 triangles (wl._closest_tri), as the warp walk finds
+        them."""
         self.pairs += idx.numel()
         self.clusters += 1
+        self.loads += torch.unique_consecutive(idx // wl.WARP).numel()
         c = tables.tab[cl]
         found, arg, t, u, v = wl._closest_tri(ro[idx], rd[idx], tmin[idx],
                                               self.best[idx], c[None])
@@ -94,6 +105,10 @@ class _Record:
         return wl._finish(tables, ro, rd, tmax, self.best, self.best_tri,
                           self.bu, self.bv, self.bn, self.binst)
 
+    def work(self) -> dict:
+        return dict(pairs=self.pairs, clusters=self.clusters,
+                    loads=self.loads)
+
 
 def cluster_intersect_plain(tables: wl.WorklistTables, ro, rd, tmin, tmax,
                             ) -> tuple[Hit, dict]:
@@ -106,8 +121,7 @@ def cluster_intersect_plain(tables: wl.WorklistTables, ro, rd, tmin, tmax,
         idx = torch.nonzero(want).squeeze(1)
         if idx.numel():
             rec.test(tables, ro, rd, tmin, idx, cl)
-    return rec.hit(tables, ro, rd, tmax), dict(pairs=rec.pairs,
-                                               clusters=rec.clusters)
+    return rec.hit(tables, ro, rd, tmax), rec.work()
 
 
 def cluster_intersect_streamed_plain(tables: wl.WorklistTables, ro, rd, tmin,
@@ -116,11 +130,13 @@ def cluster_intersect_streamed_plain(tables: wl.WorklistTables, ro, rd, tmin,
     vectorised over rays, one step per supercluster and cluster."""
     inv = wl._inverse_dir(rd)
     rec = _Record(tmax)
+    steps = 0
     for s in range(tables.sbbox.shape[0]):
         ins = wl._cluster_cull(ro, inv, tmin, tmax, tables.sbbox[s:s + 1])
         sub = torch.nonzero(ins).squeeze(1)
         if sub.numel() == 0:
             continue
+        steps += torch.unique_consecutive(sub // wl.WARP).numel()
         for ci in range(SUPER):
             cl = s * SUPER + ci
             want = wl._cluster_cull(ro[sub], inv[sub], tmin[sub], tmax[sub],
@@ -128,8 +144,7 @@ def cluster_intersect_streamed_plain(tables: wl.WorklistTables, ro, rd, tmin,
             idx = sub[want]
             if idx.numel():
                 rec.test(tables, ro, rd, tmin, idx, cl)
-    return rec.hit(tables, ro, rd, tmax), dict(pairs=rec.pairs,
-                                               clusters=rec.clusters)
+    return rec.hit(tables, ro, rd, tmax), dict(rec.work(), steps=steps)
 
 
 def _launch(name, tables, ro, rd, tmin, tmax, *table_args) -> Hit:

@@ -89,3 +89,46 @@ def test_kernel_wrappers_refuse_cpu_tensors(setup):
                    ci.cluster_intersect_streamed_kernel):
         with pytest.raises(ValueError):
             kernel(tables, *tr)
+
+
+def _enters_numpy(ro, rd, tmin, tmax, boxes):
+    """[n, m] bool: ray i enters box j within [tmin, tmax], the slab test
+    of the kernels repeated in float32 numpy."""
+    inv = np.float32(1.0) / np.where(rd == 0.0, np.float32(wl.TINY_DIR), rd)
+    with np.errstate(over="ignore"):  # 1e30 x the padding boxes' 3e38
+        t0 = (boxes[None, :, 0:3] - ro[:, None]) * inv[:, None]
+        t1 = (boxes[None, :, 3:6] - ro[:, None]) * inv[:, None]
+    enter = np.maximum(np.minimum(t0, t1).max(axis=2), tmin[:, None])
+    exit_ = np.minimum(np.maximum(t0, t1).min(axis=2), tmax[:, None])
+    return enter <= exit_ * np.float32(wl.SLACK)
+
+
+def _warp_loads(want):
+    """(warp of 32 consecutive rays, cluster) pairs with a wanting ray."""
+    n, c = want.shape
+    return int(want.reshape(n // wl.WARP, wl.WARP, c).any(axis=1).sum())
+
+
+def test_plain_loads_match_numpy_count(setup):
+    """Both plain versions' `loads` (the kernels' table loads: the (warp,
+    cluster) pairs in which some ray wants the cluster) and `pairs`, and
+    the streamed version's `steps` (the (warp, supercluster) pairs in which
+    some ray enters the supercluster), against a direct numpy count of the
+    cull on the 2,048 rays; the streamed version's rays want a cluster only
+    inside a supercluster they enter."""
+    verts, inst, rays = setup
+    tables = ci.pack_tables(verts, inst, "cpu")
+    boxes = tables.bbox.numpy()
+    want = _enters_numpy(*rays, boxes)
+    in_super = _enters_numpy(*rays, tables.sbbox.numpy())
+    want_streamed = want & np.repeat(in_super, ci.SUPER, axis=1)
+    c = ci.n_clusters(tables)
+    tr = [torch.from_numpy(x) for x in rays]
+    _, w_sweep = ci.cluster_intersect_plain(tables, *tr)
+    _, w_streamed = ci.cluster_intersect_streamed_plain(tables, *tr)
+    assert w_sweep["pairs"] == int(want[:, :c].sum())
+    assert w_sweep["loads"] == _warp_loads(want[:, :c])
+    assert w_streamed["pairs"] == int(want_streamed.sum())
+    assert w_streamed["loads"] == _warp_loads(want_streamed)
+    assert w_streamed["steps"] == _warp_loads(in_super)
+    assert w_sweep["pairs"] / wl.WARP < w_sweep["loads"] < w_sweep["pairs"]

@@ -377,6 +377,73 @@ def test_cluster_kernels_equal_plain(dev):
         check_hits(wl.worklist_intersect(tables, *rays), got)
 
 
+def _edge_soup():
+    """The soup's first 10,530 quads: 165 clusters (the sweep's steps of
+    128 end in a tail of 37; 3 superclusters of 64, the last padded by 27),
+    cluster 0's quads repeated as cluster 1 (the same mask word of the
+    sweep's first step, the same supercluster) and cluster 2's as cluster
+    70 (another word, another supercluster)."""
+    pv = _soup_quads()[:10530].copy()
+    pv[64:128] = pv[0:64]
+    pv[70 * 64:71 * 64] = pv[128:192]
+    return pv
+
+
+@pytest.mark.parametrize("n", [1, 95, 3001])
+def test_cluster_walks_equal_plain_at_edges(dev, n):
+    """The sweep's and the streamed kernel's warp walks bit-equal to their
+    plain versions on the first n of 3,001 rays (1, 95 and 3,001: a lone
+    ray, part-filled warps, n not a multiple of 32 or 128) over
+    _edge_soup(): rays 0-1023 aim at the quads of clusters 0 and 2, the
+    rest start inside the soup in random directions (rays that want
+    clusters in several mask words of a step and in the tail step); dead
+    lanes (tmax = -1), tmax +inf and short, -0.0 direction components. The
+    lower cluster wins every tie with its copy: no hit in clusters 1 or
+    70."""
+    pv = _edge_soup()
+    tables = ci.pack_tables(pv, np.arange(len(pv)) % 7, dev)
+    c = ci.n_clusters(tables)
+    assert c == 165 and tables.sbbox.shape[0] == 3
+    g = np.random.default_rng(8)
+    m = 3001
+    o = g.random((m, 3))
+    d = g.normal(size=(m, 3))
+    quad = g.integers(0, 64, 1024) + np.where(np.arange(1024) % 2 == 1, 128, 0)
+    centre = pv[quad].mean(axis=1)
+    nrm = np.cross(pv[quad, 1] - pv[quad, 0], pv[quad, 3] - pv[quad, 0])
+    o[:1024] = centre + 0.01 * nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
+    d[:1024] = centre - o[:1024]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[3::13, 0] = -0.0
+    d[6::17, 2] = -0.0
+    tmax = np.full(m, 3.0e38)
+    tmax[2::7] = np.inf
+    tmax[5::10] = -1.0
+    tmax[9::19] = g.uniform(0.01, 0.5, len(tmax[9::19]))
+    rays = [torch.tensor(x[:n], dtype=torch.float32, device=dev)
+            for x in (o, d, np.full(m, 1e-4), tmax)]
+    for kernel, plain in (
+            (ci.cluster_intersect_kernel, ci.cluster_intersect_plain),
+            (ci.cluster_intersect_streamed_kernel,
+             ci.cluster_intersect_streamed_plain)):
+        got = kernel(tables, *rays)
+        want, work = plain(tables, *rays)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+        assert 0 < work["loads"] <= work["pairs"]
+        cluster = got.prim[got.hit] // 64
+        assert not bool(((cluster == 1) | (cluster == 70)).any())
+    assert bool(got.hit[0])
+    if n == m:
+        inv = wl._inverse_dir(rays[1])
+        wants = torch.stack([wl._cluster_cull(rays[0], inv, rays[2], rays[3],
+                                              tables.bbox[k:k + 1])
+                             for k in range(c)], dim=1)
+        assert bool((wants[:, :32].any(1) & wants[:, 96:128].any(1)).any())
+        assert bool(wants[:, 128:].any())
+        assert float(got.hit[:1024].float().mean()) > 0.5
+
+
 @pytest.mark.parametrize("group", [32, 256, 1024])
 def test_candidate_cull_kernel_equals_plain(dev, group):
     """The candidate cull's keys bit-equal to its plain version at n =
