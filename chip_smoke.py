@@ -35,7 +35,14 @@ it:
     quads: a flattened soup of 1,048,582 quads through kernel_select's
     choice, 24 big spheres as 12,288 work items);
 and holds small renders of the paths on the card against the same renders
-on the CPU.
+on the CPU. Last, the cli phase drives the command-line entry point
+(julia_raytracer_tpu_torch.cli.main, in process) on scenes it writes with
+testing.write_yocto_scene, at 512 x 512 and 8 bounces, each run with the
+launch counters zeroed just before it: the Cornell box uniform (its PNG
+held to the Renderer's), checkpointed and resumed (byte-equal), adaptive
+with the denoiser twice (bit-equal), against a 64-sample reference (the
+JAX package's adaptive and denoiser quality gates), and the sphere grid
+under --addsky; it prints a `cli:` line of their times and launches.
 
 `--parent DIR`: DIR holds an earlier checkout of the repository (`git
 archive` of a commit). The inputs of the dense kernel, of the two cluster
@@ -55,6 +62,8 @@ phase fails. On success the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import inspect
 import math
@@ -63,9 +72,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
+
+from julia_raytracer_tpu_torch import cli
 
 from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
 from julia_raytracer_tpu_torch.ops import cuda_build, dense_intersect as di
@@ -78,18 +90,21 @@ from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.integrator import (
     _host_prims, _sort_key, sort_bounds, trace_wavefront,
 )
+from julia_raytracer_tpu_torch.render.denoise import denoise_image
 from julia_raytracer_tpu_torch.render.renderer import (
-    Params, Renderer, make_trace_state,
+    Params, Renderer, TraceState, adaptive_cdf, adaptive_draw,
+    inclusive_scan, make_trace_state, pixel_sums,
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.flatten import flatten_scene
 from julia_raytracer_tpu_torch.testing import (
     HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat, cornell_scene,
     heavy_scene, hybrid_scene, image_close, instanced_scene,
-    render_instanced, require, sphere_grid_scene,
+    render_instanced, require, sphere_grid_scene, write_yocto_scene,
 )
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from julia_raytracer_tpu_torch.utils.imgio import save_png
 from julia_raytracer_tpu_torch.utils.vecmath import normalize
 
 MAIN_RES, MAIN_BOUNCES, WARM_SPP, TIMED_SPP = 512, 8, 8, 32
@@ -105,6 +120,12 @@ INST_CHECK_RES, INST_CHECK_SPP = 64, 2
 INST_T_MISMATCH = 1e-4
 CLUSTER_REPS = 5  # the cluster kernels test every cluster a ray's box path meets
 CHECK_RES, CHECK_SPP = 128, 4
+# the cli phase: julia_raytracer_tpu_torch.cli.main on written scenes at
+# the main paths' width (512 x 512, 8 bounces)
+CLI_SPP, CLI_BATCH, CLI_CKPT_SPP = 16, 4, 8
+CLI_WARMUP, CLI_REF_SPP, CLI_REF_SEED, CLI_GRID_SPP = 4, 64, 3, 8
+CLI_NOISY_SPP = 4  # the denoiser's input in tests/test_denoise.py
+CLI_CHECK_RES, CLI_CHECK_SPP = 32, 2
 SPHERE_CHECK_RES, SPHERE_CHECK_SPP, SPHERE_CHECK_SEGMENTS = 64, 2, 16
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
 COMPACT_CAP = N_RAYS // 4  # first two-phase boundary of the main path
@@ -1285,6 +1306,304 @@ def rng_agrees(dev) -> None:
             "rng draws differ on the card")
 
 
+def _cli_run(argv, want) -> dict:
+    """cli.main(argv) on the card with the launch counters zeroed just
+    before, its output captured. `want`: the kernels it must launch.
+    Returns the sampling loop's seconds (the CLI's "rendered in" line),
+    each batch's ms (its "sample i/n in" lines), the whole call's
+    seconds, the launches, and the Renderer it built."""
+    built = []
+
+    class Recording(Renderer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            built.append(self)
+
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "Renderer", Recording), \
+            contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    require(rc == 0, f"cli.main {argv} returned {rc}")
+    for name in want:
+        require(launches[name] > 0, f"the CLI run {argv} never launched {name}")
+    lines = out.getvalue().splitlines()
+    render_s = float([ln for ln in lines if ln.startswith("rendered in")][-1]
+                     .rsplit("(", 1)[1].rstrip("s)"))
+
+    def ms(hms):  # the CLI's h:mm:ss.mmm
+        h, m, s = hms.split(":")
+        return 1e3 * (3600 * int(h) + 60 * int(m) + float(s))
+
+    batch_ms = [ms(ln.split(" in ")[1].split()[0]) for ln in lines
+                if ln.startswith("sample ")]
+    return dict(render_s=render_s, call_s=seconds, batch_ms=batch_ms,
+                launches=launches, renderer=built[0])
+
+
+def _mse(img, ref) -> float:
+    return float(((img[..., :3] - ref[..., :3]) ** 2).mean())
+
+
+def _denoise_gain(den, noisy, ref) -> tuple[float, float]:
+    """The denoiser's error reduction as tests/test_denoise.py measures
+    it: the per-pixel MSE against ref of the denoised image over the
+    noisy one's, in full and without each image's worst 1% of pixels."""
+    e_noisy = ((noisy[..., :3] - ref[..., :3]) ** 2).reshape(-1, 3).mean(axis=1)
+    e_den = ((den[..., :3] - ref[..., :3]) ** 2).reshape(-1, 3).mean(axis=1)
+
+    def trimmed(e):
+        return float(np.sort(e)[: int(len(e) * 0.99)].mean())
+
+    return (float(e_den.mean() / e_noisy.mean()),
+            trimmed(e_den) / trimmed(e_noisy))
+
+
+def phase_cli(dev, cornell_mpaths: float) -> dict:
+    """The CLI end to end (julia_raytracer_tpu_torch.cli.main, in process)
+    on scenes written by write_yocto_scene, 512 x 512, 8 bounces, path
+    sampler, under out/ (deleted after):
+      1. Cornell, uniform, 16 samples in batches of 4: the PNG's bytes
+         equal save_png of the Renderer's image rendered directly;
+      2. Cornell, --checkpoint at 8 samples, then --resume to 16: the PNG
+         byte-equal to run 1;
+      3. Cornell, --adaptive --adaptive-warmup 4 --denoise --aov-prefix,
+         twice: image and counts bit-equal between the runs, counts sum
+         to 16 per pixel exactly with at least 4 each, the denoised image
+         finite and its PNG the CLI's;
+      4. quality against a 64-sample uniform reference (another seed):
+         adaptive MSE < 1.35 x uniform MSE (tests/test_adaptive.py), and
+         the denoiser's error reduction on a 4-sample uniform render, as
+         tests/test_denoise.py measures it (< 0.9 in full, < 0.5 trimmed);
+      5. the sphere grid (102,406 quads) with --addsky, 8 samples: one
+         environment, every camera sample a hit or the sky, finite;
+      6. --trace-profile at 32 x 32: its trace holds the card's kernels;
+      7. card against CPU (testing.image_close) at 32 x 32, 2 samples:
+         a denoised uniform render, and an adaptive one inside its
+         warm-up (counts equal).
+    Each run holds its kernels to having launched: rows 1-3 for the
+    Cornell box at 512 x 512, row 1 at 32 x 32 (1,024 lanes, under the
+    integrator's COMPACT_MIN of 16,384, are never compacted), row 6 for
+    the grid."""
+    cornell_kernels = ("dense_intersect", "lane_compact", "lane_expand")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
+    os.makedirs(root, exist_ok=True)
+    stats, launches = {}, {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        t0 = time.perf_counter()
+        cornell = write_yocto_scene(cornell_scene(), path("cornell"))
+        grid = write_yocto_scene(sphere_grid_scene(), path("grid"))
+        stats["write_scenes_s"] = time.perf_counter() - t0
+        common = ["--resolution", str(MAIN_RES), "--bounces",
+                  str(MAIN_BOUNCES), "--sampler", "path", "--device", str(dev)]
+        base = ["--scene", cornell, "--batch", str(CLI_BATCH)] + common
+        n_pix = MAIN_RES * MAIN_RES
+
+        def record(name, run, samples):
+            launches[name] = {k: v for k, v in run["launches"].items() if v}
+            stats[name] = dict(
+                ms_per_sample=1e3 * run["render_s"] / samples,
+                mpaths_per_s=n_pix * samples / run["render_s"] / 1e6,
+                call_s=run["call_s"], batch_ms=run["batch_ms"])
+            later = run["batch_ms"][1:]  # after the first batch's warm-up
+            if later:
+                stats[name]["mpaths_per_s_after_first_batch"] = (
+                    n_pix * (samples - samples // len(run["batch_ms"]))
+                    / sum(later) / 1e3)
+
+        # 1. uniform, against the Renderer rendered directly
+        run = _cli_run(base + ["--samples", str(CLI_SPP),
+                               "--output", path("uniform.png")],
+                       cornell_kernels)
+        record("uniform", run, CLI_SPP)
+        params = run["renderer"].params
+        direct = Renderer(cornell_scene(), params, device=dev)
+        uni = make_trace_state(cornell_scene(), params, device=dev)
+        while uni.samples < params.samples:
+            direct.trace_samples(uni)
+        uni_img = direct.get_image(uni)
+        save_png(path("direct.png"), uni_img)
+        with open(path("uniform.png"), "rb") as f:
+            uniform_png = f.read()
+        with open(path("direct.png"), "rb") as f:
+            require(f.read() == uniform_png,
+                    "the CLI's PNG differs from save_png of the Renderer's image")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_png(path("encode.png"), uni_img)
+        stats["png_encode_ms"] = 1e3 * (time.perf_counter() - t0)
+
+        # 2. checkpoint, then resume
+        run = _cli_run(base + ["--samples", str(CLI_CKPT_SPP), "--checkpoint",
+                               path("ck.npz"), "--output", path("half.png")],
+                       cornell_kernels)
+        record("checkpoint", run, CLI_CKPT_SPP)
+        run = _cli_run(base + ["--samples", str(CLI_SPP), "--resume",
+                               path("ck.npz"), "--output", path("resumed.png")],
+                       cornell_kernels)
+        record("resume", run, CLI_SPP - CLI_CKPT_SPP)
+        with open(path("resumed.png"), "rb") as f:
+            require(f.read() == uniform_png,
+                    "the resumed render's PNG differs from the uninterrupted one")
+        t0 = time.perf_counter()
+        uni.save(path("timed.npz"))
+        stats["checkpoint_write_ms"] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = TraceState.load(path("timed.npz"), device=dev)
+        torch.cuda.synchronize()
+        stats["checkpoint_read_ms"] = 1e3 * (time.perf_counter() - t0)
+        require(torch.equal(back.image, uni.image), "checkpoint round trip")
+
+        # 3. adaptive + denoise + AOVs, twice
+        ada = []
+        for k in range(2):
+            run = _cli_run(base + [
+                "--samples", str(CLI_SPP), "--adaptive", "--adaptive-warmup",
+                str(CLI_WARMUP), "--denoise", "--aov-prefix", path(f"aov{k}"),
+                "--checkpoint", path(f"ada{k}.npz"),
+                "--output", path(f"ada{k}.png")], cornell_kernels)
+            record(f"adaptive_{k}", run, CLI_SPP)
+            ada.append(np.load(path(f"ada{k}.npz")))
+            for aov in ("albedo", "normal"):
+                require(os.path.getsize(path(f"aov{k}_{aov}.png")) > 0,
+                        f"no {aov} AOV")
+        for key in ("image", "counts", "m2", "hits"):
+            require(np.array_equal(ada[0][key], ada[1][key]),
+                    f"two adaptive runs differ in {key}")
+        counts = ada[0]["counts"]
+        require(int(counts.sum()) == CLI_SPP * n_pix,
+                f"adaptive budget {int(counts.sum())} != {CLI_SPP * n_pix}")
+        require(int(counts.min()) >= CLI_WARMUP,
+                f"a pixel has {int(counts.min())} < {CLI_WARMUP} samples")
+        ada_state = TraceState.load(path("ada0.npz"), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        den = denoise_image(ada_state.image, ada_state.albedo,
+                            ada_state.normal, ada_state.width,
+                            ada_state.height)
+        torch.cuda.synchronize()
+        stats["denoise_ms"] = 1e3 * (time.perf_counter() - t0)
+        den = den.cpu().numpy().reshape(MAIN_RES, MAIN_RES, 4)
+        require(np.isfinite(den).all(), "non-finite denoised pixels")
+        stats["denoise_device_ms"] = profiled_ms(lambda: denoise_image(
+            ada_state.image, ada_state.albedo, ada_state.normal,
+            ada_state.width, ada_state.height))
+        # the adaptive step's own device work a sample: the draw (CDF,
+        # inverse-CDF draw, ranks) and the per-pixel sums of the merge
+        lanes = torch.zeros((n_pix, 13), device=dev)
+
+        def draw_and_sum():
+            ids, _, order = adaptive_draw(
+                adaptive_cdf(ada_state.counts, ada_state.m2), n_pix,
+                CLI_SPP, 0)
+            return pixel_sums(ids[order], lanes[order], n_pix)
+
+        stats["adaptive_draw_sum_device_ms"] = profiled_ms(draw_and_sum)
+        # why the CDF is no torch.cumsum: on the card its bits vary from
+        # call to call; inclusive_scan's must not
+        scans = [inclusive_scan(ada_state.m2) for _ in range(10)]
+        require(all(torch.equal(x, scans[0]) for x in scans),
+                "inclusive_scan gave different bits for one input")
+        sums = [torch.cumsum(ada_state.m2, 0) for _ in range(10)]
+        stats["cumsum_calls_unequal_to_first"] = sum(
+            not torch.equal(x, sums[0]) for x in sums)
+        save_png(path("den.png"), den)
+        with open(path("den.png"), "rb") as f, open(path("ada0.png"), "rb") as g:
+            require(f.read() == g.read(),
+                    "the adaptive run's PNG is not its denoised image")
+        stats["adaptive_counts"] = dict(min=int(counts.min()),
+                                        max=int(counts.max()))
+
+        # 4. quality against a higher-sample uniform reference
+        ref_params = Params(resolution=MAIN_RES, samples=CLI_REF_SPP,
+                            batch=CLI_REF_SPP, bounces=MAIN_BOUNCES,
+                            sampler="path", seed=CLI_REF_SEED)
+        ref_state = make_trace_state(cornell_scene(), ref_params, device=dev)
+        Renderer(cornell_scene(), ref_params, device=dev).trace_samples(ref_state)
+        ref = ref_state.image.cpu().numpy().reshape(MAIN_RES, MAIN_RES, 4)
+        ada_img = ada[0]["image"].reshape(MAIN_RES, MAIN_RES, 4)
+        noisy_params = Params(resolution=MAIN_RES, samples=CLI_NOISY_SPP,
+                              batch=CLI_NOISY_SPP, bounces=MAIN_BOUNCES,
+                              sampler="path")
+        noisy = make_trace_state(cornell_scene(), noisy_params, device=dev)
+        Renderer(cornell_scene(), noisy_params, device=dev).trace_samples(noisy)
+        noisy_img = noisy.image.cpu().numpy().reshape(ref.shape)
+        noisy_den = denoise_image(
+            noisy.image, noisy.albedo, noisy.normal, noisy.width,
+            noisy.height).cpu().numpy().reshape(ref.shape)
+        quality = dict(mse_uniform=_mse(uni_img, ref),
+                       mse_adaptive=_mse(ada_img, ref),
+                       mse_denoised_adaptive=_mse(den, ref),
+                       mse_uniform_4spp=_mse(noisy_img, ref),
+                       mse_denoised_uniform_4spp=_mse(noisy_den, ref))
+        gain, gain_trimmed = _denoise_gain(noisy_den, noisy_img, ref)
+        quality.update(denoise_gain=gain, denoise_gain_trimmed=gain_trimmed)
+        stats["quality"] = quality
+        require(quality["mse_adaptive"] < 1.35 * quality["mse_uniform"],
+                f"adaptive MSE {quality['mse_adaptive']} >= 1.35 x uniform "
+                f"{quality['mse_uniform']}")
+        require(gain < 0.9 and gain_trimmed < 0.5,
+                f"the denoiser's error ratio {gain} (trimmed {gain_trimmed})")
+
+        # 5. the sphere grid under the procedural sky
+        run = _cli_run(["--scene", grid, "--samples", str(CLI_GRID_SPP),
+                        "--batch", str(CLI_GRID_SPP), "--addsky",
+                        "--checkpoint", path("grid.npz"), "--output",
+                        path("grid.png")] + common, ("worklist_intersect",))
+        record("grid_addsky", run, CLI_GRID_SPP)
+        require(run["renderer"].config.n_envs == 1,
+                f"{run['renderer'].config.n_envs} environments with --addsky")
+        g = np.load(path("grid.npz"))
+        require(np.isfinite(g["image"]).all(), "non-finite sky-lit pixels")
+        require(int(g["hits"].min()) == CLI_GRID_SPP,
+                "a camera sample missed both the scene and the sky")
+
+        # 6. --trace-profile: its trace of the second batch holds the
+        # card's kernels
+        run = _cli_run(["--scene", cornell, "--samples", "2", "--batch", "1",
+                        "--resolution", str(CLI_CHECK_RES), "--trace-profile",
+                        path("prof"), "--output", path("prof.png"),
+                        "--device", str(dev)], ("dense_intersect",))
+        with open(path("prof/trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        stats["trace_kernel_events"] = sum(e.get("cat") == "kernel"
+                                           for e in events)
+        require(stats["trace_kernel_events"] > 0,
+                "the --trace-profile trace holds no kernel of the card")
+
+        # 7. card against CPU
+        for label, fields in (("denoised uniform", {}),
+                              ("adaptive warm-up",
+                               dict(adaptive=True, adaptive_warmup=CLI_WARMUP))):
+            p = Params(resolution=CLI_CHECK_RES, samples=CLI_CHECK_SPP,
+                       batch=CLI_CHECK_SPP, bounces=MAIN_BOUNCES,
+                       sampler="path", seed=CLI_REF_SEED, **fields)
+            images, counts = [], []
+            for device in (dev, "cpu"):
+                st = make_trace_state(cornell_scene(), p, device=device)
+                Renderer(cornell_scene(), p, device=device).trace_samples(st)
+                if not fields:
+                    st.denoised = denoise_image(st.image, st.albedo, st.normal,
+                                                st.width, st.height)
+                    images.append(st.denoised.cpu().numpy())
+                else:
+                    images.append(st.image.cpu().numpy())
+                    counts.append(st.counts.cpu().numpy())
+            rel, frac = image_close(*images)
+            if counts:
+                require(np.array_equal(*counts), "warm-up counts differ")
+            stats[f"card_vs_cpu_{label.replace(' ', '_')}"] = dict(
+                mean_rel_err=rel, frac_pixels_within_1e3=frac)
+    stats["main_path_cornell_mpaths_per_s"] = cornell_mpaths
+    return dict(stats=stats, launches=launches)
+
+
 # Run in a child process by kernels_in_turns (argv: a tree, the inputs
 # file): rows 1, 4, 5, 8, 9 and 10 through that tree's own wrappers, each
 # result held to this tree's plain version bit for bit, then their device
@@ -1620,6 +1939,13 @@ def main() -> int:
         log(f"agreement {label} {INST_CHECK_RES}x{INST_CHECK_RES} "
             f"{INST_CHECK_SPP} spp card vs cpu: {agree}")
 
+    t0 = time.perf_counter()
+    cli_phase = phase_cli(dev, c_stats["mpaths_per_s"])
+    log(f"cli: {json.dumps(cli_phase)} ({time.perf_counter() - t0:.1f} s)")
+    cli_launch = {name: sum(run.get(name, 0)
+                            for run in cli_phase["launches"].values())
+                  for name in phases}
+
     kernels = []
     for name, p in phases.items():
         entry = dict(
@@ -1627,7 +1953,7 @@ def main() -> int:
             replaces=KERNELS[name][1],
             launches=(c_launch[name] + s_launch[name] + h_launch[name]
                       + a_launch[name] + inst_launch["instanced"][name]
-                      + inst_launch["hybrid"][name]),
+                      + inst_launch["hybrid"][name] + cli_launch[name]),
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],

@@ -6,7 +6,7 @@ julia_raytracer_tpu/ops/traversal.py).
 (ops/dense_intersect.py) is held against. On a miss it returns prim 0
 and t = F32_MAX, as the JAX function does; the kernel returns prim -1
 and t = tmax. Parity tests compare hit lanes only. The BVH walk
-(`intersect_bvh`) is not ported yet (ROADMAP.md queue 1, item 10).
+(`intersect_bvh`) is not ported yet (ROADMAP.md queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -148,7 +148,7 @@ def curve_wrap(intersect, dscene: DeviceScene, config: SceneConfig):
     if config.n_lines or config.n_points:
         raise NotImplementedError(
             "line/point primitives are not ported yet (ROADMAP.md queue 1, "
-            "item 10)"
+            "item 1)"
         )
     return intersect
 
@@ -487,7 +487,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     dispatch."""
     if options.fixed_iterations:
         raise NotImplementedError(
-            "fixed_iterations is not ported yet (ROADMAP.md queue 1, item 12)"
+            "fixed_iterations is not ported yet (ROADMAP.md queue 1, item 5)"
         )
     n = ro.shape[0]
     dev = ro.device

@@ -436,7 +436,7 @@ def sample_lights_pdf(scene, lights: DeviceLights, counts: LightCounts,
         raise NotImplementedError(
             f"{counts.total_inst_elems} emissive elements > {EXACT_ELEMS}: "
             "the truncated-march light pdf is not ported yet "
-            "(ROADMAP.md queue 1, item 10)"
+            "(ROADMAP.md queue 1, item 2)"
         )
     pdf = area_lights_pdf_exact(lights, counts, position, direction)
     if counts.n_env > 0:

@@ -1,5 +1,6 @@
-"""Progressive renderer: camera sampling, per-sample accumulation, AOVs
-(port of the uniform-sampling path of julia_raytracer_tpu/render/renderer.py).
+"""Progressive renderer: camera sampling, per-sample accumulation, AOVs,
+checkpoint/resume and adaptive sampling (port of
+julia_raytracer_tpu/render/renderer.py).
 
 One sample of a pixel chunk is one `trace_wavefront` call on the
 renderer's device; the running mean is updated in place in the
@@ -7,9 +8,17 @@ accumulation buffers. The per-(pixel, sample) counter-based RNG makes
 renders deterministic and independent of chunking, and bit-compatible
 with the JAX package's streams.
 
-Not ported yet (see ROADMAP.md): adaptive sampling, checkpoint/resume,
-the denoiser, and the multi-sample dispatch knobs of the JAX renderer
-(which change only how samples are batched into device programs).
+Checkpoint/resume: TraceState.save/load write and read the JAX package's
+.npz keys and dtypes, so a checkpoint of either package resumes in the
+other. Adaptive sampling (`Params.adaptive`) draws each batch's pixel
+lanes from a luminance-variance distribution after a uniform warm-up and
+merges them per pixel in a fixed order (a segmented scan over the lanes
+sorted by pixel), so an adaptive render gives the same bits on every run
+on one device.
+
+Not ported: the multi-sample dispatch knobs of the JAX renderer (which
+change only how samples are batched into device programs) and
+`light_pdf_extra_steps` (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -36,13 +45,19 @@ SORT_MIN_PRIMS = 50_000
 
 @dataclass
 class Params:
-    """The render settings the renderer reads (the JAX package's Params
-    minus its CLI-only and TPU-dispatch fields)."""
+    """The reference CLI's flags and the JAX package's extras (its Params
+    minus `light_pdf_extra_steps`), then the port's own knobs."""
 
+    scene: str = "scene.json"
+    output: str = "out.png"
     camera: str = ""
+    addsky: bool = False  # scene/augment.py add_sky, applied by the CLI
+    envname: str = ""  # scene/augment.py add_environment, applied by the CLI
     resolution: int = 1280
     samples: int = 512
     bounces: int = 8
+    denoise: bool = False  # render/denoise.py, applied by the CLI
+    noparallel: bool = False  # load the scene's files on one thread
     highqualitybvh: bool = False
     envhidden: bool = False
     tentfilter: bool = False
@@ -50,8 +65,14 @@ class Params:
     clamp: float = 10.0
     nocaustics: bool = False
     batch: int = 1
+    bvhstacksize: int = 128  # kept for CLI parity; nothing reads it
     seed: int = 0
-    adaptive: bool = False  # not ported yet: True raises NotImplementedError
+    # adaptive sampling: after `adaptive_warmup` uniform samples, each
+    # batch draws its pixel lanes from the luminance-variance
+    # distribution; per-pixel counts keep every pixel an exact mean of
+    # its own samples (allocation, not weighting)
+    adaptive: bool = False
+    adaptive_warmup: int = 4
     # wavefront sort (was JRT_SORT): None sorts scenes of >= 50,000 quads
     sort_rays: bool | None = None
     # heavy-scene intersector (were JRT_REGROUP and JRT_REGROUP_MIN): see
@@ -74,10 +95,53 @@ class TraceState:
     albedo: torch.Tensor  # f32 [P, 3]
     normal: torch.Tensor  # f32 [P, 3]
     hits: torch.Tensor  # i32 [P]
+    denoised: torch.Tensor | None = None
+    # adaptive mode (None when uniform): per-pixel sample counts and
+    # luminance M2 (Welford) driving the allocation distribution
+    counts: torch.Tensor | None = None  # i32 [P]
+    m2: torch.Tensor | None = None  # f32 [P]
 
     @property
     def n_pixels(self) -> int:
         return self.width * self.height
+
+    def save(self, path: str) -> None:
+        """The JAX package's checkpoint: the same .npz keys and dtypes."""
+        extra = {}
+        if self.counts is not None:
+            extra = {"counts": self.counts.cpu().numpy(),
+                     "m2": self.m2.cpu().numpy()}
+        np.savez(
+            path,
+            width=self.width,
+            height=self.height,
+            samples=self.samples,
+            image=self.image.cpu().numpy(),
+            albedo=self.albedo.cpu().numpy(),
+            normal=self.normal.cpu().numpy(),
+            hits=self.hits.cpu().numpy(),
+            **extra,
+        )
+
+    @staticmethod
+    def load(path: str, device=None) -> "TraceState":
+        """A checkpoint of either package, on `device` (None: the card)."""
+        device = resolve_device(device)
+        with np.load(path) as z:
+            def put(key):
+                return torch.from_numpy(z[key]).to(device) if key in z else None
+
+            return TraceState(
+                width=int(z["width"]),
+                height=int(z["height"]),
+                samples=int(z["samples"]),
+                image=put("image"),
+                albedo=put("albedo"),
+                normal=put("normal"),
+                hits=put("hits"),
+                counts=put("counts"),
+                m2=put("m2"),
+            )
 
 
 def image_size_for(camera, resolution: int) -> tuple[int, int]:
@@ -101,6 +165,9 @@ def make_trace_state(scene_data, params: Params, device=None) -> TraceState:
         albedo=torch.zeros((p, 3), device=device),
         normal=torch.zeros((p, 3), device=device),
         hits=torch.zeros(p, dtype=torch.int32, device=device),
+        counts=(torch.zeros(p, dtype=torch.int32, device=device)
+                if params.adaptive else None),
+        m2=torch.zeros(p, device=device) if params.adaptive else None,
     )
 
 
@@ -145,15 +212,89 @@ def _scrub_compose(radiance, hit, albedo_s, normal_s, rd, clamp, envhidden,
     return img_new, alb_new, nrm_new, env_case
 
 
+_LUM = (0.2126, 0.7152, 0.0722)  # luminance of linear rgb
+
+
+def _luminance(rgb):
+    return rgb[..., 0] * _LUM[0] + rgb[..., 1] * _LUM[1] + rgb[..., 2] * _LUM[2]
+
+
+def inclusive_scan(x, same=None):
+    """Inclusive prefix sums of x [L] or [L, C] along the lanes, by
+    doubling: in step s each lane adds the lane s before it (where
+    `same` [L - s] says so, when given), s = 1, 2, 4, ... A fixed order
+    of float additions, so the same bits on every run on one device; the
+    library scans (torch.cumsum on the card among them) do not promise
+    that. `same(s)`: a segmented scan, True where lane i and lane i - s
+    lie in one segment (a prefix of the lanes: sorted keys)."""
+    step, n_lanes = 1, x.shape[0]
+    while step < n_lanes:
+        prev = x[:-step]
+        if same is not None:
+            mask = same(step)
+            prev = torch.where(mask if x.dim() == 1 else mask[:, None], prev, 0.0)
+        x = torch.cat([x[:step], x[step:] + prev])
+        step *= 2
+    return x
+
+
+def adaptive_cdf(counts, m2):
+    """The allocation distribution's float32 CDF over the pixels: each
+    pixel weighs its luminance deviation sqrt(m2 / (count - 1)) plus a
+    floor of 0.05 times the mean weight (+ 1e-12), so every pixel keeps
+    being sampled and stays a consistent estimator."""
+    var = m2 / torch.clamp(counts.to(torch.float32) - 1.0, min=1.0)
+    wts = torch.sqrt(torch.clamp(var, min=0.0))
+    wts = wts + 0.05 * wts.mean() + 1e-12
+    cdf = inclusive_scan(wts)
+    return cdf / cdf[-1]
+
+
+def adaptive_draw(cdf, chunk: int, batch_id: int, seed: int):
+    """Draw `chunk` pixel lanes by inverse CDF on the counter-based stream
+    seed_state(lane, batch_id, seed + 0x5EED). Returns (ids i32 [chunk],
+    rank i32 [chunk], order i64 [chunk]): each lane's pixel, its
+    occurrence rank among the lanes that drew the same pixel (in lane
+    order, so duplicates get distinct sample ids), and the stable sort of
+    the lanes by pixel."""
+    n = cdf.shape[0]
+    lane = torch.arange(chunk, dtype=torch.int32, device=cdf.device)
+    u, _ = rng_mod.rand2f(rng_mod.seed_state(lane, batch_id, seed + 0x5EED))
+    ids = torch.searchsorted(cdf, u[:, 0].contiguous())
+    ids = ids.clamp(0, n - 1).to(torch.int32)
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order]
+    pos = torch.arange(chunk, device=cdf.device)
+    is_start = torch.ones_like(sid, dtype=torch.bool)
+    is_start[1:] = sid[1:] != sid[:-1]
+    start_pos = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    rank = torch.empty(chunk, dtype=torch.int32, device=cdf.device)
+    rank[order] = (pos - start_pos).to(torch.int32)
+    return ids, rank, order
+
+
+def pixel_sums(sid, vals, n_pixels: int):
+    """Per-pixel sums of the lanes' vals [L, C], the lanes sorted by their
+    pixel sid [L] (non-decreasing): [n_pixels, C], zero where no lane
+    went. A segmented inclusive_scan leaves each pixel's sum on its last
+    lane, in a fixed order of additions (the same bits on every run,
+    unlike an atomic scatter-add); the sums are then written to distinct
+    pixels."""
+    x = inclusive_scan(vals, lambda step: sid[step:] == sid[:-step])
+    last = torch.ones_like(sid, dtype=torch.bool)
+    last[:-1] = sid[1:] != sid[:-1]
+    slot = torch.where(last, sid.to(torch.int64), n_pixels)  # n: a spare row
+    out = torch.zeros((n_pixels + 1, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    out[slot] = x
+    return out[:n_pixels]
+
+
 class Renderer:
     """Owns the device scene, the intersector and the per-sample step.
     `device=None` means the card; pass device="cpu" for the CPU."""
 
     def __init__(self, scene_data, params: Params, device=None):
-        if params.adaptive:
-            raise NotImplementedError(
-                "adaptive sampling is not ported yet (ROADMAP.md queue 1, item 9)"
-            )
         self.params = params
         self.device = resolve_device(device)
         self.dscene, self.config = build_device_scene(
@@ -180,19 +321,15 @@ class Renderer:
             self.dscene, self.config, regroup=params.regroup,
             regroup_min_prims=params.regroup_min_prims)
 
-    def _sample(self, state: TraceState, chunk: int, pixel0: int, sample: int):
-        """Trace one sample of pixels [pixel0, pixel0 + chunk) and fold it
-        into the running mean."""
-        params, dev = self.params, self.device
-        width, height, n_pixels = state.width, state.height, state.n_pixels
-        lane = torch.arange(chunk, dtype=torch.int32, device=dev)
-        pixel = pixel0 + lane
-        valid = pixel < n_pixels
-        pix = pixel.clamp(0, n_pixels - 1)
-        rng = rng_mod.seed_state(pix, sample, params.seed)
+    def _trace_lanes(self, state: TraceState, ids, sample_ids):
+        """Trace one camera path a lane, pixel ids (clamped to the image),
+        sample sample_ids (an int or a tensor): the lanes' image, albedo
+        and normal contributions, and whether each hit or saw the env."""
+        params, width, height = self.params, state.width, state.height
+        rng = rng_mod.seed_state(ids, sample_ids, params.seed)
         puv, rng = rng_mod.rand2f(rng)
         luv, rng = rng_mod.rand2f(rng)
-        ij = torch.stack([pix % width, pix // width], dim=-1)
+        ij = torch.stack([ids % width, ids // width], dim=-1)
         ro, rd = sample_camera(
             self.cam_arrays, ij, (width, height), puv, luv, params.tentfilter
         )
@@ -205,6 +342,17 @@ class Renderer:
             radiance, hit, albedo_s, normal_s, rd, params.clamp,
             self.options.envhidden, self.config.n_envs > 0,
         )
+        return img_new, alb_new, nrm_new, hit | env_case
+
+    def _sample(self, state: TraceState, chunk: int, pixel0: int, sample: int):
+        """Trace one sample of pixels [pixel0, pixel0 + chunk) and fold it
+        into the running mean."""
+        n_pixels = state.n_pixels
+        lane = torch.arange(chunk, dtype=torch.int32, device=self.device)
+        pixel = pixel0 + lane
+        valid = pixel < n_pixels
+        img_new, alb_new, nrm_new, seen = self._trace_lanes(
+            state, pixel.clamp(0, n_pixels - 1), sample)
         # running-mean weight 1 / (s + 1), rounded in float32
         w = float(np.float32(1.0) / (np.float32(sample) + np.float32(1.0)))
         w = torch.where(valid, w, 0.0)[..., None]
@@ -213,7 +361,60 @@ class Renderer:
                          (state.normal, nrm_new)):
             old = buf[sl]
             buf[sl] = old + (new - old) * w
-        state.hits[sl] += (valid & (hit | env_case)).to(torch.int32)
+        state.hits[sl] += (valid & seen).to(torch.int32)
+
+    def _adaptive_sample(self, state: TraceState, chunk: int, pixel0: int,
+                         batch_id: int, n_live: int, uniform: bool):
+        """One chunk of an adaptive batch. Warm-up (`uniform`): the lanes
+        cover pixels [pixel0, pixel0 + chunk) as in _sample. After it: the
+        lanes' pixels are drawn (adaptive_draw), the tail chunk's lanes
+        from n_live on masked, so each round adds exactly n_pixels
+        samples. Each lane continues its pixel's sample sequence (sample
+        id = count + rank), and the per-pixel batch sums (pixel_sums) are
+        merged into the running means, counts and luminance M2 (Chan's
+        parallel Welford), so every pixel stays an exact mean of its own
+        samples."""
+        n = state.n_pixels
+        lane = torch.arange(chunk, dtype=torch.int32, device=self.device)
+        if uniform:
+            pixel = pixel0 + lane
+            valid = pixel < n
+            ids = pixel.clamp(0, n - 1)  # non-decreasing: already sorted
+            sample_ids, order = state.counts[ids], None
+        else:
+            ids, rank, order = adaptive_draw(
+                adaptive_cdf(state.counts, state.m2), chunk, batch_id,
+                self.params.seed)
+            valid = lane < n_live
+            sample_ids = state.counts[ids] + rank
+        img_new, alb_new, nrm_new, seen = self._trace_lanes(
+            state, ids, sample_ids)
+        vf = valid.to(torch.float32)
+        img_new = img_new * vf[..., None]
+        alb_new = alb_new * vf[..., None]
+        nrm_new = nrm_new * vf[..., None]
+        lum = _luminance(img_new[:, :3]) * vf
+        vals = torch.cat([vf[:, None], img_new, alb_new, nrm_new, lum[:, None],
+                          (lum * lum)[:, None]], dim=1)
+        sid = ids if order is None else ids[order]
+        sums = pixel_sums(sid, vals if order is None else vals[order], n)
+        k, s_img, s_alb, s_nrm = sums[:, 0], sums[:, 1:5], sums[:, 5:8], sums[:, 8:11]
+        s_l, s_l2 = sums[:, 11], sums[:, 12]
+
+        n_old = state.counts.to(torch.float32)
+        n_new = torch.clamp(n_old + k, min=1.0)
+        mean_old = _luminance(state.image[:, :3])
+        kc, nc = k[:, None], n_new[:, None]
+        state.image = state.image + (s_img - kc * state.image) / nc
+        state.albedo = state.albedo + (s_alb - kc * state.albedo) / nc
+        state.normal = state.normal + (s_nrm - kc * state.normal) / nc
+        mb = s_l / torch.clamp(k, min=1.0)
+        m2b = torch.clamp(s_l2 - k * mb * mb, min=0.0)
+        delta = mb - mean_old
+        state.m2 = state.m2 + m2b + delta * delta * n_old * k / n_new
+        state.counts = state.counts + k.to(torch.int32)
+        # integer adds commute: the scatter's order cannot change the sum
+        state.hits = state.hits.index_add(0, ids, (valid & seen).to(torch.int32))
 
     def trace_samples(self, state: TraceState) -> TraceState:
         """Advance one batch of samples."""
@@ -223,6 +424,15 @@ class Renderer:
         target = min(state.samples + params.batch, params.samples)
         n = state.n_pixels
         chunk = min(MAX_CHUNK, n)
+        if params.adaptive:
+            return self._trace_samples_adaptive(state, target, chunk)
+        if state.counts is not None:
+            raise ValueError(
+                "this checkpoint was written by an --adaptive render "
+                "(per-pixel counts are heterogeneous); resume with "
+                "--adaptive or the uniform running-mean weights would "
+                "corrupt converged pixels"
+            )
         # pad the buffers to a chunk multiple; tail lanes carry weight 0
         # and get_image/get_aovs slice back to n_pixels
         n_pad = -(-n // chunk) * chunk
@@ -238,9 +448,32 @@ class Renderer:
         state.samples = target
         return state
 
+    def _trace_samples_adaptive(self, state: TraceState, target: int,
+                                chunk: int) -> TraceState:
+        """Adaptive batch loop: warm-up samples place lanes uniformly while
+        building the variance tracker, later ones draw them from it. The
+        buffers stay unpadded: the merge is by pixel, not by slice."""
+        if state.counts is None or state.m2 is None:
+            raise ValueError(
+                "adaptive render needs a state made with "
+                "Params(adaptive=True) (or a checkpoint saved from one)"
+            )
+        n = state.n_pixels
+        nchunks = -(-n // chunk)
+        for sample in range(state.samples, target):
+            uniform = sample < self.params.adaptive_warmup
+            for ci in range(nchunks):
+                pixel0 = ci * chunk
+                self._adaptive_sample(state, chunk, pixel0,
+                                      sample * nchunks + ci,
+                                      min(chunk, n - pixel0), uniform)
+        state.samples = target
+        return state
+
     def get_image(self, state: TraceState) -> np.ndarray:
-        """Final [H, W, 4] float image."""
-        img = state.image[: state.n_pixels].cpu().numpy()
+        """Final [H, W, 4] float image; the denoised buffer when set."""
+        src = state.denoised if state.denoised is not None else state.image
+        img = src[: state.n_pixels].cpu().numpy()
         return img.reshape(state.height, state.width, 4)
 
     def get_aovs(self, state: TraceState) -> dict[str, np.ndarray]:

@@ -414,7 +414,7 @@ def device_scene_from_numpy(arrays: dict, config_fields: dict, device=None,
         if key not in DeviceScene._fields and np.size(value):
             raise NotImplementedError(
                 f"scene array {key} is not empty; line/point primitives "
-                "are not ported yet (ROADMAP.md queue 1, item 10)"
+                "are not ported yet (ROADMAP.md queue 1, item 1)"
             )
 
     def put(a):
@@ -452,6 +452,6 @@ def device_scene_from_numpy(arrays: dict, config_fields: dict, device=None,
     if config.n_lines or config.n_points:
         raise NotImplementedError(
             "line/point primitives are not ported yet (ROADMAP.md queue 1, "
-            "item 10)"
+            "item 1)"
         )
     return dscene, config

@@ -124,7 +124,7 @@ def flatten_scene(scene: SceneData, expand_prims: bool = True) -> FlatScene:
             if len(shape.lines) or len(shape.points):
                 raise NotImplementedError(
                     "line and point primitives are not ported yet "
-                    "(ROADMAP.md queue 1, item 10)"
+                    "(ROADMAP.md queue 1, item 1)"
                 )
     shape_quads = []
     shape_is_tri = np.zeros(S, bool)

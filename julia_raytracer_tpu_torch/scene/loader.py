@@ -7,8 +7,8 @@ environments/subdivs; shapes & textures are {"uri": ...} file references;
 cross-references are 0-based indices; optional `lookat` (9 floats:
 eye, center, up) overrides `frame` (12 floats, row-major x/y/z/o rows).
 
-Textures and shapes load on a thread pool. Images decode through lazy
-imports (utils/imgio.py: PIL for PNG, OpenCV for HDR).
+Textures and shapes load on a thread pool. Images decode through the
+port's own numpy codecs (utils/imgio.py), which need no image library.
 
 Not ported (see ROADMAP.md): subdivision-surface tessellation. The JAX
 package tessellates a subdiv's control cage by default only when the
@@ -255,7 +255,7 @@ def _refuse_tessellation(scene: SceneData) -> None:
             raise NotImplementedError(
                 f"shape {sd.shape} is empty and needs its subdivision cage "
                 f"{sd.uri} tessellated, which is not ported yet (ROADMAP.md "
-                "queue 1, item 7)"
+                "queue 1, item 3)"
             )
 
 

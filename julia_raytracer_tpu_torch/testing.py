@@ -26,8 +26,8 @@ from julia_raytracer_tpu_torch.render.integrator import (
 from julia_raytracer_tpu_torch.render.renderer import camera_arrays
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.types import (
-    CameraData, InstanceData, MaterialData, MaterialType, SceneData,
-    ShapeData,
+    MATERIAL_TYPES, CameraData, InstanceData, MaterialData, MaterialType,
+    SceneData, ShapeData,
 )
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 
@@ -508,3 +508,115 @@ def hybrid_scene(small_grid: int = 32, small_segments: int = 32,
             4 + k % 3))
     return SceneData(cameras=[_camera()], instances=instances, shapes=shapes,
                      materials=_sphere_materials())
+
+
+_MATERIAL_NAMES = {int(t): name for name, t in MATERIAL_TYPES.items()
+                   if name != "volume"}
+
+
+def _ply_bytes(shape: ShapeData) -> bytes:
+    """A shape as binary little-endian PLY: float vertex properties
+    (positions, normals, u/v with v flipped as the loader flips it back,
+    rgba colors, radius) and uchar-counted int index lists (faces as
+    quads when it has any, else triangles; lines; points)."""
+    n = len(shape.positions)
+    cols = [(name, shape.positions[:, k]) for k, name in enumerate("xyz")]
+    if len(shape.normals):
+        cols += [(name, shape.normals[:, k]) for k, name in enumerate(
+            ("nx", "ny", "nz"))]
+    if len(shape.texcoords):
+        cols += [("u", shape.texcoords[:, 0]),
+                 ("v", np.float32(1.0) - shape.texcoords[:, 1])]
+    if len(shape.colors):
+        cols += [(name, shape.colors[:, k]) for k, name in enumerate(
+            ("red", "green", "blue", "alpha"))]
+    if len(shape.radius):
+        cols.append(("radius", shape.radius))
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {name}" for name, _ in cols]
+    vert = np.zeros(n, np.dtype([(name, "<f4") for name, _ in cols]))
+    for name, col in cols:
+        vert[name] = col
+    body = [vert.tobytes()]
+    faces = shape.quads if len(shape.quads) else shape.triangles
+    for element, idx in (("face", faces), ("line", shape.lines),
+                         ("point", np.asarray(shape.points).reshape(-1, 1))):
+        if not len(idx):
+            continue
+        rec = np.zeros(len(idx), np.dtype([("n", "u1"),
+                                           ("i", "<i4", (idx.shape[1],))]))
+        rec["n"], rec["i"] = idx.shape[1], idx
+        header += [f"element {element} {len(idx)}",
+                   "property list uchar int vertex_indices"]
+        body.append(rec.tobytes())
+    return ("\n".join(header + ["end_header"]) + "\n").encode() + b"".join(body)
+
+
+def write_yocto_scene(scene: SceneData, directory) -> str:
+    """Write an in-code scene as a Yocto JSON scene in `directory`:
+    scene.json, shapes/shape<i>.ply (binary PLY) and textures/
+    texture<i>.png (through save_png, which stores a byte texture's
+    pixels exactly). Both packages' load_scene read it back field for
+    field, texcoords up to the rounding of the loader's v flip. Linear
+    (HDR) textures and subdivs are refused: nothing here writes them.
+    Returns the path of scene.json."""
+    import json
+    import os
+
+    from julia_raytracer_tpu_torch.utils.imgio import save_png
+
+    if scene.subdivs:
+        raise ValueError("write_yocto_scene does not write subdivs")
+    os.makedirs(os.path.join(directory, "shapes"), exist_ok=True)
+    os.makedirs(os.path.join(directory, "textures"), exist_ok=True)
+
+    def floats(a):
+        return [float(v) for v in np.asarray(a, np.float32).reshape(-1)]
+
+    textures = []
+    for i, tex in enumerate(scene.textures):
+        if tex.linear:
+            raise ValueError("write_yocto_scene writes byte (PNG) textures only")
+        uri = f"textures/texture{i}.png"
+        save_png(os.path.join(directory, uri),
+                 tex.pixels.reshape(tex.height, tex.width, 4), linear=False)
+        textures.append({"uri": uri})
+    shapes = []
+    for i, shape in enumerate(scene.shapes):
+        uri = f"shapes/shape{i}.ply"
+        with open(os.path.join(directory, uri), "wb") as f:
+            f.write(_ply_bytes(shape))
+        shapes.append({"uri": uri})
+    doc = {
+        "asset": {"generator": "julia_raytracer_tpu_torch.testing"},
+        "cameras": [{
+            "name": c.name, "frame": floats(c.frame),
+            "orthographic": bool(c.orthographic), "lens": float(c.lens),
+            "film": float(c.film), "aspect": float(c.aspect),
+            "focus": float(c.focus), "aperture": float(c.aperture),
+        } for c in scene.cameras],
+        "textures": textures,
+        "materials": [{
+            "type": _MATERIAL_NAMES[int(m.type)],
+            "emission": floats(m.emission), "color": floats(m.color),
+            "roughness": float(m.roughness), "metallic": float(m.metallic),
+            "ior": float(m.ior), "scattering": floats(m.scattering),
+            "scanisotropy": float(m.scanisotropy),
+            "trdepth": float(m.trdepth), "opacity": float(m.opacity),
+            "emission_tex": int(m.emission_tex), "color_tex": int(m.color_tex),
+            "roughness_tex": int(m.roughness_tex),
+            "scattering_tex": int(m.scattering_tex),
+            "normal_tex": int(m.normal_tex),
+        } for m in scene.materials],
+        "shapes": shapes,
+        "instances": [{"frame": floats(i.frame), "shape": int(i.shape),
+                       "material": int(i.material)} for i in scene.instances],
+        "environments": [{"frame": floats(e.frame),
+                          "emission": floats(e.emission),
+                          "emission_tex": int(e.emission_tex)}
+                         for e in scene.environments],
+    }
+    path = os.path.join(directory, "scene.json")
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return path

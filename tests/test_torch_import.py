@@ -1,11 +1,13 @@
 """The port stands alone: in a fresh interpreter whose import system
-refuses both `jax` and the JAX package `julia_raytracer_tpu`, every module
+refuses `jax`, the JAX package `julia_raytracer_tpu` and the image
+libraries PIL and cv2 (absent on the machine with the card), every module
 of julia_raytracer_tpu_torch (and chip_smoke.py) imports, the modules of
 every ported path among them (the heavy-scene path's regroup_intersect and
 kernel_select, the instanced path's scene/instanced.py and
-instanced_intersect, and the cluster intersectors included), and no module
-of either name is loaded. A source scan rejects any import of the two in the
-package and in chip_smoke.py."""
+instanced_intersect, the cluster intersectors, and the CLI with its
+denoiser, augmentation, image codecs and timing), and no module of those
+names is loaded. Source scans reject any import of the JAX ones, and of
+PIL or cv2, in the package and in chip_smoke.py."""
 
 import os
 import subprocess
@@ -18,7 +20,7 @@ import importlib, pkgutil, sys
 
 def blocked(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "julia_raytracer_tpu")
+    return top in ("jax", "jaxlib", "julia_raytracer_tpu", "PIL", "cv2")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -50,6 +52,11 @@ REQUIRED = {
     "julia_raytracer_tpu_torch.scene.instanced",
     "julia_raytracer_tpu_torch.render.integrator",
     "julia_raytracer_tpu_torch.profile_path",
+    "julia_raytracer_tpu_torch.cli",
+    "julia_raytracer_tpu_torch.render.denoise",
+    "julia_raytracer_tpu_torch.scene.augment",
+    "julia_raytracer_tpu_torch.utils.imgio",
+    "julia_raytracer_tpu_torch.utils.timing",
 }
 
 
@@ -65,12 +72,25 @@ def test_port_imports_without_jax():
     assert REQUIRED <= set(lines[-2].split()), REQUIRED - set(lines[-2].split())
 
 
-def test_no_jax_import_in_port_sources():
+def _port_sources():
     pkg = os.path.join(ROOT, "julia_raytracer_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
-    for path in files:
+    return files
+
+
+def test_no_image_library_in_port_sources():
+    for path in _port_sources():
+        with open(path) as f:
+            for line in f:
+                s = line.strip()
+                assert not s.startswith(("import PIL", "from PIL",
+                                         "import cv2", "from cv2")), (path, s)
+
+
+def test_no_jax_import_in_port_sources():
+    for path in _port_sources():
         with open(path) as f:
             for line in f:
                 s = line.strip()

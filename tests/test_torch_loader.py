@@ -3,6 +3,8 @@ utils/imgio.py) against the JAX package's, field for field, on a small
 scene written in tmp_path: an ASCII PLY of quads with normals and float
 texcoords, a binary little-endian PLY of triangles with byte colors, a
 PNG texture (PIL) and an HDR texture (cv2), lookat and frame transforms.
+Scenes written by testing.write_yocto_scene read back field for field in
+both packages.
 """
 
 import dataclasses
@@ -14,6 +16,13 @@ import pytest
 from julia_raytracer_tpu.scene.loader import load_scene as jax_load_scene
 from julia_raytracer_tpu_torch.render import renderer as tren
 from julia_raytracer_tpu_torch.scene.loader import load_scene
+from julia_raytracer_tpu_torch.scene.types import (
+    EnvironmentData, MaterialData, MaterialType, ShapeData, TextureData,
+)
+from julia_raytracer_tpu_torch.testing import (
+    cornell_scene, sphere_grid_scene, write_yocto_scene,
+)
+from torch_parity import to_jax_scene
 
 
 def _ascii_quads(path):
@@ -143,3 +152,38 @@ def test_tessellation_is_refused(tmp_path):
     j["subdivs"][0]["uri"] = "missing.obj"  # no cage: nothing to tessellate
     path.write_text(json.dumps(j))
     assert len(load_scene(str(path)).shapes[2].positions) == 0
+
+
+def _attribute_scene():
+    """The Cornell box plus a textured, coloured shape with normals,
+    texcoords (multiples of 1/8, which the v flip keeps exact), lines,
+    points and radii, every material type, and an environment."""
+    g = np.random.default_rng(4)
+    scene = cornell_scene()
+    pos = g.uniform(-1, 1, (6, 3)).astype(np.float32)
+    scene.shapes.append(ShapeData(
+        quads=np.array([[0, 1, 2, 3], [2, 3, 4, 4]], np.int32),
+        lines=np.array([[0, 5], [5, 1]], np.int32),
+        points=np.array([4, 5], np.int32), positions=pos,
+        normals=g.normal(size=(6, 3)).astype(np.float32),
+        texcoords=(g.integers(0, 9, (6, 2)) / 8).astype(np.float32),
+        colors=g.uniform(0, 1, (6, 4)).astype(np.float32),
+        radius=g.uniform(0, 0.1, 6).astype(np.float32)))
+    pixels = g.integers(0, 256, (3 * 5, 4)).astype(np.float32) / 255.0
+    scene.textures.append(TextureData(width=5, height=3, pixels=pixels))
+    for t in MaterialType:
+        scene.materials.append(MaterialData(
+            type=t, color=g.uniform(0, 1, 3).astype(np.float32),
+            roughness=float(g.uniform()), color_tex=0, ior=1.33))
+    scene.environments.append(EnvironmentData(
+        emission=np.array([0.5, 0.25, 2.0], np.float32), emission_tex=0))
+    return scene
+
+
+@pytest.mark.parametrize("make", [cornell_scene, lambda: sphere_grid_scene(2, 8),
+                                  _attribute_scene])
+def test_written_scene_reads_back(tmp_path, make):
+    scene = make()
+    path = write_yocto_scene(scene, tmp_path)
+    _assert_same(load_scene(path), scene, "port")
+    _assert_same(jax_load_scene(path), to_jax_scene(scene), "jax")

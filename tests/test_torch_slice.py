@@ -137,8 +137,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_renderer_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        tren.Renderer(cornell_scene(), tren.Params(adaptive=True), device="cpu")
+    # adaptive sampling is ported: it builds, and refuses a uniform state
+    r = tren.Renderer(cornell_scene(), tren.Params(adaptive=True, resolution=8),
+                      device="cpu")
+    with pytest.raises(ValueError, match="adaptive"):
+        r.trace_samples(tren.make_trace_state(
+            cornell_scene(), tren.Params(resolution=8), device="cpu"))
     with pytest.raises(ValueError):
         tren.Renderer(cornell_scene(), tren.Params(regroup="yes"), device="cpu")
     r = tren.Renderer(cornell_scene(), tren.Params(resolution=8), device="cpu")
