@@ -43,6 +43,18 @@ held to the Renderer's), checkpointed and resumed (byte-equal), adaptive
 with the denoiser twice (bit-equal), against a 64-sample reference (the
 JAX package's adaptive and denoiser quality gates), and the sphere grid
 under --addsky; it prints a `cli:` line of their times and launches.
+Then the diff phase drives the differentiable path (render/diff.py, the
+fixed-trip loop under torch.utils.checkpoint, parallel/mesh.py): at 512 x
+512 and 8 bounces the fixed-trip render equals the while loop's (with its
+lane compaction) bit for bit; colour and emission gradients of the pixel
+loss on the card meet the CPU's (64 x 64, within testing.GRAD_TOL); five
+shard_train_step steps at 512 x 512, 8 bounces, on a one-process NCCL
+group (a file:// store in a temporary directory), start from perturbed
+colours against a target rendered at the true ones and must lower the
+loss, each step launching the dense kernel once for the camera rays, once
+a bounce and once more in each bounce's recompute; one gradient on the
+sphere grid (102,406 quads, the worklist kernel) at 128 x 128 meets the
+CPU's. It prints a `diff:` line.
 
 `--parent DIR`: DIR holds an earlier checkout of the repository (`git
 archive` of a commit). The inputs of the dense kernel, of the two cluster
@@ -68,6 +80,7 @@ import json
 import inspect
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -84,6 +97,8 @@ from julia_raytracer_tpu_torch.ops import cuda_build, dense_intersect as di
 from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
 from julia_raytracer_tpu_torch.ops.dense_intersect import _moller
+from julia_raytracer_tpu_torch.parallel.distributed import init_distributed
+from julia_raytracer_tpu_torch.parallel.mesh import make_mesh, shard_train_step
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
@@ -91,6 +106,9 @@ from julia_raytracer_tpu_torch.render.integrator import (
     _host_prims, _sort_key, sort_bounds, trace_wavefront,
 )
 from julia_raytracer_tpu_torch.render.denoise import denoise_image
+from julia_raytracer_tpu_torch.render.diff import (
+    diff_options, make_param_loss, render_radiance,
+)
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, TraceState, adaptive_cdf, adaptive_draw,
     inclusive_scan, make_trace_state, pixel_sums,
@@ -98,9 +116,10 @@ from julia_raytracer_tpu_torch.render.renderer import (
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.flatten import flatten_scene
 from julia_raytracer_tpu_torch.testing import (
-    HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat, cornell_scene,
-    heavy_scene, hybrid_scene, image_close, instanced_scene,
-    render_instanced, require, sphere_grid_scene, write_yocto_scene,
+    GRAD_TOL, HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat,
+    cornell_scene, grads_close, heavy_scene, hybrid_scene, image_close,
+    instanced_scene, param_grads, render_instanced, require,
+    sphere_grid_scene, write_yocto_scene,
 )
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
@@ -127,6 +146,12 @@ CLI_WARMUP, CLI_REF_SPP, CLI_REF_SEED, CLI_GRID_SPP = 4, 64, 3, 8
 CLI_NOISY_SPP = 4  # the denoiser's input in tests/test_denoise.py
 CLI_CHECK_RES, CLI_CHECK_SPP = 32, 2
 SPHERE_CHECK_RES, SPHERE_CHECK_SPP, SPHERE_CHECK_SEGMENTS = 64, 2, 16
+# the diff phase: train steps at the main path's width, the gradient
+# checks card against CPU at 64 x 64 (Cornell) and at 128 x 128 on every
+# DIFF_SPHERE_STEP-th pixel (the sphere grid: the worklist's plain version
+# is the CPU's cost)
+DIFF_STEPS, DIFF_SEED, DIFF_COLOR_OFFSET = 5, 7, 0.15
+DIFF_CHECK_RES, DIFF_SPHERE_RES, DIFF_SPHERE_STEP = 64, 128, 2
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
 COMPACT_CAP = N_RAYS // 4  # first two-phase boundary of the main path
 STATE_PLANES = 45  # int32 planes of the integrator state (TraceVars)
@@ -234,6 +259,36 @@ def device_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
+# profiler sessions a measurement may take: now and then a session
+# records no device activity at all (seen once on an H100, on a call whose
+# other sessions record it), and the measurement is taken again
+PROFILE_TRIES = 3
+
+
+def _device_activities(fn, reps: int) -> dict:
+    """{name: [ms, count]} of the device activities (kernels, copies,
+    sets) torch.profiler records over `reps` calls of fn, in a new session
+    while the profiler records none, at most PROFILE_TRIES sessions."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms_count = by_name.setdefault(e.name, [0.0, 0])
+                ms_count[0] += e.time_range.elapsed_us() / 1e3
+                ms_count[1] += 1
+        if sum(ms for ms, _ in by_name.values()) > 0:
+            return by_name
+    raise AssertionError(f"the profiler recorded no device time in "
+                         f"{PROFILE_TRIES} sessions")
+
+
 def profiled_ms(fn, reps: int = 5) -> float:
     """Device time of one call of fn: the durations of the device
     activities (kernels, copies, sets) that torch.profiler records over
@@ -241,17 +296,8 @@ def profiled_ms(fn, reps: int = 5) -> float:
     call that reads back to the host, and unlike median_ms it leaves out
     the host's time."""
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / reps
+    by_name = _device_activities(fn, reps)
+    return sum(ms for ms, _ in by_name.values()) / reps
 
 
 def kernel_ms(fn, reps: int = REPS) -> dict:
@@ -1608,6 +1654,175 @@ def phase_cli(dev, cornell_mpaths: float) -> dict:
 # file): rows 1, 4, 5, 8, 9 and 10 through that tree's own wrappers, each
 # result held to this tree's plain version bit for bit, then their device
 # times (device_ms; rows 4 and 5 over CLUSTER_REPS launches).
+def _profile_once(fn) -> tuple[float, list]:
+    """Device time of one call of fn (torch.profiler's device activities,
+    summed) and its five largest device activities ([name, ms, count])."""
+    by_name = _device_activities(fn, 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return (sum(ms for ms, _ in by_name.values()),
+            [[name[:80], ms, count] for name, (ms, count) in ranked])
+
+
+def _launch_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _read_counts().items()}
+
+
+def phase_diff(dev, cornell) -> tuple[dict, dict]:
+    """The differentiable path on the card: (a) the fixed-trip render at
+    512 x 512, 8 bounces, against the while loop's (its lane compaction
+    on), bit for bit; (b) the pixel loss's colour and emission gradients
+    on the card against the CPU's at DIFF_CHECK_RES; (c) DIFF_STEPS
+    shard_train_step steps at 512 x 512 on a one-process NCCL group from
+    colours perturbed by a seeded offset, against the render at the true
+    colours with the same seed (so the loss is 0 at the truth): loss,
+    wall ms, device ms (CUDA events around the step), peak memory (all
+    allocations, and the step's own above what was allocated before it)
+    and dense launches a step (one sample a step), then one step's
+    forward and backward device time and largest device activities by
+    torch.profiler; (d) one gradient on the
+    sphere grid at DIFF_SPHERE_RES through the worklist kernel against the
+    CPU's. Returns (stats, the launches of (c) and (d), zeroed before)."""
+    r = cornell
+    opts = diff_options(r.options, r.config)
+    fixed = opts.fixed_iterations
+    pix = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
+    args = (r.cam_arrays, MAIN_RES, MAIN_RES, pix, 0, DIFF_SEED)
+    out = {"fixed_iterations": fixed}
+
+    # (a) forward parity
+    _zero_counts()
+    with torch.no_grad():
+        rad_w = render_radiance(r.dscene, r.config, r.options, *args,
+                                intersect=r.intersect)
+        loop = _read_counts()
+        rad_f = render_radiance(r.dscene, r.config, opts, *args,
+                                intersect=r.intersect)
+    differ = (rad_w != rad_f).any(dim=-1)
+    rel = ((rad_w - rad_f).abs()
+           / torch.clamp(rad_w.abs(), min=1e-30)).max()
+    out["forward"] = dict(
+        lanes_differ_share=float(differ.float().mean()),
+        max_rel_diff=float(rel), mean=float(rad_f.mean()),
+        while_loop_compact_launches=loop["lane_compact"])
+    log(f"diff (a): fixed-trip ({fixed} bodies) vs while-loop render at "
+        f"{MAIN_RES}x{MAIN_RES}, {MAIN_BOUNCES} bounces: {out['forward']}")
+    require(loop["lane_compact"] > 0, "the while loop did not compact")
+    require(torch.equal(rad_w, rad_f),
+            "the fixed-trip render differs from the while loop's")
+    del rad_w, rad_f
+
+    # (b) card against CPU gradients
+    t0 = time.perf_counter()
+    card = param_grads(cornell_scene(), DIFF_CHECK_RES, dev, seed=DIFF_SEED)
+    cpu = param_grads(cornell_scene(), DIFF_CHECK_RES, "cpu", seed=DIFF_SEED)
+    out["grads_vs_cpu"] = dict(
+        res=DIFF_CHECK_RES, tol=GRAD_TOL,
+        loss_rel=abs(card[0] - cpu[0]) / cpu[0],
+        color=grads_close(card[1], cpu[1]),
+        emission=grads_close(card[2], cpu[2]),
+        seconds=time.perf_counter() - t0)
+    log(f"diff (b): gradients card vs cpu: {out['grads_vs_cpu']}")
+
+    # (c) train steps on a one-process NCCL group
+    # one process on one host: the loopback interface is all NCCL needs
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = tempfile.mkdtemp(prefix="chip_smoke_store")
+    init_distributed("nccl", f"file://{store}/store", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dev)
+        step = shard_train_step(mesh, r.dscene, r.config, r.options,
+                                r.cam_arrays, MAIN_RES, MAIN_RES)
+        mats = r.dscene.materials
+        with torch.no_grad():
+            target = render_radiance(r.dscene, r.config, opts, *args,
+                                     intersect=step.intersect)
+        g = np.random.default_rng(DIFF_SEED)
+        lit = (mats.emission.sum(dim=1) > 0)[:, None]
+        offset = torch.as_tensor(g.uniform(
+            -DIFF_COLOR_OFFSET, DIFF_COLOR_OFFSET, tuple(mats.color.shape)),
+            dtype=torch.float32, device=dev)
+        color = torch.where(lit, mats.color,
+                            (mats.color + offset).clamp(0.01, 0.99))
+        emission = mats.emission
+        err0 = float((color - mats.color).abs().mean())
+        _zero_counts()
+        steps = []
+        for _ in range(DIFF_STEPS):
+            before = _read_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss, color, emission = step(color, emission, pix, target, 1,
+                                         DIFF_SEED)
+            end.record()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            launched = _launch_delta(before)
+            steps.append(dict(
+                loss=float(loss), wall_ms=wall,
+                device_ms=start.elapsed_time(end),
+                peak_mb=torch.cuda.max_memory_allocated(dev) / 2**20,
+                step_peak_mb=(torch.cuda.max_memory_allocated(dev) - base)
+                / 2**20,
+                dense_launches=launched["dense_intersect"]))
+            log(f"diff (c) step {len(steps)}: {steps[-1]}")
+        # one step's forward and backward apart, by the profiler
+        loss_fn = make_param_loss(r.dscene, r.config, r.options,
+                                  r.cam_arrays, MAIN_RES, MAIN_RES)
+        c = color.detach().clone().requires_grad_()
+        e = emission.detach().clone().requires_grad_()
+        fwd_ms, fwd_top = _profile_once(
+            lambda: loss_fn(c, e, pix, target, 1, DIFF_SEED))
+        # the graph is kept, so a session taken again runs the same
+        # backward
+        value = loss_fn(c, e, pix, target, 1, DIFF_SEED)
+        bwd_ms, bwd_top = _profile_once(
+            lambda: value.backward(retain_graph=True))
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    out["train"] = dict(
+        steps=steps, forward_device_ms=fwd_ms, backward_device_ms=bwd_ms,
+        backward_forward_ratio=bwd_ms / fwd_ms, forward_top=fwd_top,
+        backward_top=bwd_top,
+        color_err_start=err0,
+        color_err_end=float((color - mats.color).abs().mean()))
+    log(f"diff (c): forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms device "
+        f"(ratio {bwd_ms / fwd_ms:.2f}); mean |colour - truth| {err0:.5f} -> "
+        f"{out['train']['color_err_end']:.5f}; backward's largest device "
+        f"activities {bwd_top}")
+    require(all(math.isfinite(st["loss"]) for st in steps), "non-finite loss")
+    require(steps[-1]["loss"] < steps[0]["loss"],
+            "the train steps did not lower the loss")
+    require(all(st["dense_launches"] == 1 + 2 * fixed for st in steps),
+            f"a train step did not launch the dense kernel {1 + 2 * fixed} "
+            "times (camera rays, each body, each body's recompute)")
+
+    # (d) the worklist route
+    t0 = time.perf_counter()
+    before = _read_counts()
+    card = param_grads(sphere_grid_scene(), DIFF_SPHERE_RES, dev,
+                       pixel_step=DIFF_SPHERE_STEP, seed=DIFF_SEED)
+    wl_launches = _launch_delta(before)["worklist_intersect"]
+    cpu = param_grads(sphere_grid_scene(), DIFF_SPHERE_RES, "cpu",
+                      pixel_step=DIFF_SPHERE_STEP, seed=DIFF_SEED)
+    out["worklist"] = dict(
+        res=DIFF_SPHERE_RES, pixel_step=DIFF_SPHERE_STEP, tol=GRAD_TOL,
+        launches=wl_launches, loss_rel=abs(card[0] - cpu[0]) / cpu[0],
+        color=grads_close(card[1], cpu[1]),
+        emission=grads_close(card[2], cpu[2]),
+        seconds=time.perf_counter() - t0)
+    log(f"diff (d): sphere grid gradients card vs cpu: {out['worklist']}")
+    require(wl_launches == 1 + 2 * fixed,
+            f"the sphere-grid gradient launched the worklist kernel "
+            f"{wl_launches} times, not {1 + 2 * fixed}")
+    return out, _read_counts()
+
+
 _TURN_CHILD = """
 import json, os, sys
 import numpy as np
@@ -1945,6 +2160,9 @@ def main() -> int:
     cli_launch = {name: sum(run.get(name, 0)
                             for run in cli_phase["launches"].values())
                   for name in phases}
+    t0 = time.perf_counter()
+    diff_phase, diff_launch = phase_diff(dev, cornell)
+    log(f"diff: {json.dumps(diff_phase)} ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, p in phases.items():
@@ -1953,7 +2171,8 @@ def main() -> int:
             replaces=KERNELS[name][1],
             launches=(c_launch[name] + s_launch[name] + h_launch[name]
                       + a_launch[name] + inst_launch["instanced"][name]
-                      + inst_launch["hybrid"][name] + cli_launch[name]),
+                      + inst_launch["hybrid"][name] + cli_launch[name]
+                      + diff_launch[name]),
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],

@@ -49,9 +49,21 @@ Instanced scenes take the work-item kernel (ops/instanced_intersect.py)
 or, when the build flattened a world-space soup, the hybrid: the soup
 through the flat intersectors above, the remaining work items after it.
 
+Fixed-trip loop (`TraceOptions.fixed_iterations` > 0; render/diff.py
+sets it): `body` runs exactly that many times, with no host-side liveness
+test, no sort and no compaction, each step under
+`torch.utils.checkpoint` (the JAX package's `jax.checkpoint` inside its
+`lax.scan`), so the backward pass recomputes one bounce at a time, the
+intersect kernel included. Sampled directions, pdfs and the Russian
+roulette probability are detached, as the JAX package stops their
+gradients (detached sampling), and the intersector is wrapped by
+ops/diff_hit.py, whose hits carry the gradients of the JAX package's
+argmin-selected hit. The body is fully masked, so the radiance equals the
+while loop's bit for bit.
+
 Not ported yet (NotImplementedError, see ROADMAP.md): the BVH walk
-(`intersect_bvh`), line/point primitives, and the fixed-trip
-differentiable loop.
+(`intersect_bvh`), line/point primitives, and the fixed-trip loop on
+instanced and hybrid scenes.
 """
 
 from __future__ import annotations
@@ -60,11 +72,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from julia_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from julia_raytracer_tpu_torch.ops import eval as eval_ops
 from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
+from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
 from julia_raytracer_tpu_torch.ops.geometry import (
     F32_MAX, RAY_EPS, intersect_quad, quad_normal,
@@ -99,8 +113,8 @@ class TraceOptions(NamedTuple):
     bounces: int = 8
     envhidden: bool = False
     nocaustics: bool = False
-    # fixed-trip differentiable loop: not ported yet (a non-zero value
-    # raises NotImplementedError)
+    # > 0: the fixed-trip, differentiable loop of that many bodies
+    # (module docstring; render/diff.py diff_options)
     fixed_iterations: int = 0
     # wavefront sort of camera and bounce rays (module docstring)
     sort_rays: bool = False
@@ -484,17 +498,24 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     intersector's `.primary`: the worklist kernel, as the JAX package
     routes them), else through `intersect`. The light pdf is the exact
     element sweep and traces nothing, so camera rays are the only primary
-    dispatch."""
-    if options.fixed_iterations:
+    dispatch. With `options.fixed_iterations` the loop is the fixed-trip,
+    differentiable one (module docstring)."""
+    fixed = options.fixed_iterations
+    if fixed and config.inst_tables is not None:
         raise NotImplementedError(
-            "fixed_iterations is not ported yet (ROADMAP.md queue 1, item 5)"
+            "the fixed-trip (differentiable) loop on instanced and hybrid "
+            "scenes is not ported yet (ROADMAP.md queue 1, item 5)"
         )
     n = ro.shape[0]
     dev = ro.device
     if intersect is None:
         intersect = build_intersector(dscene, config)
     intersect_primary = intersect_primary or intersect
-    do_sort = options.sort_rays
+    if fixed:
+        intersect = make_diff_intersect(intersect, dscene.prim_verts)
+        intersect_primary = make_diff_intersect(intersect_primary,
+                                                dscene.prim_verts)
+    do_sort = options.sort_rays and not fixed
     is_path = options.sampler == "path"
     counts = config.light_counts
     has_lights = counts.total > 0
@@ -558,7 +579,8 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             rdist, rng = rng_mod.rand1f(rng)
             dist = bsdf_ops.sample_transmittance(s.vol_density, s.isec_t, rl, rdist)
             trans = bsdf_ops.eval_transmittance(s.vol_density, dist)
-            tpdf = bsdf_ops.sample_transmittance_pdf(s.vol_density, dist, s.isec_t)
+            tpdf = bsdf_ops.sample_transmittance_pdf(
+                s.vol_density, dist, s.isec_t).detach()  # JAX integrator.py:746
             weight = torch.where(
                 _vec(in_med),
                 weight * trans / torch.clamp(tpdf, min=1e-30)[..., None],
@@ -597,8 +619,10 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             shp_color = eval_ops.eval_color_attr(dscene, vidx, flags, u, v)
         else:
             shp_color = full(u.shape + (4,), 1.0)
-        # folded per-instance material rows for small scenes
-        dense_mats = 0 < config.n_instances <= 64
+        # folded per-instance material rows for small scenes; not in the
+        # fixed-trip loop, whose gradients flow to dscene.materials (JAX
+        # integrator.py:812)
+        dense_mats = 0 < config.n_instances <= 64 and not fixed
         if dense_mats and not config.has_textures:
             material = eval_ops.eval_material_dense(dscene, inst, shp_color)
             normal_tex = full((n,), -1, torch.int32)
@@ -685,6 +709,9 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             rough = material.roughness != 0.0
             incoming = torch.where(_vec(rough), bsdf_dir, d_incoming)
             delta = ~rough
+        # detached sampling: sampled directions are not differentiated
+        # (JAX integrator.py:926)
+        incoming = incoming.detach()
 
         zero_inc = surf & (torch.abs(incoming).sum(dim=-1) == 0.0)
         alive = alive & ~zero_inc
@@ -707,6 +734,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
                 )
             else:
                 vol_incoming = phase_dir
+            vol_incoming = vol_incoming.detach()  # JAX integrator.py:943
             vol_zero = vol & (torch.abs(vol_incoming).sum(dim=-1) == 0.0)
             alive = alive & ~vol_zero
             vol = vol & ~vol_zero
@@ -764,7 +792,9 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             pdf_b = dispatch.sample_bsdfcos_pdf(
                 material, normal, outgoing, incoming, present=present
             )
-            denom_nd = 0.5 * pdf_b + 0.5 * lights_pdf
+            # pdfs are detached: the sampling measure is not
+            # differentiated (JAX integrator.py:1032, :1038, :1053)
+            denom_nd = (0.5 * pdf_b + 0.5 * lights_pdf).detach()
             w_nd = f_nd / torch.clamp(denom_nd, min=1e-30)[..., None]
             # delta
             f_d = dispatch.eval_delta(
@@ -772,7 +802,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             )
             pdf_d = dispatch.sample_delta_pdf(
                 material, normal, outgoing, incoming, present=present
-            )
+            ).detach()
             w_d = f_d / torch.clamp(pdf_d, min=1e-30)[..., None]
             w_surf = torch.where(_vec(delta), w_d, w_nd)
             if config.has_volumes:
@@ -784,7 +814,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
                 pdf_v = dispatch.sample_scattering_pdf(
                     vol_density, vol_aniso, outgoing, vol_incoming
                 )
-                denom_v = 0.5 * pdf_v + 0.5 * lights_pdf
+                denom_v = (0.5 * pdf_v + 0.5 * lights_pdf).detach()
                 w_vol = f_v / torch.clamp(denom_v, min=1e-30)[..., None]
                 weight = torch.where(
                     _vec(surf), weight * w_surf,
@@ -798,13 +828,13 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             )
             pdf_r = dispatch.sample_bsdfcos_pdf(
                 material, normal, outgoing, incoming, present=present
-            )
+            ).detach()  # JAX integrator.py:1073
             f_d = dispatch.eval_delta(
                 material, normal, outgoing, incoming, present=present
             )
             pdf_d = dispatch.sample_delta_pdf(
                 material, normal, outgoing, incoming, present=present
-            )
+            ).detach()  # JAX integrator.py:1074
             w_r = f_r / torch.clamp(pdf_r, min=1e-30)[..., None]
             w_d = f_d / torch.clamp(pdf_d, min=1e-30)[..., None]
             weight = torch.where(
@@ -836,7 +866,8 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         # ---- Russian roulette
         r_rr, rng = rng_mod.rand1f(rng)
         rr_lane = stepped & alive & (bounce > 3)
-        rr_prob = torch.clamp(weight.amax(dim=-1), max=0.99)
+        # detached (JAX integrator.py:1107)
+        rr_prob = torch.clamp(weight.amax(dim=-1), max=0.99).detach()
         rr_die = rr_lane & (r_rr >= rr_prob)
         alive = alive & ~rr_die
         weight = torch.where(
@@ -861,18 +892,28 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             has_vol=has_vol, idx=idx,
         )
 
+    def outputs(s: TraceVars):
+        return [s.radiance, s.hit_flag, s.hit_albedo, s.hit_normal, s.rng]
+
     def run(s: TraceVars) -> TraceVars:
         while _host_bool(s.alive.any()):
             s = body(s)
         return s
 
+    if fixed:
+        # no liveness test, sort or compaction; each step recomputed in
+        # the backward pass (JAX integrator.py:1160-1164)
+        grad = torch.is_grad_enabled()
+        for _ in range(fixed):
+            state = (torch.utils.checkpoint.checkpoint(
+                body, state, use_reentrant=False, preserve_rng_state=False)
+                if grad else body(state))
+        return tuple(outputs(state))
+
     def drain(s: TraceVars, cap: int) -> TraceVars:
         while _host_bool(s.alive.sum() > cap):
             s = body(s)
         return s
-
-    def outputs(s: TraceVars):
-        return [s.radiance, s.hit_flag, s.hit_albedo, s.hit_normal, s.rng]
 
     def unsort(outs, idx):
         if not do_sort:

@@ -20,10 +20,13 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
+from julia_raytracer_tpu_torch.render.diff import make_param_loss
 from julia_raytracer_tpu_torch.render.integrator import (
     TraceOptions, build_intersector, trace_wavefront,
 )
-from julia_raytracer_tpu_torch.render.renderer import camera_arrays
+from julia_raytracer_tpu_torch.render.renderer import (
+    Params, Renderer, camera_arrays,
+)
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.types import (
     MATERIAL_TYPES, CameraData, InstanceData, MaterialData, MaterialType,
@@ -224,6 +227,47 @@ def image_close(got, want) -> tuple[float, float]:
     require(rel <= 1e-3, f"image means differ by {rel:.3g} relative")
     require(frac >= 0.99, f"only {frac:.4f} of pixels within 1e-3")
     return rel, frac
+
+
+# card against CPU gradients of the pixel loss: the largest |card - CPU|
+# over the entries, over the largest |CPU| entry. Not exact: the backward
+# pass's scatters add with float atomics on the card, and the card's
+# transcendentals, an ulp apart from the CPU's, may send a path elsewhere
+# (image_close). On an H100 the Cornell box (64 x 64) and the sphere grid
+# (128 x 128) measure 1e-7 to 2e-7 (PERF.md, section 6)
+GRAD_TOL = 1e-4
+
+
+def grads_close(got, want) -> float:
+    """Hold gradients `got` to `want` within GRAD_TOL (normalised by the
+    largest |want|); returns that normalised error."""
+    got, want = _np(got), _np(want)
+    require(got.shape == want.shape, f"shapes {got.shape} != {want.shape}")
+    require(np.isfinite(got).all(), "non-finite gradients")
+    scale = float(np.abs(want).max())
+    require(scale > 0, "zero gradients")
+    err = float(np.abs(got - want).max()) / scale
+    require(err <= GRAD_TOL, f"gradients differ by {err:.3g} of the largest")
+    return err
+
+
+def param_grads(scene, res: int, device, bounces: int = 8,
+                pixel_step: int = 1, seed: int = 0):
+    """The pixel loss of render/diff.py make_param_loss on `scene` at res x
+    res (every `pixel_step`-th pixel, one sample), against a target drawn
+    from numpy with `seed`: (loss, d/d colour, d/d emission) on the CPU,
+    the render on `device` through build_intersector's intersector."""
+    r = Renderer(scene, Params(resolution=res, bounces=bounces), device=device)
+    pix = torch.arange(0, res * res, pixel_step, dtype=torch.int32,
+                       device=device)
+    target = torch.as_tensor(np.random.default_rng(seed).uniform(
+        0.0, 0.5, (len(pix), 3)).astype(np.float32), device=device)
+    loss = make_param_loss(r.dscene, r.config, r.options, r.cam_arrays, res, res)
+    color = r.dscene.materials.color.clone().requires_grad_()
+    emission = r.dscene.materials.emission.clone().requires_grad_()
+    value = loss(color, emission, pix, target, 1, seed)
+    value.backward()
+    return float(value.detach()), color.grad.cpu(), emission.grad.cpu()
 
 
 def render_instanced(scene, res: int, spp: int, bounces: int,

@@ -17,14 +17,17 @@ from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
+from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
+from julia_raytracer_tpu_torch.render import diff as tdiff
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.testing import (
     adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
-    cornell_scene, dense_soup, hybrid_scene, image_close, instanced_scene,
-    regroup_bits, render_instanced, sphere_grid_scene,
+    cornell_scene, dense_soup, grads_close, hybrid_scene, image_close,
+    instanced_scene, param_grads, regroup_bits, render_instanced,
+    sphere_grid_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -509,3 +512,57 @@ def test_instanced_render_on_card_matches_cpu(dev, hybrid):
     assert ii.instanced_intersect_kernel.launches > 0
     assert (wl.worklist_intersect_kernel.launches > 0) == hybrid
     image_close(got, render_instanced(scene, 32, 2, 4, budget, "cpu", seed=1))
+
+
+@pytest.mark.parametrize("scene", ["cornell", "spheres"])
+def test_diff_hit_forward_equals_the_kernel(dev, scene):
+    """The differentiable hit's forward values (rays and corners requiring
+    grad) are the kernel's own, bit for bit: the dense kernel on the
+    Cornell box, the worklist kernel on the sphere grid."""
+    make = cornell_scene if scene == "cornell" else lambda: sphere_grid_scene(2, 16)
+    r = Renderer(make(), Params(resolution=64, bounces=4), device=dev)
+    g = np.random.default_rng(5)
+    n = 4096
+    ro = torch.tensor(np.tile([0.0, 1.0, 3.9], (n, 1)), dtype=torch.float32,
+                      device=dev)
+    rd = torch.tensor(g.normal(size=(n, 3)) * [0.1, 0.1, 0.02]
+                      - [0.0, 0.1, 1.0], dtype=torch.float32, device=dev)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).requires_grad_()
+    tmin = torch.full((n,), 1e-4, device=dev)
+    tmax = torch.full((n,), 3.4e38, device=dev)
+    pv = r.dscene.prim_verts.clone().requires_grad_()
+    got = make_diff_intersect(r.intersect, pv)(ro, rd, tmin, tmax)
+    want = r.intersect(ro, rd.detach(), tmin, tmax)
+    assert got.u.requires_grad and float(want.hit.float().mean()) > 0.5
+    assert _same_bits(tuple(x.detach() for x in got), want)
+
+
+def test_dense_kernel_runs_in_the_backward_recompute(dev):
+    """The fixed-trip loop launches the dense kernel once for the camera
+    rays and once a body, and the backward pass launches it again in each
+    body's recompute."""
+    r = Renderer(cornell_scene(), Params(resolution=32, bounces=4), device=dev)
+    opts = tdiff.diff_options(r.options, r.config)
+    color = r.dscene.materials.color.clone().requires_grad_()
+    d = r.dscene._replace(materials=r.dscene.materials._replace(color=color))
+    di.dense_intersect.launches = 0
+    rad = tdiff.render_radiance(d, r.config, opts, r.cam_arrays, 32, 32,
+                                torch.arange(1024, dtype=torch.int32,
+                                             device=dev), 0,
+                                intersect=r.intersect)
+    assert di.dense_intersect.launches == 1 + opts.fixed_iterations
+    rad.sum().backward()
+    assert di.dense_intersect.launches == 1 + 2 * opts.fixed_iterations
+    assert torch.isfinite(color.grad).all() and color.grad.abs().sum() > 0
+
+
+def test_diff_grads_on_card_match_cpu(dev):
+    """Colour and emission gradients of the pixel loss on the card against
+    the CPU's, within testing.GRAD_TOL (the tolerance of chip_smoke.py's
+    phase diff)."""
+    scene = cornell_scene()
+    card = param_grads(scene, 32, dev, bounces=4)
+    cpu = param_grads(scene, 32, "cpu", bounces=4)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-3)
+    for got, want in zip(card[1:], cpu[1:]):
+        grads_close(got, want)

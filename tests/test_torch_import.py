@@ -4,8 +4,9 @@ libraries PIL and cv2 (absent on the machine with the card), every module
 of julia_raytracer_tpu_torch (and chip_smoke.py) imports, the modules of
 every ported path among them (the heavy-scene path's regroup_intersect and
 kernel_select, the instanced path's scene/instanced.py and
-instanced_intersect, the cluster intersectors, and the CLI with its
-denoiser, augmentation, image codecs and timing), and no module of those
+instanced_intersect, the cluster intersectors, the CLI with its
+denoiser, augmentation, image codecs and timing, and the differentiable
+path with its multi-process train step), and no module of those
 names is loaded. Source scans reject any import of the JAX ones, and of
 PIL or cv2, in the package and in chip_smoke.py."""
 
@@ -57,6 +58,10 @@ REQUIRED = {
     "julia_raytracer_tpu_torch.scene.augment",
     "julia_raytracer_tpu_torch.utils.imgio",
     "julia_raytracer_tpu_torch.utils.timing",
+    "julia_raytracer_tpu_torch.render.diff",
+    "julia_raytracer_tpu_torch.ops.diff_hit",
+    "julia_raytracer_tpu_torch.parallel.mesh",
+    "julia_raytracer_tpu_torch.parallel.distributed",
 }
 
 

@@ -29,7 +29,10 @@ from julia_raytracer_tpu_torch.render import renderer as tren
 from julia_raytracer_tpu_torch.testing import (
     cornell_scene, image_close, sphere_grid_scene,
 )
-from torch_parity import BOUNCES, RES, cornell_scene_jax, sphere_grid_scene_jax
+from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
+from torch_parity import (
+    BOUNCES, RES, cornell_scene_jax, instanced_test_scene, sphere_grid_scene_jax,
+)
 
 SPP = 2
 HEAVY_PATH = dict(sort_rays=True, regroup="on", regroup_min_prims=0)
@@ -145,11 +148,14 @@ def test_renderer_rejects_unported_options():
             cornell_scene(), tren.Params(resolution=8), device="cpu"))
     with pytest.raises(ValueError):
         tren.Renderer(cornell_scene(), tren.Params(regroup="yes"), device="cpu")
-    r = tren.Renderer(cornell_scene(), tren.Params(resolution=8), device="cpu")
+    # the fixed-trip (differentiable) loop is ported for flat scenes; an
+    # instanced scene's would re-test shape-space quads: it raises
+    dscene, config = build_device_scene(instanced_test_scene(),
+                                        instancing=True, device="cpu")
     ro = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError):
-        tint.trace_wavefront(r.dscene, r.config,
-                             r.options._replace(fixed_iterations=9), ro, ro,
+    with pytest.raises(NotImplementedError, match="instanced"):
+        tint.trace_wavefront(dscene, config,
+                             tint.TraceOptions(fixed_iterations=9), ro, ro,
                              torch.zeros(4, dtype=torch.int32))
 
 
