@@ -55,6 +55,20 @@ loss, each step launching the dense kernel once for the camera rays, once
 a bounce and once more in each bounce's recompute; one gradient on the
 sphere grid (102,406 quads, the worklist kernel) at 128 x 128 meets the
 CPU's. It prints a `diff:` line.
+Then the scene_content phase renders the scene content the earlier paths
+do not reach, each at 512 x 512 and 8 bounces with the launch counters
+zeroed just before: (a) testing.hairball_scene() (the Cornell box with
+4,096 hair lines and 256 points: render/integrator.py curve_wrap's plain
+PyTorch sweep around the dense kernel, the lane compactor), with its
+device ms a sample, the sweep's device ms a sample and its extra peak
+memory; (b) testing.many_lights_scene() (5,120 emissive quads, over the
+exact light pdf's 4,096: the truncated-march pdf, whose steps go through
+the worklist kernel), whose worklist launches must equal one a sample
+for the camera rays plus 1 + the march's steps a loop body; (c) a written
+scene whose cube shape's PLY is empty and whose Catmull-Clark cage asks
+for 4 levels (1,536 quads, the worklist kernel) through cli.main, its PNG
+byte-equal to the Renderer's on the scene the loader gives. (a) and (b)
+are held card against CPU at 64 x 64. It prints a `scene_content:` line.
 
 `--parent DIR`: DIR holds an earlier checkout of the repository (`git
 archive` of a commit). The inputs of the dense kernel, of the two cluster
@@ -103,7 +117,10 @@ from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.integrator import (
-    _host_prims, _sort_key, sort_bounds, trace_wavefront,
+    _host_prims, _sort_key, merge_curves, sort_bounds, trace_wavefront,
+)
+from julia_raytracer_tpu_torch.render.lights import (
+    EXACT_ELEMS, auto_light_pdf_steps,
 )
 from julia_raytracer_tpu_torch.render.denoise import denoise_image
 from julia_raytracer_tpu_torch.render.diff import (
@@ -115,11 +132,13 @@ from julia_raytracer_tpu_torch.render.renderer import (
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.flatten import flatten_scene
+from julia_raytracer_tpu_torch.scene.loader import load_scene
 from julia_raytracer_tpu_torch.testing import (
     GRAD_TOL, HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat,
-    cornell_scene, grads_close, heavy_scene, hybrid_scene, image_close,
-    instanced_scene, param_grads, render_instanced, require,
-    sphere_grid_scene, write_yocto_scene,
+    cornell_scene, grads_close, hairball_scene, heavy_scene, hybrid_scene,
+    image_close, instanced_scene, many_lights_scene, param_grads,
+    render_instanced, require, sphere_grid_scene, subdiv_cube_scene,
+    write_cube_cage, write_yocto_scene,
 )
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
@@ -152,6 +171,14 @@ SPHERE_CHECK_RES, SPHERE_CHECK_SPP, SPHERE_CHECK_SEGMENTS = 64, 2, 16
 # is the CPU's cost)
 DIFF_STEPS, DIFF_SEED, DIFF_COLOR_OFFSET = 5, 7, 0.15
 DIFF_CHECK_RES, DIFF_SPHERE_RES, DIFF_SPHERE_STEP = 64, 128, 2
+# the scene_content phase: samples of its two renders (the first a
+# warm-up), their card-vs-CPU checks, the hairball's size and the
+# subdivided cube's levels and CLI samples
+CONTENT_WARM_SPP, CONTENT_TIMED_SPP = 1, 2
+CONTENT_CHECK_RES, HAIR_CHECK_SPP, LIGHTS_CHECK_SPP = 64, 2, 1
+HAIR_HAIRS, HAIR_SEGMENTS, HAIR_POINTS = 1024, 4, 256
+SUBDIV_LEVELS, SUBDIV_SPP = 4, 4
+CORNELL_QUADS = 18
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
 COMPACT_CAP = N_RAYS // 4  # first two-phase boundary of the main path
 STATE_PLANES = 45  # int32 planes of the integrator state (TraceVars)
@@ -1823,6 +1850,176 @@ def phase_diff(dev, cornell) -> tuple[dict, dict]:
     return out, _read_counts()
 
 
+def _sample_device_ms(renderer, scene, dev) -> float:
+    """Device ms of one sample of `renderer` (batch 1): torch.profiler's
+    device activities over one sample on a fresh state, after one more."""
+    def one():
+        renderer.trace_samples(make_trace_state(scene, renderer.params,
+                                                device=dev))
+    return profiled_ms(one, reps=1)
+
+
+def phase_scene_content(dev) -> tuple[dict, dict]:
+    """The scene content of testing.py that no earlier phase renders, at
+    512 x 512, 8 bounces, path sampler, each render with the launch
+    counters zeroed just before:
+      (a) hairball_scene(1024, 4, 256): 4,096 lines and 256 points over
+          the Cornell box's 18 quads. The dense kernel under curve_wrap,
+          the lane compactor; Mpaths/s, device ms a sample, the
+          line/point sweep's (merge_curves) device ms a sample, on the
+          inputs and quad hits of each intersect call of one sample, and
+          its extra peak memory at the widest call;
+      (b) many_lights_scene(): 5,120 emissive quads (> EXACT_ELEMS), so
+          the light pdf marches auto_light_pdf_steps steps through the
+          worklist kernel; its launches must be one a sample for the
+          camera rays plus (1 + steps) a loop body (trace_wavefront.bodies);
+          Mpaths/s and device ms a sample;
+      (c) subdiv_cube_scene() written by write_yocto_scene: the cube's PLY
+          is empty, so the loader tessellates its cage to 6 x 4^4 = 1,536
+          quads (the worklist kernel); cli.main at SUBDIV_SPP samples, its
+          PNG byte-equal to save_png of the Renderer's image on the scene
+          load_scene(tessellate=False) gives.
+    (a) and (b) are held card against CPU at 64 x 64 (image_close).
+    Returns (stats, the launches of the three renders)."""
+    out, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def params(**k):
+        return Params(resolution=MAIN_RES, bounces=MAIN_BOUNCES, sampler="path",
+                      samples=CONTENT_WARM_SPP + CONTENT_TIMED_SPP,
+                      batch=CONTENT_WARM_SPP, **k)
+
+    # (a) lines and points
+    t0 = time.perf_counter()
+    scene = hairball_scene(HAIR_HAIRS, HAIR_SEGMENTS, HAIR_POINTS)
+    r = Renderer(scene, params(), device=dev)
+    cfg = r.config
+    require((cfg.n_prims, cfg.n_lines, cfg.n_points)
+            == (CORNELL_QUADS, HAIR_HAIRS * HAIR_SEGMENTS, HAIR_POINTS),
+            f"hairball counts {cfg.n_prims}, {cfg.n_lines}, {cfg.n_points}")
+    require(hasattr(getattr(r.intersect, "inner", None), "table"),
+            "the hairball's quads do not take the dense kernel under curve_wrap")
+    stats, ln = main_path(r, scene, dev)
+    for name in ("dense_intersect", "lane_compact", "lane_expand"):
+        require(ln[name] > 0, f"the hairball path never launched {name}")
+    add(ln)
+    stats["device_ms_per_sample"] = _sample_device_ms(r, scene, dev)
+    calls, inner, wrapped = [], r.intersect.inner, r.intersect
+
+    def recording(ro, rd, tmin, tmax):
+        h = inner(ro, rd, tmin, tmax)
+        calls.append((h, ro, rd, tmin, tmax))
+        return merge_curves(r.dscene, cfg, h, ro, rd, tmin, tmax)
+
+    r.intersect = recording
+    try:
+        r.trace_samples(make_trace_state(scene, r.params, device=dev))
+    finally:
+        r.intersect = wrapped
+    torch.cuda.synchronize()
+    widest = max(calls, key=lambda c: c[1].shape[0])
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    merge_curves(r.dscene, cfg, *widest)
+    torch.cuda.synchronize()
+    stats["sweep_peak_extra_mb"] = (
+        (torch.cuda.max_memory_allocated(dev) - base) / 2**20)
+    stats["sweep_calls_per_sample"] = len(calls)
+    stats["sweep_lanes_per_sample"] = sum(c[1].shape[0] for c in calls)
+    stats["sweep_device_ms_per_sample"] = sum(
+        profiled_ms(lambda c=c: merge_curves(r.dscene, cfg, *c), reps=1)
+        for c in calls)
+    stats["sweep_share"] = (stats["sweep_device_ms_per_sample"]
+                            / stats["device_ms_per_sample"])
+    del calls, widest, r
+    stats["agreement"] = agreement(
+        dev, hairball_scene(HAIR_HAIRS, HAIR_SEGMENTS, HAIR_POINTS),
+        CONTENT_CHECK_RES, HAIR_CHECK_SPP)
+    stats["seconds"] = time.perf_counter() - t0
+    out["hairball"] = stats
+    log(f"scene_content (a) hairball: {json.dumps(stats)}")
+
+    # (b) the truncated-march light pdf
+    t0 = time.perf_counter()
+    scene = many_lights_scene()
+    r = Renderer(scene, params(), device=dev)
+    counts = r.config.light_counts
+    steps = r.options.light_pdf_extra_steps
+    require(counts.total_inst_elems > EXACT_ELEMS,
+            f"{counts.total_inst_elems} emissive elements: the pdf does not march")
+    require(steps == auto_light_pdf_steps(counts.total, False),
+            f"the renderer chose {steps} march steps")
+    require(not r.options.sort_rays and hasattr(r.intersect, "tables"),
+            "the many-lights scene does not take the unsorted worklist path")
+    bodies0 = trace_wavefront.bodies
+    stats, ln = main_path(r, scene, dev)
+    bodies = trace_wavefront.bodies - bodies0
+    spp = CONTENT_WARM_SPP + CONTENT_TIMED_SPP
+    predicted = spp + bodies * (1 + steps)
+    for name in ("lane_compact", "lane_expand"):
+        require(ln[name] > 0, f"the many-lights path never launched {name}")
+    require(ln["worklist_intersect"] == predicted,
+            f"the many-lights path launched the worklist kernel "
+            f"{ln['worklist_intersect']} times, not {predicted} (camera "
+            f"{spp}, {bodies} bodies x (1 + {steps} march steps))")
+    add(ln)
+    stats.update(
+        emissive_elements=counts.total_inst_elems, lights=counts.total,
+        march_steps=steps, bodies_per_sample=bodies / spp,
+        worklist_launches_per_sample=ln["worklist_intersect"] / spp,
+        predicted_launches_per_sample=predicted / spp,
+        device_ms_per_sample=_sample_device_ms(r, scene, dev))
+    del r
+    stats["agreement"] = agreement(dev, many_lights_scene(), CONTENT_CHECK_RES,
+                                   LIGHTS_CHECK_SPP)
+    stats["seconds"] = time.perf_counter() - t0
+    out["many_lights"] = stats
+    log(f"scene_content (b) many lights: {json.dumps(stats)}")
+
+    # (c) a subdivision cage through the CLI
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        cage = write_cube_cage(os.path.join(tmp, "cube.obj"),
+                               center=(0.3, 1.4, 0.3), half=0.18)
+        path = write_yocto_scene(subdiv_cube_scene(cage, SUBDIV_LEVELS),
+                                 os.path.join(tmp, "subdiv"))
+        png = os.path.join(tmp, "cli.png")
+        run = _cli_run(["--scene", path, "--resolution", str(MAIN_RES),
+                        "--bounces", str(MAIN_BOUNCES), "--sampler", "path",
+                        "--samples", str(SUBDIV_SPP), "--batch",
+                        str(SUBDIV_SPP), "--device", str(dev),
+                        "--output", png], ("worklist_intersect",))
+        quads = CORNELL_QUADS + 6 * 4 ** SUBDIV_LEVELS
+        require(run["renderer"].config.n_prims == quads,
+                f"the tessellated scene has {run['renderer'].config.n_prims} "
+                f"quads, not {quads}")
+        add(run["launches"])
+        loaded = load_scene(path, tessellate=False)
+        direct = Renderer(loaded, run["renderer"].params, device=dev)
+        st = make_trace_state(loaded, direct.params, device=dev)
+        while st.samples < direct.params.samples:
+            direct.trace_samples(st)
+        save_png(os.path.join(tmp, "direct.png"), direct.get_image(st))
+        with open(png, "rb") as f, \
+                open(os.path.join(tmp, "direct.png"), "rb") as g:
+            require(f.read() == g.read(), "the CLI's PNG of the subdivided "
+                    "scene differs from the Renderer's")
+    out["subdiv_cli"] = dict(
+        quads=quads, samples=SUBDIV_SPP, render_s=run["render_s"],
+        call_s=run["call_s"],
+        worklist_launches=run["launches"]["worklist_intersect"],
+        mpaths_per_s=N_RAYS * SUBDIV_SPP / run["render_s"] / 1e6,
+        seconds=time.perf_counter() - t0)
+    log(f"scene_content (c) subdivided cube through the CLI: "
+        f"{json.dumps(out['subdiv_cli'])}")
+    return out, launches
+
+
 _TURN_CHILD = """
 import json, os, sys
 import numpy as np
@@ -2163,6 +2360,10 @@ def main() -> int:
     t0 = time.perf_counter()
     diff_phase, diff_launch = phase_diff(dev, cornell)
     log(f"diff: {json.dumps(diff_phase)} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    content_phase, content_launch = phase_scene_content(dev)
+    log(f"scene_content: {json.dumps(content_phase)} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, p in phases.items():
@@ -2172,7 +2373,7 @@ def main() -> int:
             launches=(c_launch[name] + s_launch[name] + h_launch[name]
                       + a_launch[name] + inst_launch["instanced"][name]
                       + inst_launch["hybrid"][name] + cli_launch[name]
-                      + diff_launch[name]),
+                      + diff_launch[name] + content_launch.get(name, 0)),
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],

@@ -16,8 +16,11 @@ from typing import NamedTuple
 import torch
 
 from julia_raytracer_tpu_torch.ops.geometry import (
-    F32_MAX, interpolate_quad, intersect_quad, quad_normal,
+    F32_MAX, interpolate_quad, intersect_bbox, intersect_quad, quad_normal,
 )
+
+STACK_DEPTH = 48
+LEAF_UNROLL = 4  # the builder's leaf size
 
 
 class Hit(NamedTuple):
@@ -63,3 +66,85 @@ def intersect_bruteforce(prim_verts, ro, rd, tmin, tmax, prim_instance=None):
         else torch.zeros_like(prim)
     )
     return Hit(hit, prim, bu, bv, bt, pos, gn, inst)
+
+
+def intersect_bvh(nodes, prim_verts, ro, rd, tmin, tmax, find_any: bool = False,
+                  prim_instance=None) -> Hit:
+    """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] by a walk of the
+    packed BVH `nodes` [Nn, 16] (ops/bvh.py) over `prim_verts` [Q, 4, 3]
+    in leaf order. `find_any`: a lane stops at its first recorded hit
+    (which need not be the closest). A miss gives prim -1 and t = tmax."""
+    n, dev = ro.shape[0], ro.device
+    q = prim_verts.shape[0]
+    rdinv = 1.0 / rd
+    child_ids = nodes[:, 12:14].contiguous().view(torch.int32)
+    rows = torch.arange(n, device=dev)
+
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int32, device=dev)
+    current = torch.zeros(n, dtype=torch.int32, device=dev)  # the root
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    best_t = tmax
+    best_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+
+    while bool(active.any()):
+        is_internal = current >= 0
+        node_idx = torch.where(is_internal, current, 0).long()
+        row = nodes[node_idx]  # [N, 16]: one row a lane a step
+        child = child_ids[node_idx]
+        hit_l, t_l = intersect_bbox(ro, rdinv, tmin, best_t, row[:, 0:3],
+                                    row[:, 3:6])
+        hit_r, t_r = intersect_bbox(ro, rdinv, tmin, best_t, row[:, 6:9],
+                                    row[:, 9:12])
+        near_is_l = torch.where(hit_l & hit_r, t_l <= t_r, hit_l)
+        near = torch.where(near_is_l, child[:, 0], child[:, 1])
+        far = torch.where(near_is_l, child[:, 1], child[:, 0])
+        both = hit_l & hit_r
+        any_child = hit_l | hit_r
+
+        # a leaf is encoded -(start * 8 + count) - 1
+        is_leaf = active & (current < 0)
+        leaf_val = -(current + 1)
+        start = torch.div(leaf_val, 8, rounding_mode="floor")
+        count = leaf_val % 8
+        for k in range(LEAF_UNROLL):
+            pidx = (start + k).clamp(0, q - 1)
+            pv = prim_verts[pidx.long()]
+            h, u, v, t = intersect_quad(ro, rd, tmin, best_t, pv[:, 0],
+                                        pv[:, 1], pv[:, 2], pv[:, 3])
+            h = h & is_leaf & (k < count)
+            best_t = torch.where(h, t, best_t)
+            best_prim = torch.where(h, pidx, best_prim)
+            best_u = torch.where(h, u, best_u)
+            best_v = torch.where(h, v, best_v)
+
+        # internal node: descend to the near child, push the far one
+        do_push = active & is_internal & both & (sp < STACK_DEPTH)
+        col = sp.clamp(max=STACK_DEPTH - 1).long()
+        stack[rows, col] = torch.where(do_push, far, stack[rows, col])
+        sp = torch.where(do_push, sp + 1, sp)
+        descend = active & is_internal & any_child
+        next_current = torch.where(descend, near, current)
+
+        # pop for lanes at a leaf or at an internal node whose children
+        # both missed
+        need_pop = active & (is_leaf | (is_internal & ~any_child))
+        if find_any:
+            need_pop = need_pop & (best_prim < 0)
+            active = active & ((best_prim < 0) | ~is_leaf)
+        can_pop = need_pop & (sp > 0)
+        sp_pop = (sp - 1).clamp(min=0)
+        popped = stack[rows, sp_pop.long()]
+        current = torch.where(can_pop, popped, next_current)
+        sp = torch.where(can_pop, sp_pop, sp)
+        active = active & ~(need_pop & (sp == 0) & ~can_pop)
+
+    hit = best_prim >= 0
+    safe_prim = best_prim.clamp(min=0)
+    pos, gn = hit_surface(prim_verts, safe_prim, best_u, best_v)
+    inst = (prim_instance[safe_prim.long()] if prim_instance is not None
+            else torch.zeros_like(best_prim))
+    return Hit(hit, best_prim, best_u, best_v, torch.where(hit, best_t, tmax),
+               pos, gn, inst)

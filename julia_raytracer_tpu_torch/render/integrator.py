@@ -7,7 +7,7 @@ carries the *current intersection* across iterations; each body computes
 the NEXT ray's intersection at its end. The loop runs eagerly on the
 host, one body per iteration, until no lane is alive; each loop test
 reads one bool or count back from the device (`trace_wavefront.host_syncs`
-counts them).
+counts them, `trace_wavefront.bodies` the bodies run).
 
 Wavefront sort (`TraceOptions.sort_rays`; the renderer turns it on for
 scenes of >= 50,000 quads, as the JAX package does): camera rays, and
@@ -48,6 +48,14 @@ utils/kernel_select.py predicts a decisive win (or when asked).
 Instanced scenes take the work-item kernel (ops/instanced_intersect.py)
 or, when the build flattened a world-space soup, the hybrid: the soup
 through the flat intersectors above, the remaining work items after it.
+Line and point primitives are merged into a flat intersector's closest
+hit by `curve_wrap`, a plain PyTorch sweep of every element.
+
+Light pdf: scenes of more than lights.EXACT_ELEMS emissive elements march
+it through `intersect_primary` (`TraceOptions.light_pdf_extra_steps`
+closest-hit queries a body after the bounce's own hit); under regroup
+that is the worklist kernel, since the march's rays converge on the
+lights, as camera rays leave one point.
 
 Fixed-trip loop (`TraceOptions.fixed_iterations` > 0; render/diff.py
 sets it): `body` runs exactly that many times, with no host-side liveness
@@ -58,12 +66,13 @@ intersect kernel included. Sampled directions, pdfs and the Russian
 roulette probability are detached, as the JAX package stops their
 gradients (detached sampling), and the intersector is wrapped by
 ops/diff_hit.py, whose hits carry the gradients of the JAX package's
-argmin-selected hit. The body is fully masked, so the radiance equals the
-while loop's bit for bit.
+argmin-selected hit (with curves, the quad intersector inside
+`curve_wrap` is wrapped, and the line/point sweep differentiates as it
+is). The body is fully masked, so the radiance equals the while loop's
+bit for bit.
 
-Not ported yet (NotImplementedError, see ROADMAP.md): the BVH walk
-(`intersect_bvh`), line/point primitives, and the fixed-trip loop on
-instanced and hybrid scenes.
+Not ported yet (NotImplementedError, see ROADMAP.md): the fixed-trip
+loop on instanced and hybrid scenes.
 """
 
 from __future__ import annotations
@@ -81,7 +90,8 @@ from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
 from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
 from julia_raytracer_tpu_torch.ops.geometry import (
-    F32_MAX, RAY_EPS, intersect_quad, quad_normal,
+    F32_MAX, RAY_EPS, intersect_line, intersect_point, intersect_quad,
+    quad_normal,
 )
 from julia_raytracer_tpu_torch.ops.instanced_intersect import (
     make_instanced_intersect,
@@ -93,7 +103,7 @@ from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
 from julia_raytracer_tpu_torch.render.scene_device import DeviceScene, SceneConfig
 from julia_raytracer_tpu_torch.utils import kernel_select
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
-from julia_raytracer_tpu_torch.utils.vecmath import dot
+from julia_raytracer_tpu_torch.utils.vecmath import dot, normalize, orthonormalize
 
 # dense-kernel cutoff: scenes with more quads go to the worklist
 # intersector
@@ -113,6 +123,9 @@ class TraceOptions(NamedTuple):
     bounces: int = 8
     envhidden: bool = False
     nocaustics: bool = False
+    # closest-hit queries a body adds to the light pdf's march (scenes of
+    # more than lights.EXACT_ELEMS emissive elements only)
+    light_pdf_extra_steps: int = 2
     # > 0: the fixed-trip, differentiable loop of that many bodies
     # (module docstring; render/diff.py diff_options)
     fixed_iterations: int = 0
@@ -156,15 +169,135 @@ class TraceVars(NamedTuple):
     idx: torch.Tensor  # original lane id
 
 
-def curve_wrap(intersect, dscene: DeviceScene, config: SceneConfig):
-    """Merge line/point primitives into a quad intersector: a pass-through
-    for scenes without them; scenes with them are not ported yet."""
-    if config.n_lines or config.n_points:
-        raise NotImplementedError(
-            "line/point primitives are not ported yet (ROADMAP.md queue 1, "
-            "item 1)"
+# lanes x elements of one chunk of the line/point sweep, by device type:
+# on the card, at 262,144 lanes, a chunk of 64 elements (64 MB a float32
+# temporary, 201 MB a 3-vector one); on the CPU smaller chunks, whose
+# temporaries stay in cache
+CURVE_CHUNK = {"cuda": 1 << 24, "cpu": 1 << 20}
+
+
+def _sweep_closest(test, n_elems: int, n: int, device):
+    """First-minimum closest hit of an [n, n_elems] element test on
+    `device`, swept in chunks of CURVE_CHUNK[device.type] // n elements:
+    `test(lo, hi)` gives (hit, t, extras...) over elements [lo, hi), each
+    [n, hi - lo]. Returns (index [n] i64, t [n], extras at the index); t
+    is F32_MAX where no element hits. A later chunk wins only with a
+    strictly smaller t, so ties keep the lower index, as one argmin over
+    all elements does."""
+    step = max(1, CURVE_CHUNK.get(device.type, CURVE_CHUNK["cuda"])
+               // max(n, 1))
+    best = None
+    for lo in range(0, n_elems, step):
+        hi = min(lo + step, n_elems)
+        h, t, *extras = test(lo, hi)
+        t = torch.where(h, t, F32_MAX)
+        j = torch.argmin(t, dim=1, keepdim=True)  # first minimum
+        cand = [lo + j[:, 0], t.gather(1, j)[:, 0]] + [
+            e.gather(1, j)[:, 0] for e in extras]
+        if best is None:
+            best = cand
+        else:
+            take = cand[1] < best[1]
+            best = [torch.where(take, c, b) for c, b in zip(cand, best)]
+    return best
+
+
+def merge_curves(dscene: DeviceScene, config: SceneConfig, best: Hit, ro, rd,
+                 tmin, tmax) -> Hit:
+    """The line/point sweep of curve_wrap: `best` (the quad hit, or a miss)
+    with every line, then every point, that the rays hit closer merged
+    in."""
+    Q, L, P = dscene.prim_verts.shape[0], config.n_lines, config.n_points
+    n = ro.shape[0]
+    bt = torch.where(best.hit, best.t, tmax)
+    ro_, rd_, tmin_ = ro[:, None], rd[:, None], tmin[:, None]
+    if L > 0:
+        lv, lr = dscene.line_verts, dscene.line_radius
+
+        def test(lo, hi):
+            h, s_, v_, t = intersect_line(
+                ro_, rd_, tmin_, bt[:, None], lv[None, lo:hi, 0],
+                lv[None, lo:hi, 1], lr[None, lo:hi, 0], lr[None, lo:hi, 1])
+            return h, t, s_, v_
+
+        li, ltb, s_, v_ = _sweep_closest(test, L, n, ro.device)
+        upd = ltb < bt
+        lp1, lp2 = lv[li, 0], lv[li, 1]
+        axis_pt = lp1 + (lp2 - lp1) * s_[:, None]
+        la = dscene.line_attr
+        tan = normalize(la[li, 0, 0:3] * (1.0 - s_[:, None])
+                        + la[li, 1, 0:3] * s_[:, None])
+        up3 = upd[:, None]
+        best = Hit(
+            hit=best.hit | upd,
+            prim=torch.where(upd, Q + li.to(torch.int32), best.prim),
+            u=torch.where(upd, s_, best.u),
+            v=torch.where(upd, v_, best.v),
+            t=torch.where(upd, ltb, best.t),
+            position=torch.where(up3, axis_pt, best.position),
+            gnormal=torch.where(up3, tan, best.gnormal),
+            instance=torch.where(upd, dscene.line_instance[li], best.instance),
         )
-    return intersect
+        bt = torch.where(best.hit, best.t, tmax)
+    if P > 0:
+        pp, pr = dscene.point_pos, dscene.point_radius
+
+        def test(lo, hi):
+            return intersect_point(ro_, rd_, tmin_, bt[:, None],
+                                   pp[None, lo:hi], pr[None, lo:hi])
+
+        pi, ptb = _sweep_closest(test, P, n, ro.device)
+        upd = ptb < bt
+        up3 = upd[:, None]
+        best = Hit(
+            hit=best.hit | upd,
+            prim=torch.where(upd, Q + L + pi.to(torch.int32), best.prim),
+            u=torch.where(upd, 0.0, best.u),
+            v=torch.where(upd, 0.0, best.v),
+            t=torch.where(upd, ptb, best.t),
+            position=torch.where(up3, pp[pi], best.position),
+            gnormal=torch.where(up3, -normalize(rd), best.gnormal),
+            instance=torch.where(upd, dscene.point_instance[pi], best.instance),
+        )
+    return best
+
+
+def curve_wrap(intersect, dscene: DeviceScene, config: SceneConfig):
+    """Merge line and point (capsule) primitives into the closest hit of
+    the quad intersector `intersect` (a pass-through for scenes without
+    them). Curve hits are prim ids >= Q: Q..Q+L-1 lines, then points.
+    Their `position` is the point on the line's axis, or the point's
+    centre; `gnormal` carries the interpolated tangent of a line, or
+    -normalize(rd) for a point, for the shading-normal rules. Lines and
+    points are a plain PyTorch sweep of every element (merge_curves),
+    chunked by `_sweep_closest`, on the scene's device; their tmax is the
+    quad hit's t. With Q == 0 (`intersect` None) no quad intersector is
+    called.
+
+    The wrapper keeps the attributes of `intersect` (`.tables`,
+    `.livegate`, ...), wraps its `.primary` apart, and holds it as
+    `.inner` (the fixed-trip loop differentiates the quad hit there)."""
+    if config.n_lines == 0 and config.n_points == 0:
+        return intersect
+
+    def wrapped(ro, rd, tmin, tmax):
+        if intersect is not None:
+            best = intersect(ro, rd, tmin, tmax)
+        else:
+            n, dev = ro.shape[0], ro.device
+            z = torch.zeros(n, device=dev)
+            best = Hit(torch.zeros(n, dtype=torch.bool, device=dev),
+                       torch.full((n,), -1, dtype=torch.int32, device=dev),
+                       z, z, tmax, torch.zeros_like(ro), torch.zeros_like(ro),
+                       torch.zeros(n, dtype=torch.int32, device=dev))
+        return merge_curves(dscene, config, best, ro, rd, tmin, tmax)
+
+    if intersect is not None:
+        wrapped.__dict__.update(intersect.__dict__)
+    wrapped.inner = intersect
+    if hasattr(intersect, "primary"):
+        wrapped.primary = curve_wrap(intersect.primary, dscene, config)
+    return wrapped
 
 
 def _host_prims(dscene: DeviceScene, config: SceneConfig):
@@ -352,11 +485,11 @@ def make_intersect(dscene: DeviceScene, config: SceneConfig):
     """Closest-hit query of the plain versions, the reference the tests
     hold the intersectors to, for a scene on the CPU: the dense reference
     intersector (ops/traversal.py intersect_bruteforce) for <= 112 quads,
-    else the worklist intersector's plain version. (The JAX package walks
-    its BVH there, `intersect_bvh`, which is not ported; both are exact
-    closest-hit queries.) Instanced scenes: make_intersect_instanced_ref,
-    or the hybrid over the plain references. A scene on the card takes
-    build_intersector."""
+    else the worklist intersector's plain version (the JAX package walks
+    its BVH there, ops/traversal.py intersect_bvh; both are exact
+    closest-hit queries), with lines and points merged by curve_wrap.
+    Instanced scenes: make_intersect_instanced_ref, or the hybrid over the
+    plain references. A scene on the card takes build_intersector."""
     if dscene.prim_verts.device.type != "cpu":
         raise ValueError(
             "make_intersect is the plain reference for a scene on the CPU; "
@@ -383,6 +516,18 @@ def make_intersect(dscene: DeviceScene, config: SceneConfig):
     return curve_wrap(intersect, dscene, config)
 
 
+def _diff_intersect(intersect, dscene: DeviceScene, config: SceneConfig):
+    """The fixed-trip loop's intersector: ops/diff_hit.py around the quad
+    intersector, inside curve_wrap when the scene has lines or points (a
+    curve hit's prim id >= Q names no quad to re-test)."""
+    inner = getattr(intersect, "inner", None)
+    if inner is None and not (config.n_lines or config.n_points):
+        return make_diff_intersect(intersect, dscene.prim_verts)
+    if inner is not None:
+        inner = make_diff_intersect(inner, dscene.prim_verts)
+    return curve_wrap(inner, dscene, config)
+
+
 def build_intersector(dscene: DeviceScene, config: SceneConfig,
                       regroup: str = "auto",
                       regroup_min_prims: int = REGROUP_MIN_PRIMS):
@@ -403,7 +548,9 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
         liveness gate 0.2), and prints the decision line; "off" keeps the
         worklist kernel;
       - otherwise the worklist cluster kernel (ops/worklist_intersect.py).
-    Regroup is only a speed choice over the same closest hits."""
+    Regroup is only a speed choice over the same closest hits. Flat
+    scenes with lines or points take curve_wrap around the above (no
+    quad intersector when the scene has no quads)."""
     _check_regroup(regroup)
     device = dscene.prim_verts.device
     if config.inst_tables is not None:
@@ -411,6 +558,9 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
             return make_intersect_hybrid(dscene, config, regroup=regroup,
                                          regroup_min_prims=regroup_min_prims)
         return make_instanced_intersect(config.inst_tables, device)
+    if config.n_prims == 0:
+        # only lines and points: curve_wrap never calls the quad intersector
+        return curve_wrap(None, dscene, config)
     verts, inst = _host_prims(dscene, config)
     return curve_wrap(
         _flat_intersector(verts, inst, device, config.n_prims,
@@ -494,11 +644,11 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     rng_state [N] int32). `intersect` may be a prebuilt intersector; by
     default build_intersector's, on the scene's device (the kernels for a
     scene on the card, their plain versions for one on the CPU). Camera
-    rays go through `intersect_primary` when given (the regroup
-    intersector's `.primary`: the worklist kernel, as the JAX package
-    routes them), else through `intersect`. The light pdf is the exact
-    element sweep and traces nothing, so camera rays are the only primary
-    dispatch. With `options.fixed_iterations` the loop is the fixed-trip,
+    rays, and the light pdf's march steps when the scene has more than
+    lights.EXACT_ELEMS emissive elements, go through `intersect_primary`
+    when given (the regroup intersector's `.primary`: the worklist
+    kernel, as the JAX package routes them), else through `intersect`.
+    With `options.fixed_iterations` the loop is the fixed-trip,
     differentiable one (module docstring)."""
     fixed = options.fixed_iterations
     if fixed and config.inst_tables is not None:
@@ -512,9 +662,8 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         intersect = build_intersector(dscene, config)
     intersect_primary = intersect_primary or intersect
     if fixed:
-        intersect = make_diff_intersect(intersect, dscene.prim_verts)
-        intersect_primary = make_diff_intersect(intersect_primary,
-                                                dscene.prim_verts)
+        intersect = _diff_intersect(intersect, dscene, config)
+        intersect_primary = _diff_intersect(intersect_primary, dscene, config)
     do_sort = options.sort_rays and not fixed
     is_path = options.sampler == "path"
     counts = config.light_counts
@@ -557,6 +706,7 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     def body(s: TraceVars) -> TraceVars:
         # width-polymorphic: the two-phase dispatch re-enters with a
         # narrowed state, so lane-shaped constants derive from the state
+        trace_wavefront.bodies += 1
         n = s.alive.shape[0]
         alive = s.alive
         bounce = torch.where(alive, s.bounce + 1, s.bounce)
@@ -619,6 +769,25 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             shp_color = eval_ops.eval_color_attr(dscene, vidx, flags, u, v)
         else:
             shp_color = full(u.shape + (4,), 1.0)
+        # curve attribute overrides (prim ids >= Q: lines, then points)
+        has_curves = config.n_lines > 0 or config.n_points > 0
+        if has_curves:
+            is_line = (s.isec_hit & (s.isec_prim >= n_prim)
+                       & (s.isec_prim < n_prim + config.n_lines))
+            is_point = s.isec_hit & (s.isec_prim >= n_prim + config.n_lines)
+            if config.n_lines > 0:
+                lat = dscene.line_attr[
+                    (s.isec_prim - n_prim).clamp(0, config.n_lines - 1)]
+                wu = u[:, None]
+                l_tc = lat[:, 0, 3:5] * (1.0 - wu) + lat[:, 1, 3:5] * wu
+                l_col = lat[:, 0, 5:9] * (1.0 - wu) + lat[:, 1, 5:9] * wu
+                texcoord = torch.where(_vec(is_line), l_tc, texcoord)
+                shp_color = torch.where(_vec(is_line), l_col, shp_color)
+            if config.n_points > 0:
+                pat = dscene.point_attr[(s.isec_prim - n_prim - config.n_lines)
+                                        .clamp(0, config.n_points - 1)]
+                texcoord = torch.where(_vec(is_point), pat[:, 3:5], texcoord)
+                shp_color = torch.where(_vec(is_point), pat[:, 5:9], shp_color)
         # folded per-instance material rows for small scenes; not in the
         # fixed-trip loop, whose gradients flow to dscene.materials (JAX
         # integrator.py:812)
@@ -641,6 +810,14 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             refractive_present=4 in present,
             instanced=config.inst_tables is not None,
         )
+        if has_curves:
+            # lines: the tangent framed against the view; points: the
+            # normal is the outgoing direction
+            if config.n_lines > 0:
+                normal = torch.where(
+                    _vec(is_line), orthonormalize(outgoing, s.isec_gn), normal)
+            if config.n_points > 0:
+                normal = torch.where(_vec(is_point), outgoing, normal)
 
         max_roughness = s.max_roughness
         if is_path and options.nocaustics:
@@ -778,9 +955,14 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
 
         # ---- weight updates
         if is_path:
+            # the march (more than EXACT_ELEMS emissive elements) reuses
+            # this bounce's hit as its first step and re-traces through
+            # the primary intersector
             lights_pdf = (
                 lights_mod.sample_lights_pdf(
-                    dscene, dscene.lights, counts, new_ro, new_rd
+                    dscene, dscene.lights, counts, new_ro, new_rd,
+                    intersect_fn=intersect_primary, first_hit=nxt,
+                    extra_steps=options.light_pdf_extra_steps,
                 )
                 if has_lights
                 else full((n,), 0.0)
@@ -989,3 +1171,4 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
 
 
 trace_wavefront.host_syncs = 0
+trace_wavefront.bodies = 0  # loop bodies run (each one bounce intersect)

@@ -4,9 +4,11 @@ port of julia_raytracer_tpu/render/lights.py.
 `build_lights_np` is the JAX package's numpy builder, carried over
 because its module imports jax. Area-light pdfs take the exact sweep
 over every emissive element (`area_lights_pdf_exact`), closed form and
-free of whole-scene traversals. Scenes with more than EXACT_ELEMS
-emissive elements, which the JAX package serves with a truncated
-whole-scene march, raise NotImplementedError here (ROADMAP.md).
+free of whole-scene traversals, for scenes of up to EXACT_ELEMS emissive
+elements. Above that the pdf is a truncated whole-scene march: the
+bounce's own hit is step 1, and `extra_steps` more closest-hit queries
+each continue 1e-3 past the last hit (`sample_lights_pdf`;
+`auto_light_pdf_steps` picks the budget).
 
 The env-texel -> direction mapping uses 0-based texel coordinates, and
 the pdf uses the same mapping, as in the JAX module.
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops.geometry import (
-    interpolate_quad, triangle_normal,
+    F32_MAX, interpolate_quad, triangle_normal,
 )
 from julia_raytracer_tpu_torch.scene.flatten import (
     FLAG_IS_TRIANGLE_SHAPE, FlatScene,
@@ -37,7 +39,12 @@ from julia_raytracer_tpu_torch.utils.vecmath import (
 
 PIF = math.pi
 
-# emissive-element cap of the exact (sweep-all-elements) light pdf
+# total light-element count up to which area_light_hit_pdf finds a hit's
+# owner by a compare-select over the element prim ids, not a gather
+DENSE_ELEMS = 64
+
+# emissive-element cap of the exact (sweep-all-elements) light pdf; above
+# it the truncated whole-scene march takes over
 EXACT_ELEMS = 4096
 # elements per slab in the exact pdf (bounds the [lanes, slab] temps)
 ELEM_PDF_CHUNK = 16
@@ -197,6 +204,16 @@ def build_lights_np(flat: FlatScene, order: np.ndarray) -> tuple[dict, LightCoun
         total_inst_elems=total_elems,
     )
     return lights, counts
+
+
+def auto_light_pdf_steps(n_lights: int, has_transmission: bool) -> int:
+    """March budget of the truncated whole-scene light pdf (scenes with
+    more than EXACT_ELEMS emissive elements): 8 with more than 4 lights or
+    a transmissive material, else 4. Occluder hits consume steps without
+    adding to the pdf, so the budget is generous."""
+    if n_lights > 4 or has_transmission:
+        return 8
+    return 4
 
 
 # ---------------------------------------------------------------------------
@@ -425,20 +442,77 @@ def area_lights_pdf_exact(lights: DeviceLights, counts: LightCounts, position,
     return pdf
 
 
+def area_light_hit_pdf(lights: DeviceLights, prim, dist2, lnormal, direction,
+                       hit, total_elems: int = 0):
+    """One march step's contribution: dist^2 / (|cos| * area_owner) where
+    the hit prim belongs to a light. With at most DENSE_ELEMS light
+    elements the owner is found by a compare-select over the element prim
+    ids, else by a gather from the per-prim area table with the id clamped
+    into range (a line or point hit, id >= Q, reads the last quad's)."""
+    if 0 < total_elems <= DENSE_ELEMS:
+        area = torch.zeros(prim.shape, device=prim.device)
+        for e in range(total_elems):
+            area = torch.where(prim == lights.inst_prim[e],
+                               lights.elem_owner_area[e], area)
+    else:
+        area = _take(lights.prim_light_area, prim)
+    cos = torch.abs(dot(lnormal, direction))
+    contrib = dist2 / torch.clamp(cos * area, min=1e-30)
+    return torch.where(hit & (area > 0), contrib, 0.0)
+
+
+def area_lights_pdf_march(lights: DeviceLights, counts: LightCounts,
+                          intersect_fn, position, direction, first_hit,
+                          extra_steps: int):
+    """Truncated whole-scene march of the area-light pdf: `first_hit`
+    (the bounce's own closest hit along `direction`) is step 1; each of
+    `extra_steps` more steps starts 1e-3 past the last hit with tmin 1e-4
+    and adds its hit's contribution at the accumulated distance. Lanes
+    that stopped marching carry tmax = -1, which fails every slab test
+    even when the origin sits inside a box (a small positive tmax would
+    not). The steps add in a fixed order."""
+    t_cum = first_hit.t
+    hit = first_hit.hit
+    pdf = area_light_hit_pdf(lights, first_hit.prim, t_cum * t_cum,
+                             first_hit.gnormal, direction, hit,
+                             total_elems=counts.total_inst_elems)
+    marching = hit
+    for _ in range(extra_steps):
+        origin = position + direction * (t_cum + 1e-3)[..., None]
+        tmin = torch.full_like(t_cum, 1e-4)
+        tmax = torch.where(marching, F32_MAX, -1.0)
+        step = intersect_fn(origin, direction, tmin, tmax)
+        hit = step.hit & marching
+        t_cum = torch.where(hit, t_cum + 1e-3 + step.t, t_cum)
+        pdf = pdf + area_light_hit_pdf(lights, step.prim, t_cum * t_cum,
+                                       step.gnormal, direction, hit,
+                                       total_elems=counts.total_inst_elems)
+        marching = hit
+    return pdf
+
+
 def sample_lights_pdf(scene, lights: DeviceLights, counts: LightCounts,
-                      position, direction):
-    """Solid-angle pdf of `direction` under light sampling: the exact
-    element sweep for area lights plus the env-light pdfs, over L."""
+                      position, direction, intersect_fn=None, first_hit=None,
+                      extra_steps: int = 4):
+    """Solid-angle pdf of `direction` under light sampling, over L: the
+    area lights' exact element sweep when the scene has at most
+    EXACT_ELEMS emissive elements (`intersect_fn`, `first_hit` and
+    `extra_steps` are unused there), else the truncated march
+    (`area_lights_pdf_march`) through `intersect_fn` from `first_hit`;
+    plus the env-light pdfs."""
     L = counts.total
     if L == 0:
         return torch.zeros(position.shape[:-1], device=position.device)
-    if counts.total_inst_elems > EXACT_ELEMS:
-        raise NotImplementedError(
-            f"{counts.total_inst_elems} emissive elements > {EXACT_ELEMS}: "
-            "the truncated-march light pdf is not ported yet "
-            "(ROADMAP.md queue 1, item 2)"
-        )
-    pdf = area_lights_pdf_exact(lights, counts, position, direction)
+    if counts.total_inst_elems <= EXACT_ELEMS:
+        pdf = area_lights_pdf_exact(lights, counts, position, direction)
+    else:
+        if intersect_fn is None or first_hit is None:
+            raise ValueError(
+                f"{counts.total_inst_elems} emissive elements > "
+                f"{EXACT_ELEMS}: the light pdf marches, so it needs "
+                "intersect_fn and first_hit")
+        pdf = area_lights_pdf_march(lights, counts, intersect_fn, position,
+                                    direction, first_hit, extra_steps)
     if counts.n_env > 0:
         pdf = pdf + env_lights_pdf(scene, lights, counts, direction)
     return pdf * (1.0 / L)

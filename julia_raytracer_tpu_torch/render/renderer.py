@@ -17,8 +17,7 @@ sorted by pixel), so an adaptive render gives the same bits on every run
 on one device.
 
 Not ported: the multi-sample dispatch knobs of the JAX renderer (which
-change only how samples are batched into device programs) and
-`light_pdf_extra_steps` (ROADMAP.md queue 1, item 2).
+change only how samples are batched into device programs).
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from julia_raytracer_tpu_torch.ops.camera import CameraArrays, sample_camera
 from julia_raytracer_tpu_torch.render.integrator import (
     REGROUP_MIN_PRIMS, TraceOptions, build_intersector, trace_wavefront,
 )
+from julia_raytracer_tpu_torch.render.lights import auto_light_pdf_steps
 from julia_raytracer_tpu_torch.render.scene_device import (
     build_device_scene, resolve_device,
 )
@@ -45,8 +45,8 @@ SORT_MIN_PRIMS = 50_000
 
 @dataclass
 class Params:
-    """The reference CLI's flags and the JAX package's extras (its Params
-    minus `light_pdf_extra_steps`), then the port's own knobs."""
+    """The reference CLI's flags and the JAX package's extras (its Params),
+    then the port's own knobs."""
 
     scene: str = "scene.json"
     output: str = "out.png"
@@ -67,6 +67,9 @@ class Params:
     batch: int = 1
     bvhstacksize: int = 128  # kept for CLI parity; nothing reads it
     seed: int = 0
+    # march budget of the light pdf of scenes with more than
+    # lights.EXACT_ELEMS emissive elements; -1 = lights.auto_light_pdf_steps
+    light_pdf_extra_steps: int = -1
     # adaptive sampling: after `adaptive_warmup` uniform samples, each
     # batch draws its pixel lanes from the luminance-variance
     # distribution; per-pixel counts keep every pixel an exact mean of
@@ -290,6 +293,17 @@ def pixel_sums(sid, vals, n_pixels: int):
     return out[:n_pixels]
 
 
+def light_pdf_steps(params: Params, config) -> int:
+    """The light pdf's march budget: `params.light_pdf_extra_steps`, or
+    when it is -1 lights.auto_light_pdf_steps over the scene's light count
+    and whether a transparent, refractive, subsurface or volumetric
+    material (types 3-6) puts surfaces along light paths."""
+    if params.light_pdf_extra_steps >= 0:
+        return params.light_pdf_extra_steps
+    transmissive = bool(set(config.present_types) & {3, 4, 5, 6})
+    return auto_light_pdf_steps(config.light_counts.total, transmissive)
+
+
 class Renderer:
     """Owns the device scene, the intersector and the per-sample step.
     `device=None` means the card; pass device="cpu" for the CPU."""
@@ -315,6 +329,7 @@ class Renderer:
             bounces=params.bounces,
             envhidden=params.envhidden,
             nocaustics=params.nocaustics,
+            light_pdf_extra_steps=light_pdf_steps(params, self.config),
             sort_rays=sort_rays,
         )
         self.intersect = build_intersector(

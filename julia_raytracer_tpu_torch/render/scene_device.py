@@ -109,6 +109,16 @@ class DeviceScene(NamedTuple):
     #  scattering*3, scanisotropy, trdepth, opacity,
     #  emission_tex, color_tex, roughness_tex, scattering_tex, normal_tex]
     inst_mat_dense: torch.Tensor
+    # line/point primitives, world space (attr rows = [normal-or-tangent
+    # 3, texcoord 2, color 4]); empty-shaped when the scene has none
+    line_verts: torch.Tensor  # f32 [L, 2, 3]
+    line_radius: torch.Tensor  # f32 [L, 2]
+    line_instance: torch.Tensor  # i32 [L]
+    line_attr: torch.Tensor  # f32 [L, 2, 9]
+    point_pos: torch.Tensor  # f32 [P, 3]
+    point_radius: torch.Tensor  # f32 [P]
+    point_instance: torch.Tensor  # i32 [P]
+    point_attr: torch.Tensor  # f32 [P, 9]
 
 
 class SceneConfig(NamedTuple):
@@ -133,7 +143,7 @@ class SceneConfig(NamedTuple):
     # build_intersector makes the intersector's tables
     host_prim_verts: object = None
     host_prim_instance: object = None
-    # curve/point primitive counts (the port rejects scenes with any)
+    # line/point primitive counts
     n_lines: int = 0
     n_points: int = 0
     # two-level instancing (scene/instanced.py InstancedTables). When set,
@@ -227,6 +237,10 @@ def auto_hybrid_budget(flat) -> int:
             else HYBRID_FLAT_BUDGET)
 
 
+CURVE_FIELDS = ("line_verts", "line_radius", "line_instance", "line_attr",
+                "point_pos", "point_radius", "point_instance", "point_attr")
+
+
 def _scene_fields(flat, prim_verts, prim_vidx, prim_instance, prim_flags,
                   nodes, lights_np, light_counts, n_prims, root_is_leaf):
     """(arrays, config fields) of device_scene_from_numpy, shared by the
@@ -257,6 +271,7 @@ def _scene_fields(flat, prim_verts, prim_vidx, prim_instance, prim_flags,
         env_emission_tex=e.emission_tex,
         lights=lights_np,
         inst_mat_dense=_inst_mat_dense(g, m),
+        **{f: getattr(g, f) for f in CURVE_FIELDS},
     )
     config_fields = dict(
         n_prims=n_prims,
@@ -403,18 +418,19 @@ def device_scene_from_numpy(arrays: dict, config_fields: dict, device=None,
 
     `arrays` maps each DeviceScene field to a numpy array, and `materials`,
     `textures` and `lights` to dicts of their fields: what `np.asarray` of
-    each leaf of a JAX DeviceScene gives. Extra keys (the JAX package's
-    line/point arrays and kernel tables) must be empty. `config_fields`
-    maps SceneConfig field names to values; `light_counts` may be any
-    object with LightCounts' attributes. `host_prim_verts` and
-    `host_prim_instance` default to the arrays' own. An `inst_tables`
+    each leaf of a JAX DeviceScene gives, line and point arrays included.
+    Extra keys (the JAX package's kernel tables) must be empty.
+    `config_fields` maps SceneConfig field names to values; `light_counts`
+    may be any object with LightCounts' attributes. `host_prim_verts` and
+    `host_prim_instance` default to the arrays' own, `n_lines` and
+    `n_points` are the line and point arrays' lengths. An `inst_tables`
     of the JAX package's InstancedTables is copied into the port's."""
     device = resolve_device(device)
     for key, value in arrays.items():
         if key not in DeviceScene._fields and np.size(value):
-            raise NotImplementedError(
-                f"scene array {key} is not empty; line/point primitives "
-                "are not ported yet (ROADMAP.md queue 1, item 1)"
+            raise ValueError(
+                f"scene array {key} is not a DeviceScene field and is not "
+                "empty"
             )
 
     def put(a):
@@ -448,10 +464,6 @@ def device_scene_from_numpy(arrays: dict, config_fields: dict, device=None,
             f.name: getattr(tb, f.name)
             for f in dataclasses.fields(InstancedTables)
         })
-    config = SceneConfig(**fields)
-    if config.n_lines or config.n_points:
-        raise NotImplementedError(
-            "line/point primitives are not ported yet (ROADMAP.md queue 1, "
-            "item 1)"
-        )
-    return dscene, config
+    fields["n_lines"] = int(dscene.line_instance.shape[0])
+    fields["n_points"] = int(dscene.point_instance.shape[0])
+    return dscene, SceneConfig(**fields)

@@ -11,8 +11,10 @@ treats its triangle/quad duality. Vertex attributes stay in object
 space, concatenated across shapes and indexed by global vertex ids per
 primitive.
 
-Not ported yet (they raise NotImplementedError, see ROADMAP.md):
-line/point primitives.
+Line and point (capsule) primitives are expanded to world space into
+their own arrays (`line_*`, `point_*`), each end carrying its
+(tangent-or-normal, texcoord, colour) row, in expanded mode only; with
+`expand_prims=False` those arrays are empty, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +58,16 @@ class FlatGeometry:
     shape_vert_offset: np.ndarray  # i64 [S+1] into concatenated vertex arrays
     # instanced mode only: per-shape prim bounds into the prim arrays
     shape_prim_offset: np.ndarray = None  # i64 [S+1] (None when expanded)
+    # line/point primitives, world space, expanded mode only. Each line
+    # end / point carries (tangent-or-normal[3], texcoord[2], color[4])
+    line_verts: np.ndarray = None  # f32 [L, 2, 3]
+    line_radius: np.ndarray = None  # f32 [L, 2]
+    line_instance: np.ndarray = None  # i32 [L]
+    line_attr: np.ndarray = None  # f32 [L, 2, 9]
+    point_pos: np.ndarray = None  # f32 [P, 3]
+    point_radius: np.ndarray = None  # f32 [P]
+    point_instance: np.ndarray = None  # i32 [P]
+    point_attr: np.ndarray = None  # f32 [P, 9]
 
 
 @dataclass
@@ -116,16 +128,74 @@ def _shape_prims(shape) -> tuple[np.ndarray, bool]:
     return np.zeros((0, 4), np.int64), False
 
 
+def _curve_arrays(instances, shapes) -> dict:
+    """World-space line and point arrays of `instances`. The world
+    radius is the shape's (0.001 where it has none) times the mean length
+    of the frame's basis vectors; shapes without normals carry the
+    segment's tangent (lines) or +z (points) in the attribute rows."""
+    S = len(shapes)
+    lv, lr, li_, la, pp, pr, pi_, pa = [], [], [], [], [], [], [], []
+    for i, inst in enumerate(instances):
+        if inst.shape == INVALID_ID or inst.shape >= S:
+            continue
+        shape = shapes[inst.shape]
+        if len(shape.lines) == 0 and len(shape.points) == 0:
+            continue
+        rot, org = inst.frame[:3], inst.frame[3]
+        rscale = float(np.linalg.norm(rot, axis=1).mean())
+        n_verts = len(shape.positions)
+        has_n = len(shape.normals) == n_verts and n_verts > 0
+        has_tc = len(shape.texcoords) == n_verts and n_verts > 0
+        has_c = len(shape.colors) == n_verts and n_verts > 0
+        radius = (shape.radius if len(shape.radius) == n_verts
+                  else np.full(n_verts, 0.001, np.float32))
+
+        def end_attr(vid):
+            a = np.zeros((len(vid), 9), np.float32)
+            if has_n:
+                a[:, 0:3] = shape.normals[vid] @ rot  # transform_normal
+            a[:, 3:5] = shape.texcoords[vid] if has_tc else 0.0
+            a[:, 5:9] = shape.colors[vid] if has_c else 1.0
+            return a
+
+        if len(shape.lines):
+            l_ = shape.lines.astype(np.int64)
+            w = shape.positions[l_.reshape(-1)].reshape(-1, 2, 3) @ rot + org
+            a0, a1 = end_attr(l_[:, 0]), end_attr(l_[:, 1])
+            if not has_n:
+                tan = w[:, 1] - w[:, 0]
+                tan = tan / np.maximum(
+                    np.linalg.norm(tan, axis=1, keepdims=True), 1e-12)
+                a0[:, 0:3] = tan
+                a1[:, 0:3] = tan
+            lv.append(w.astype(np.float32))
+            lr.append((radius[l_] * rscale).astype(np.float32).reshape(-1, 2))
+            li_.append(np.full(len(l_), i, np.int32))
+            la.append(np.stack([a0, a1], axis=1))
+        if len(shape.points):
+            p_ = shape.points.astype(np.int64).reshape(-1)
+            ap = end_attr(p_)
+            if not has_n:
+                ap[:, 0:3] = np.array([0.0, 0.0, 1.0], np.float32)
+            pp.append((shape.positions[p_] @ rot + org).astype(np.float32))
+            pr.append((radius[p_] * rscale).astype(np.float32))
+            pi_.append(np.full(len(p_), i, np.int32))
+            pa.append(ap)
+
+    def cat(parts, empty_shape, dtype=np.float32):
+        return (np.concatenate(parts, axis=0) if parts
+                else np.zeros(empty_shape, dtype))
+
+    return dict(
+        line_verts=cat(lv, (0, 2, 3)), line_radius=cat(lr, (0, 2)),
+        line_instance=cat(li_, (0,), np.int32), line_attr=cat(la, (0, 2, 9)),
+        point_pos=cat(pp, (0, 3)), point_radius=cat(pr, (0,)),
+        point_instance=cat(pi_, (0,), np.int32), point_attr=cat(pa, (0, 9)),
+    )
+
+
 def flatten_scene(scene: SceneData, expand_prims: bool = True) -> FlatScene:
     S = len(scene.shapes)
-    for inst in scene.instances:
-        if 0 <= inst.shape < S:
-            shape = scene.shapes[inst.shape]
-            if len(shape.lines) or len(shape.points):
-                raise NotImplementedError(
-                    "line and point primitives are not ported yet "
-                    "(ROADMAP.md queue 1, item 1)"
-                )
     shape_quads = []
     shape_is_tri = np.zeros(S, bool)
     vert_offset = np.zeros(S + 1, np.int64)
@@ -196,6 +266,10 @@ def flatten_scene(scene: SceneData, expand_prims: bool = True) -> FlatScene:
         pel.append(np.arange(len(quads), dtype=np.int32))
         pfl.append(np.full(len(quads), flags, np.int32))
 
+    # lines and points: expanded mode only (empty arrays otherwise)
+    curves = _curve_arrays(scene.instances if expand_prims else [],
+                           scene.shapes)
+
     shape_prim_offset = None
     if not expand_prims:
         # instanced mode: each shape's prims once, in shape space
@@ -240,6 +314,7 @@ def flatten_scene(scene: SceneData, expand_prims: bool = True) -> FlatScene:
         inst_shape=inst_shape,
         shape_vert_offset=vert_offset.astype(np.int64),
         shape_prim_offset=shape_prim_offset,
+        **curves,
     )
 
     M = len(scene.materials)

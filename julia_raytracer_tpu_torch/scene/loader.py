@@ -10,10 +10,10 @@ eye, center, up) overrides `frame` (12 floats, row-major x/y/z/o rows).
 Textures and shapes load on a thread pool. Images decode through the
 port's own numpy codecs (utils/imgio.py), which need no image library.
 
-Not ported (see ROADMAP.md): subdivision-surface tessellation. The JAX
-package tessellates a subdiv's control cage by default only when the
-shape's PLY is empty and the cage OBJ exists; the port raises
-NotImplementedError there, and it reads no JRT_TESSELLATE.
+Subdivision cages (scene/subdiv.py) replace their shapes where the
+shape's PLY is empty and the Catmull-Clark cage OBJ exists, and for
+every subdiv under `load_scene(tessellate=True)` (the JAX package's
+JRT_TESSELLATE=1).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.scene import ply
+from julia_raytracer_tpu_torch.scene.subdiv import tessellate_subdiv
 from julia_raytracer_tpu_torch.scene.types import (
     INVALID_ID,
     MATERIAL_TYPES,
@@ -206,8 +207,11 @@ def load_shape(path: str) -> ShapeData:
     return shape
 
 
-def load_scene(filename: str, parallel: bool = True) -> SceneData:
-    """JSON scene + referenced PLY/PNG/HDR assets -> SceneData."""
+def load_scene(filename: str, parallel: bool = True,
+               tessellate: bool = False) -> SceneData:
+    """JSON scene + referenced PLY/PNG/HDR assets -> SceneData.
+    `tessellate`: tessellate every subdiv cage, not only those of empty
+    shapes."""
     scene_dir = os.path.dirname(filename)
     with open(filename) as f:
         j = json.load(f)
@@ -240,23 +244,48 @@ def load_scene(filename: str, parallel: bool = True) -> SceneData:
     else:
         scene.textures = [load_texture(u) for u in tex_uris]
         scene.shapes = [load_shape(u) for u in shp_uris]
-    _refuse_tessellation(scene)
+    _apply_subdivs(scene, tessellate)
     return scene
 
 
-def _refuse_tessellation(scene: SceneData) -> None:
-    """Raise where the JAX package would tessellate a subdiv cage by
-    default: an empty shape whose Catmull-Clark cage OBJ exists."""
+def _apply_subdivs(scene: SceneData, force: bool) -> None:
+    """Tessellate subdiv control cages (scene/subdiv.py) into the shapes
+    they reference: every Catmull-Clark cage whose OBJ exists when
+    `force`, else only those of empty shapes. A failed tessellation
+    leaves its shape as it was, with a warning."""
     for sd in scene.subdivs:
         if not (0 <= sd.shape < len(scene.shapes)) or not sd.uri:
             continue
-        if (len(scene.shapes[sd.shape].positions) == 0 and sd.catmullclark
-                and os.path.exists(sd.uri)):
-            raise NotImplementedError(
-                f"shape {sd.shape} is empty and needs its subdivision cage "
-                f"{sd.uri} tessellated, which is not ported yet (ROADMAP.md "
-                "queue 1, item 3)"
+        shape = scene.shapes[sd.shape]
+        if not (force or len(shape.positions) == 0):
+            continue
+        if not os.path.exists(sd.uri) or not sd.catmullclark:
+            continue
+        disp_tex = None
+        if (sd.displacement != 0.0
+                and 0 <= sd.displacement_tex < len(scene.textures)):
+            disp_tex = scene.textures[sd.displacement_tex]
+        try:
+            pos, quads, normals, texcoords = tessellate_subdiv(
+                sd.uri, sd.subdivisions, sd.smooth,
+                displacement=sd.displacement, disp_tex=disp_tex,
             )
+        except Exception as e:
+            print(f"warning: subdiv tessellation failed for {sd.uri}: {e}",
+                  file=sys.stderr)
+            continue
+        if len(shape.texcoords) and texcoords is None:
+            print(f"warning: subdiv cage {sd.uri} has no texcoords; the "
+                  "tessellated shape loses its UVs", file=sys.stderr)
+        shape.positions = pos
+        shape.quads = quads
+        shape.triangles = np.zeros((0, 3), np.int32)
+        shape.normals = (normals if normals is not None
+                         else np.zeros((0, 3), np.float32))
+        # texcoords are already in the internal (flipped-v) convention
+        shape.texcoords = (texcoords if texcoords is not None
+                           else np.zeros((0, 2), np.float32))
+        shape.colors = np.zeros((0, 4), np.float32)
 
 
 def find_camera(scene: SceneData, name: str) -> int:

@@ -9,7 +9,11 @@ the same room holding a grid of UV spheres, 102,406 quads at the default
 size (classroom scale), which takes the worklist cluster intersector.
 `instanced_scene()` and `hybrid_scene()` are the instanced paths': shared
 sphere meshes instanced thousands of times, which take the two-level
-build (pure, and hybrid with a flattened soup).
+build (pure, and hybrid with a flattened soup). `hairball_scene()` puts
+line and point primitives in the Cornell box; `many_lights_scene()`
+lights the room with more emissive quads than the exact light pdf takes,
+so its pdf marches; `write_cube_cage()` and `write_yocto_scene` give a
+written scene whose shape is a subdivision cage.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from julia_raytracer_tpu_torch.render.renderer import (
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.scene.types import (
     MATERIAL_TYPES, CameraData, InstanceData, MaterialData, MaterialType,
-    SceneData, ShapeData,
+    SceneData, ShapeData, SubdivData,
 )
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 
@@ -443,6 +447,150 @@ def sphere_grid_scene(grid: int = 5, segments: int = 64,
     )
 
 
+HAIR_CENTER = (0.05, 1.05, 0.25)
+
+
+def hairball_scene(n_hairs: int = 1024, segments: int = 4,
+                   n_points: int = 256, seed: int = 5) -> SceneData:
+    """The Cornell box with a ball of hairs floating in its middle:
+    n_hairs tapered polylines of `segments` segments each (n_hairs x
+    segments lines), rooted on a sphere of radius 0.16 about HAIR_CENTER,
+    0.2-0.3 long with a seeded random bend, radius 0.012 at the root to
+    0.003 at the tip, per-vertex texcoords (along the hair, hair index)
+    and colours (dark root, light tip); and n_points radius-points
+    (radius 0.01-0.03, per-point colours) on a shell of radius 0.5 about
+    the ball. No normals: lines carry their tangents. 1,024 hairs x 4
+    segments: 4,096 lines; with 256 points, 4,352 curve primitives over
+    the box's 18 quads, so the quads take the dense intersector."""
+    g = np.random.default_rng(seed)
+    d = g.normal(size=(n_hairs, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    bend = g.normal(size=(n_hairs, 3)) * 0.08
+    length = g.uniform(0.2, 0.3, (n_hairs, 1))
+    f = np.linspace(0.0, 1.0, segments + 1)  # fraction along the hair
+    pos = (np.asarray(HAIR_CENTER) + d[:, None] * 0.16
+           + d[:, None] * length[:, None] * f[None, :, None]
+           + bend[:, None] * (f * f)[None, :, None])  # [H, S+1, 3]
+    nv = segments + 1
+    base = np.arange(n_hairs)[:, None] * nv + np.arange(segments)[None, :]
+    lines = np.stack([base, base + 1], axis=-1).reshape(-1, 2)
+    texcoords = np.stack(np.broadcast_arrays(
+        f[None, :], (np.arange(n_hairs) / max(n_hairs, 1))[:, None]), axis=-1)
+    root, tip = np.array([0.25, 0.12, 0.05, 1.0]), np.array([0.9, 0.75, 0.5, 1.0])
+    colors = root + (tip - root) * f[None, :, None]
+    colors = np.broadcast_to(colors, (n_hairs, nv, 4))
+    radius = np.broadcast_to(0.012 - 0.009 * f, (n_hairs, nv))
+    hair = ShapeData(
+        lines=lines.astype(np.int32), positions=_f32(pos.reshape(-1, 3)),
+        texcoords=_f32(texcoords.reshape(-1, 2)),
+        colors=_f32(colors.reshape(-1, 4)), radius=_f32(radius.reshape(-1)))
+    pd = g.normal(size=(n_points, 3))
+    pd /= np.linalg.norm(pd, axis=1, keepdims=True)
+    points = ShapeData(
+        points=np.arange(n_points, dtype=np.int32),
+        positions=_f32(np.asarray(HAIR_CENTER) + pd * 0.5),
+        colors=_f32(np.concatenate([g.uniform(0.2, 1.0, (n_points, 3)),
+                                    np.ones((n_points, 1))], axis=1)),
+        radius=_f32(g.uniform(0.01, 0.03, n_points)))
+    scene = cornell_scene()
+    scene.shapes += [hair, points]
+    scene.materials += [
+        MaterialData(color=_f32((0.9, 0.8, 0.7))),
+        MaterialData(type=MaterialType.GLOSSY, color=_f32((0.8, 0.8, 0.8)),
+                     roughness=0.2),
+    ]
+    n_shapes, n_mats = len(scene.shapes), len(scene.materials)
+    scene.instances += [
+        InstanceData(shape=n_shapes - 2, material=n_mats - 2),
+        InstanceData(shape=n_shapes - 1, material=n_mats - 1),
+    ]
+    return scene
+
+
+def many_lights_scene(panel=(64, 80), segments: int = 16) -> SceneData:
+    """The Cornell room (walls, no boxes) lit by a panel of panel[0] x
+    panel[1] small emissive quads just under the ceiling in place of its
+    single light (one shape, so one light; each quad 80% of its cell of
+    the 1.0 x 0.8 panel), with three UV spheres of segments x segments
+    quads as occluders. (64, 80): 5,120 emissive quads, over the exact
+    light pdf's EXACT_ELEMS (4,096), so the pdf marches; 5,893 quads in
+    all, over the dense intersector's 112 and under the renderer's sort
+    threshold (50,000): the worklist intersector with unsorted
+    compaction."""
+    nx, nz = panel
+    x0 = -0.5 + np.arange(nx) / nx
+    z0 = -0.4 + 0.8 * np.arange(nz) / nz
+    cx, cz = 0.8 / nx, 0.8 * 0.8 / nz
+    xa, za = np.meshgrid(x0, z0, indexing="ij")
+    xa, za = xa.reshape(-1), za.reshape(-1)
+    y = np.full_like(xa, 1.99)
+    corners = np.stack([
+        np.stack([xa, y, za], -1), np.stack([xa + cx, y, za], -1),
+        np.stack([xa + cx, y, za + cz], -1), np.stack([xa, y, za + cz], -1),
+    ], axis=1)
+    white_walls, left, right, _ = _room()
+    shapes = [white_walls, left, right, _quads(corners),
+              uv_sphere(1.0, segments)]
+    materials = _sphere_materials()
+    materials[3] = MaterialData(emission=_f32(np.asarray(LIGHT) * 0.4))
+    instances = [InstanceData(shape=i, material=i) for i in range(4)]
+    for k, (x, z, r) in enumerate(((-0.45, -0.2, 0.3), (0.4, 0.1, 0.25),
+                                   (0.0, 0.45, 0.2))):
+        frame = np.eye(4, 3, dtype=np.float32) * r
+        frame[3] = (x, r, z)
+        instances.append(InstanceData(frame=frame, shape=4, material=4 + k))
+    return SceneData(cameras=[_camera()], instances=instances, shapes=shapes,
+                     materials=materials)
+
+
+def write_cube_cage(path, center=(0.0, 0.0, 0.0), half: float = 0.5,
+                    texcoords: bool = False) -> str:
+    """Write a cube's Catmull-Clark control cage as an OBJ: 8 vertices and
+    6 outward-wound quads of half-width `half` about `center`; with
+    `texcoords`, face-varying texcoords (each face its own UV island, so
+    the cage has UV seams). Returns `path`."""
+    c, h = np.asarray(center, np.float64), half
+    corners = [c + h * np.array(v) for v in (
+        (-1, -1, -1), (1, -1, -1), (1, 1, -1), (-1, 1, -1),
+        (-1, -1, 1), (1, -1, 1), (1, 1, 1), (-1, 1, 1))]
+    faces = ((1, 4, 3, 2), (5, 6, 7, 8), (1, 2, 6, 5), (2, 3, 7, 6),
+             (3, 4, 8, 7), (4, 1, 5, 8))
+    lines = [f"v {p[0]:.9g} {p[1]:.9g} {p[2]:.9g}" for p in corners]
+    if texcoords:
+        for k in range(len(faces)):
+            u0 = k / len(faces)
+            u1 = (k + 0.9) / len(faces)
+            lines += [f"vt {u0:.9g} 0", f"vt {u1:.9g} 0", f"vt {u1:.9g} 1",
+                      f"vt {u0:.9g} 1"]
+        lines += ["f " + " ".join(f"{v}/{4 * k + j + 1}" for j, v in enumerate(f))
+                  for k, f in enumerate(faces)]
+    else:
+        lines += ["f " + " ".join(str(v) for v in f) for f in faces]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return str(path)
+
+
+def subdiv_cube_scene(cage_path: str, levels: int = 4) -> SceneData:
+    """The Cornell box with a subdivided cube floating above the boxes:
+    the cube's shape is empty and a subdiv entry asks for its cage at
+    `cage_path` (write_cube_cage) at `levels` levels of Catmull-Clark
+    (6 x 4^levels quads: 1,536 at 4). Written by write_yocto_scene, the
+    shape's PLY is empty, so both packages' loaders tessellate the cage
+    by default."""
+    scene = cornell_scene()
+    scene.shapes.append(ShapeData())
+    scene.materials.append(MaterialData(type=MaterialType.GLOSSY,
+                                        color=_f32((0.3, 0.5, 0.8)),
+                                        roughness=0.25))
+    scene.instances.append(InstanceData(shape=len(scene.shapes) - 1,
+                                        material=len(scene.materials) - 1))
+    scene.subdivs.append(SubdivData(subdivisions=levels,
+                                    shape=len(scene.shapes) - 1,
+                                    uri=str(cage_path)))
+    return scene
+
+
 def heavy_scene() -> SceneData:
     """The heavy-scene path's scene: sphere_grid_scene(10, 124, radius=0.07),
     100 * 15,376 + 6 = 1,537,606 quads (the corpus kitchen's scale, 1.44M).
@@ -600,17 +748,17 @@ def write_yocto_scene(scene: SceneData, directory) -> str:
     """Write an in-code scene as a Yocto JSON scene in `directory`:
     scene.json, shapes/shape<i>.ply (binary PLY) and textures/
     texture<i>.png (through save_png, which stores a byte texture's
-    pixels exactly). Both packages' load_scene read it back field for
-    field, texcoords up to the rounding of the loader's v flip. Linear
-    (HDR) textures and subdivs are refused: nothing here writes them.
-    Returns the path of scene.json."""
+    pixels exactly), and each subdiv's cage (its `uri`, an OBJ file) copied
+    to subdivs/subdiv<i>.obj. Both packages' load_scene read it back field
+    for field, texcoords up to the rounding of the loader's v flip. Linear
+    (HDR) textures are refused: nothing here writes them. Returns the
+    path of scene.json."""
     import json
     import os
+    import shutil
 
     from julia_raytracer_tpu_torch.utils.imgio import save_png
 
-    if scene.subdivs:
-        raise ValueError("write_yocto_scene does not write subdivs")
     os.makedirs(os.path.join(directory, "shapes"), exist_ok=True)
     os.makedirs(os.path.join(directory, "textures"), exist_ok=True)
 
@@ -631,6 +779,18 @@ def write_yocto_scene(scene: SceneData, directory) -> str:
         with open(os.path.join(directory, uri), "wb") as f:
             f.write(_ply_bytes(shape))
         shapes.append({"uri": uri})
+    subdivs = []
+    for i, sd in enumerate(scene.subdivs):
+        uri = f"subdivs/subdiv{i}.obj"
+        os.makedirs(os.path.join(directory, "subdivs"), exist_ok=True)
+        shutil.copyfile(sd.uri, os.path.join(directory, uri))
+        subdivs.append({
+            "uri": uri, "shape": int(sd.shape),
+            "subdivisions": int(sd.subdivisions),
+            "catmullclark": bool(sd.catmullclark), "smooth": bool(sd.smooth),
+            "displacement": float(sd.displacement),
+            "displacement_tex": int(sd.displacement_tex),
+        })
     doc = {
         "asset": {"generator": "julia_raytracer_tpu_torch.testing"},
         "cameras": [{
@@ -659,6 +819,7 @@ def write_yocto_scene(scene: SceneData, directory) -> str:
                           "emission": floats(e.emission),
                           "emission_tex": int(e.emission_tex)}
                          for e in scene.environments],
+        "subdivs": subdivs,
     }
     path = os.path.join(directory, "scene.json")
     with open(path, "w") as f:

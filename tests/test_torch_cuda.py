@@ -19,15 +19,16 @@ from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
 from julia_raytracer_tpu_torch.render import diff as tdiff
+from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.testing import (
     adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
-    cornell_scene, dense_soup, grads_close, hybrid_scene, image_close,
-    instanced_scene, param_grads, regroup_bits, render_instanced,
-    sphere_grid_scene,
+    cornell_scene, dense_soup, grads_close, hairball_scene, hybrid_scene,
+    image_close, instanced_scene, many_lights_scene, param_grads,
+    regroup_bits, render_instanced, sphere_grid_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -566,3 +567,41 @@ def test_diff_grads_on_card_match_cpu(dev):
     np.testing.assert_allclose(card[0], cpu[0], rtol=1e-3)
     for got, want in zip(card[1:], cpu[1:]):
         grads_close(got, want)
+
+
+def test_hairball_render_on_card_matches_cpu(dev):
+    """Lines and points (render/integrator.py curve_wrap's sweep, on the
+    card) around the dense kernel, against the CPU."""
+    scene = hairball_scene(200, 3, 24)
+    params = Params(resolution=32, samples=2, batch=2, bounces=4, seed=1)
+    images = []
+    di.dense_intersect.launches = 0
+    for device in (dev, "cpu"):
+        r = Renderer(scene, params, device=device)
+        st = make_trace_state(scene, params, device=device)
+        r.trace_samples(st)
+        images.append(r.get_image(st))
+    assert di.dense_intersect.launches > 0
+    assert r.config.n_lines == 600 and r.config.n_points == 24
+    image_close(*images)
+
+
+def test_many_lights_march_on_card_matches_cpu(dev):
+    """The truncated-march light pdf (4,160 emissive quads) through the
+    worklist kernel: one launch a sample for the camera rays and
+    1 + steps a loop body; the image against the CPU's."""
+    scene = many_lights_scene((64, 65))
+    params = Params(resolution=32, samples=1, batch=1, bounces=3, seed=1)
+    r = Renderer(scene, params, device=dev)
+    steps = r.options.light_pdf_extra_steps
+    assert steps == 4
+    st = make_trace_state(scene, params, device=dev)
+    wl.worklist_intersect_kernel.launches = 0
+    bodies = tint.trace_wavefront.bodies
+    r.trace_samples(st)
+    bodies = tint.trace_wavefront.bodies - bodies
+    assert wl.worklist_intersect_kernel.launches == 1 + bodies * (1 + steps)
+    rc = Renderer(scene, params, device="cpu")
+    stc = make_trace_state(scene, params, device="cpu")
+    rc.trace_samples(stc)
+    image_close(r.get_image(st), rc.get_image(stc))

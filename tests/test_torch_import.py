@@ -5,8 +5,9 @@ of julia_raytracer_tpu_torch (and chip_smoke.py) imports, the modules of
 every ported path among them (the heavy-scene path's regroup_intersect and
 kernel_select, the instanced path's scene/instanced.py and
 instanced_intersect, the cluster intersectors, the CLI with its
-denoiser, augmentation, image codecs and timing, and the differentiable
-path with its multi-process train step), and no module of those
+denoiser, augmentation, image codecs and timing, the differentiable
+path with its multi-process train step, and the numpy copies of the
+subdivision tessellator and its OBJ reader), and no module of those
 names is loaded. Source scans reject any import of the JAX ones, and of
 PIL or cv2, in the package and in chip_smoke.py."""
 
@@ -62,6 +63,8 @@ REQUIRED = {
     "julia_raytracer_tpu_torch.ops.diff_hit",
     "julia_raytracer_tpu_torch.parallel.mesh",
     "julia_raytracer_tpu_torch.parallel.distributed",
+    "julia_raytracer_tpu_torch.scene.subdiv",
+    "julia_raytracer_tpu_torch.scene.objio",
 }
 
 

@@ -135,8 +135,9 @@ def test_loaded_scene_renders_on_cpu(tmp_path):
 
 
 def test_tessellation_is_refused(tmp_path):
-    """Where the JAX package would tessellate by default (an empty shape
-    whose subdivision cage exists), the port raises."""
+    """Where the JAX package tessellates by default (an empty shape whose
+    subdivision cage exists), the port now tessellates too, as the JAX
+    loader does; without the cage the shape stays empty."""
     path = _write_scene(tmp_path)
     j = json.loads(path.read_text())
     (tmp_path / "empty.ply").write_text(
@@ -147,8 +148,12 @@ def test_tessellation_is_refused(tmp_path):
     j["shapes"].append({"uri": "empty.ply"})
     j["subdivs"] = [{"shape": 2, "uri": "cage.obj", "subdivisions": 1}]
     path.write_text(json.dumps(j))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_scene(str(path))
+    got = load_scene(str(path))
+    want = jax_load_scene(str(path))
+    assert got.shapes[2].quads.shape == (4, 4)
+    np.testing.assert_array_equal(got.shapes[2].positions,
+                                  want.shapes[2].positions)
+    np.testing.assert_array_equal(got.shapes[2].quads, want.shapes[2].quads)
     j["subdivs"][0]["uri"] = "missing.obj"  # no cage: nothing to tessellate
     path.write_text(json.dumps(j))
     assert len(load_scene(str(path)).shapes[2].positions) == 0

@@ -2,8 +2,7 @@
 package's: the port's own copy of the BVH builder (same `order` and
 `nodes`), flatten_scene, the BVH-sorted prim arrays and build_lights_np
 on the in-code Cornell box and sphere grid; device_scene_from_numpy
-round-trips a JAX DeviceScene; scenes outside the slice raise
-NotImplementedError."""
+round-trips a JAX DeviceScene, line arrays included."""
 
 import dataclasses
 
@@ -136,16 +135,27 @@ def test_device_scene_from_numpy_round_trip():
 
 
 def test_unported_scenes_raise():
+    """Lines and points now build in both modes (the instanced build
+    leaves their arrays empty, as the JAX package's does), and
+    device_scene_from_numpy carries a JAX scene's line arrays; what still
+    raises is a non-empty array that is no DeviceScene field."""
     s = cornell_scene()
     s.shapes.append(ShapeData(lines=np.array([[0, 1]], np.int32),
                               positions=np.zeros((2, 3), np.float32)))
     s.instances.append(InstanceData(shape=len(s.shapes) - 1, material=0))
-    with pytest.raises(NotImplementedError):
-        build_device_scene(s, device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_device_scene(s, instancing=True, device="cpu")
+    d, cfg = build_device_scene(s, device="cpu")
+    assert (cfg.n_lines, cfg.n_points) == (1, 0)
+    assert tuple(d.line_verts.shape) == (1, 2, 3)
+    d, cfg = build_device_scene(s, instancing=True, device="cpu")
+    assert (cfg.n_lines, tuple(d.line_verts.shape)) == (0, (0, 2, 3))
+    fields = jax_config_fields(jax_build_device_scene(cornell_scene_jax())[1])
     arrays = jax_scene_arrays(jax_build_device_scene(cornell_scene_jax())[0])
     arrays["line_verts"] = np.zeros((1, 2, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        device_scene_from_numpy(arrays, jax_config_fields(
-            jax_build_device_scene(cornell_scene_jax())[1]), device="cpu")
+    arrays["line_radius"] = np.zeros((1, 2), np.float32)
+    arrays["line_instance"] = np.zeros(1, np.int32)
+    arrays["line_attr"] = np.zeros((1, 2, 9), np.float32)
+    _, cfg = device_scene_from_numpy(arrays, fields, device="cpu")
+    assert cfg.n_lines == 1
+    arrays["isec_tables"] = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match="isec_tables"):
+        device_scene_from_numpy(arrays, fields, device="cpu")
