@@ -52,9 +52,23 @@ shard_train_step steps at 512 x 512, 8 bounces, on a one-process NCCL
 group (a file:// store in a temporary directory), start from perturbed
 colours against a target rendered at the true ones and must lower the
 loss, each step launching the dense kernel once for the camera rays, once
-a bounce and once more in each bounce's recompute; one gradient on the
-sphere grid (102,406 quads, the worklist kernel) at 128 x 128 meets the
-CPU's. It prints a `diff:` line.
+a bounce and once more in each bounce's recompute, the material gathers'
+backward (ops/row_gather.py, bit-equal across two calls, timed against
+ATen's index backward and index_add_) absent from the backward's largest
+device activities; one gradient on the sphere grid (102,406 quads, the
+worklist kernel) at 128 x 128 meets the CPU's. It prints a `diff:` line.
+Then the diff_instanced phase drives the differentiable path on the
+instanced and hybrid scenes (the instanced re-test over the cull and the
+work-item kernel, the hybrid's soup over the worklist kernel): their
+fixed-trip renders at 512 x 512, 8 bounces, equal the unsorted while
+loop's bit for bit; colour, emission and shape-space vertex gradients
+on two reduced scenes on the card meet the CPU's; five train steps on
+instanced_scene() lower the loss, each launching the work-item kernel
+and the cull once for the camera rays, once a bounce and once more in
+each recompute, with the kernels' device ms a launch on these unsorted
+rays; one step on hybrid_scene(); and the instanced intersector returns
+the same bits twice on unsorted bounce rays. It prints a
+`diff_instanced:` line.
 Then the scene_content phase renders the scene content the earlier paths
 do not reach, each at 512 x 512 and 8 bounces with the launch counters
 zeroed just before: (a) testing.hairball_scene() (the Cornell box with
@@ -115,6 +129,7 @@ from julia_raytracer_tpu_torch.parallel.distributed import init_distributed
 from julia_raytracer_tpu_torch.parallel.mesh import make_mesh, shard_train_step
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
+from julia_raytracer_tpu_torch.ops import row_gather as rgat
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render.integrator import (
     _host_prims, _sort_key, merge_curves, sort_bounds, trace_wavefront,
@@ -138,7 +153,7 @@ from julia_raytracer_tpu_torch.testing import (
     cornell_scene, grads_close, hairball_scene, heavy_scene, hybrid_scene,
     image_close, instanced_scene, many_lights_scene, param_grads,
     render_instanced, require, sphere_grid_scene, subdiv_cube_scene,
-    write_cube_cage, write_yocto_scene,
+    vertex_grads, write_cube_cage, write_yocto_scene,
 )
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
@@ -1681,17 +1696,155 @@ def phase_cli(dev, cornell_mpaths: float) -> dict:
 # file): rows 1, 4, 5, 8, 9 and 10 through that tree's own wrappers, each
 # result held to this tree's plain version bit for bit, then their device
 # times (device_ms; rows 4 and 5 over CLUSTER_REPS launches).
-def _profile_once(fn) -> tuple[float, list]:
+def _profile_once(fn) -> tuple[float, list, dict]:
     """Device time of one call of fn (torch.profiler's device activities,
-    summed) and its five largest device activities ([name, ms, count])."""
+    summed), its five largest device activities ([name, ms, count]) and
+    every activity ({name: [ms, count]})."""
     by_name = _device_activities(fn, 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return (sum(ms for ms, _ in by_name.values()),
-            [[name[:80], ms, count] for name, (ms, count) in ranked])
+            [[name[:80], ms, count] for name, (ms, count) in ranked], by_name)
+
+
+def _activity(by_name: dict, key: str) -> dict:
+    """Device ms, count and ms a launch of the activities whose name holds
+    `key` (a kernel's __global__ name)."""
+    ms = sum(v[0] for name, v in by_name.items() if key in name)
+    count = sum(v[1] for name, v in by_name.items() if key in name)
+    return dict(ms=ms, launches=count, ms_per_launch=ms / max(count, 1))
+
+
+def _per_launch(prof: dict, kernels) -> dict:
+    """_activity of each (label, kernel name) of `kernels` in the forward
+    and the backward of a _profile_step result, whose activity tables it
+    takes out."""
+    acts = {"forward": prof.pop("forward_all"),
+            "backward": prof.pop("backward_all")}
+    return {f"{label}_{part}": _activity(acts[part], kernel)
+            for part in acts for label, kernel in kernels}
 
 
 def _launch_delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in _read_counts().items()}
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """A one-process NCCL group over a file:// store in a temporary
+    directory (one process on one host: the loopback interface is all
+    NCCL needs); destroyed on exit."""
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = tempfile.mkdtemp(prefix="chip_smoke_store")
+    init_distributed("nccl", f"file://{store}/store", world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _perturbed(mats, dev):
+    """The material colours moved by a seeded offset (lights kept)."""
+    g = np.random.default_rng(DIFF_SEED)
+    lit = (mats.emission.sum(dim=1) > 0)[:, None]
+    offset = torch.as_tensor(g.uniform(
+        -DIFF_COLOR_OFFSET, DIFF_COLOR_OFFSET, tuple(mats.color.shape)),
+        dtype=torch.float32, device=dev)
+    return torch.where(lit, mats.color, (mats.color + offset).clamp(0.01, 0.99))
+
+
+def _train_steps(step, color, emission, pix, target, n_steps, kernels, dev,
+                 label):
+    """n_steps of `step` from (color, emission): per step the loss, wall
+    ms, event ms (CUDA events around the step: the stream's span, its
+    idle gaps included; _profile_step gives the device's busy time), peak
+    memory (all allocations, and the step's own above what was allocated
+    before it) and the launches of `kernels`. Returns (steps, color,
+    emission)."""
+    steps = []
+    for _ in range(n_steps):
+        before = _read_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, color, emission = step(color, emission, pix, target, 1,
+                                     DIFF_SEED)
+        end.record()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        launched = _launch_delta(before)
+        steps.append(dict(
+            loss=float(loss), wall_ms=wall, event_ms=start.elapsed_time(end),
+            peak_mb=torch.cuda.max_memory_allocated(dev) / 2**20,
+            step_peak_mb=(torch.cuda.max_memory_allocated(dev) - base) / 2**20,
+            launches={k: launched[k] for k in kernels}))
+        log(f"{label} step {len(steps)}: {steps[-1]}")
+    return steps, color, emission
+
+
+def _profile_step(r, color, emission, pix, target) -> dict:
+    """One step's forward (make_param_loss) and backward device time and
+    activities by torch.profiler, apart."""
+    loss_fn = make_param_loss(r.dscene, r.config, r.options, r.cam_arrays,
+                              MAIN_RES, MAIN_RES)
+    c = color.detach().clone().requires_grad_()
+    e = emission.detach().clone().requires_grad_()
+    fwd_ms, fwd_top, fwd_all = _profile_once(
+        lambda: loss_fn(c, e, pix, target, 1, DIFF_SEED))
+    # the graph is kept, so a session taken again runs the same backward
+    value = loss_fn(c, e, pix, target, 1, DIFF_SEED)
+    bwd_ms, bwd_top, bwd_all = _profile_once(
+        lambda: value.backward(retain_graph=True))
+    return dict(forward_device_ms=fwd_ms, backward_device_ms=bwd_ms,
+                backward_forward_ratio=bwd_ms / fwd_ms, forward_top=fwd_top,
+                backward_top=bwd_top, forward_all=fwd_all,
+                backward_all=bwd_all)
+
+
+def gather_backward(dev, cornell) -> dict:
+    """The material gathers' backward (ops/row_gather.py) at the main
+    path's shapes: the Cornell box's 262,144 camera hits' material ids
+    onto its material rows, colour and emission lane gradients (6
+    columns). The one-hot product twice, bit for bit; its device ms
+    against ATen's backward of table[idx] (the sort-based index put the
+    port used before) and index_add_ (atomics, in no fixed order), and
+    their results within float32 rounding of a float64 sum."""
+    r = cornell
+    hit = r.intersect(*_primary_rays(r, dev))
+    mid = r.dscene.inst_material[hit.instance.clamp(min=0).long()]
+    rows = r.dscene.materials.color.shape[0]
+    g = torch.Generator(device=dev).manual_seed(DIFF_SEED)
+    grad = torch.randn((N_RAYS, 6), generator=g, device=dev)
+    got = [rgat.rows_sum_onehot(mid, grad, rows) for _ in range(2)]
+    require(torch.equal(got[0], got[1]),
+            "the one-hot material backward differs between two calls")
+    want = torch.zeros((rows, 6), dtype=torch.float64, device=dev).index_add_(
+        0, mid, grad.double())
+    table = torch.zeros((rows, 6), device=dev, requires_grad=True)
+
+    def aten():
+        table.grad = None
+        table[mid].backward(grad)
+        return table.grad
+
+    err = float(((got[0].double() - want).abs()
+                 / want.abs().clamp(min=1.0)).max())
+    require(err < 1e-5, f"the one-hot material backward is {err:.3g} off")
+    out = dict(lanes=N_RAYS, rows=rows, columns=6, rel_err=err,
+               onehot_ms=device_ms(lambda: rgat.rows_sum_onehot(mid, grad,
+                                                               rows)),
+               aten_index_backward_ms=profiled_ms(aten, reps=2),
+               index_add_ms=device_ms(lambda: torch.zeros(
+                   (rows, 6), device=dev).index_add_(0, mid, grad)))
+    log(f"diff: material-gather backward at {N_RAYS} lanes onto {rows} rows: "
+        f"{out}")
+    require(out["onehot_ms"] < 1.0,
+            f"the material-gather backward takes {out['onehot_ms']:.3f} ms")
+    return out
 
 
 def phase_diff(dev, cornell) -> tuple[dict, dict]:
@@ -1699,15 +1852,15 @@ def phase_diff(dev, cornell) -> tuple[dict, dict]:
     512 x 512, 8 bounces, against the while loop's (its lane compaction
     on), bit for bit; (b) the pixel loss's colour and emission gradients
     on the card against the CPU's at DIFF_CHECK_RES; (c) DIFF_STEPS
-    shard_train_step steps at 512 x 512 on a one-process NCCL group from
-    colours perturbed by a seeded offset, against the render at the true
-    colours with the same seed (so the loss is 0 at the truth): loss,
-    wall ms, device ms (CUDA events around the step), peak memory (all
-    allocations, and the step's own above what was allocated before it)
-    and dense launches a step (one sample a step), then one step's
-    forward and backward device time and largest device activities by
-    torch.profiler; (d) one gradient on the
-    sphere grid at DIFF_SPHERE_RES through the worklist kernel against the
+    shard_train_step steps at 512 x 512 (on the one-process NCCL group
+    the caller holds) from colours perturbed by a seeded offset, against
+    the render at the true colours with the same seed (so the loss is 0
+    at the truth): loss, wall and event ms, peak memory and dense
+    launches a step (one sample a step), then one step's forward and
+    backward device time and largest device activities by
+    torch.profiler, the material gathers' backward (gather_backward)
+    absent from the backward's largest; (d) one gradient on the sphere
+    grid at DIFF_SPHERE_RES through the worklist kernel against the
     CPU's. Returns (stats, the launches of (c) and (d), zeroed before)."""
     r = cornell
     opts = diff_options(r.options, r.config)
@@ -1750,84 +1903,45 @@ def phase_diff(dev, cornell) -> tuple[dict, dict]:
         seconds=time.perf_counter() - t0)
     log(f"diff (b): gradients card vs cpu: {out['grads_vs_cpu']}")
 
-    # (c) train steps on a one-process NCCL group
-    # one process on one host: the loopback interface is all NCCL needs
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    store = tempfile.mkdtemp(prefix="chip_smoke_store")
-    init_distributed("nccl", f"file://{store}/store", world_size=1, rank=0)
-    try:
-        mesh = make_mesh(dev)
-        step = shard_train_step(mesh, r.dscene, r.config, r.options,
-                                r.cam_arrays, MAIN_RES, MAIN_RES)
-        mats = r.dscene.materials
-        with torch.no_grad():
-            target = render_radiance(r.dscene, r.config, opts, *args,
-                                     intersect=step.intersect)
-        g = np.random.default_rng(DIFF_SEED)
-        lit = (mats.emission.sum(dim=1) > 0)[:, None]
-        offset = torch.as_tensor(g.uniform(
-            -DIFF_COLOR_OFFSET, DIFF_COLOR_OFFSET, tuple(mats.color.shape)),
-            dtype=torch.float32, device=dev)
-        color = torch.where(lit, mats.color,
-                            (mats.color + offset).clamp(0.01, 0.99))
-        emission = mats.emission
-        err0 = float((color - mats.color).abs().mean())
-        _zero_counts()
-        steps = []
-        for _ in range(DIFF_STEPS):
-            before = _read_counts()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            base = torch.cuda.memory_allocated(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            loss, color, emission = step(color, emission, pix, target, 1,
-                                         DIFF_SEED)
-            end.record()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-            launched = _launch_delta(before)
-            steps.append(dict(
-                loss=float(loss), wall_ms=wall,
-                device_ms=start.elapsed_time(end),
-                peak_mb=torch.cuda.max_memory_allocated(dev) / 2**20,
-                step_peak_mb=(torch.cuda.max_memory_allocated(dev) - base)
-                / 2**20,
-                dense_launches=launched["dense_intersect"]))
-            log(f"diff (c) step {len(steps)}: {steps[-1]}")
-        # one step's forward and backward apart, by the profiler
-        loss_fn = make_param_loss(r.dscene, r.config, r.options,
-                                  r.cam_arrays, MAIN_RES, MAIN_RES)
-        c = color.detach().clone().requires_grad_()
-        e = emission.detach().clone().requires_grad_()
-        fwd_ms, fwd_top = _profile_once(
-            lambda: loss_fn(c, e, pix, target, 1, DIFF_SEED))
-        # the graph is kept, so a session taken again runs the same
-        # backward
-        value = loss_fn(c, e, pix, target, 1, DIFF_SEED)
-        bwd_ms, bwd_top = _profile_once(
-            lambda: value.backward(retain_graph=True))
-    finally:
-        torch.distributed.destroy_process_group()
-        shutil.rmtree(store, ignore_errors=True)
+    # (c) train steps on the one-process NCCL group
+    out["gather_backward"] = gather_backward(dev, r)
+    step = shard_train_step(make_mesh(dev), r.dscene, r.config, r.options,
+                            r.cam_arrays, MAIN_RES, MAIN_RES)
+    mats = r.dscene.materials
+    with torch.no_grad():
+        target = render_radiance(r.dscene, r.config, opts, *args,
+                                 intersect=step.intersect)
+    color = _perturbed(mats, dev)
+    err0 = float((color - mats.color).abs().mean())
+    _zero_counts()
+    steps, color, emission = _train_steps(
+        step, color, mats.emission, pix, target, DIFF_STEPS,
+        ("dense_intersect",), dev, "diff (c)")
+    prof = _profile_step(r, color, emission, pix, target)
+    bwd_all = prof.pop("backward_all")
+    prof.pop("forward_all")
     out["train"] = dict(
-        steps=steps, forward_device_ms=fwd_ms, backward_device_ms=bwd_ms,
-        backward_forward_ratio=bwd_ms / fwd_ms, forward_top=fwd_top,
-        backward_top=bwd_top,
-        color_err_start=err0,
-        color_err_end=float((color - mats.color).abs().mean()))
-    log(f"diff (c): forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms device "
-        f"(ratio {bwd_ms / fwd_ms:.2f}); mean |colour - truth| {err0:.5f} -> "
+        steps=steps, **prof, color_err_start=err0,
+        color_err_end=float((color - mats.color).abs().mean()),
+        index_backward_ms=_activity(bwd_all, "indexing_backward")["ms"])
+    log(f"diff (c): forward {prof['forward_device_ms']:.2f} ms, backward "
+        f"{prof['backward_device_ms']:.2f} ms device (ratio "
+        f"{prof['backward_forward_ratio']:.2f}; with ATen's index-put "
+        f"backward it took 651-662 ms on an H100 80GB HBM3); mean |colour "
+        f"- truth| {err0:.5f} -> "
         f"{out['train']['color_err_end']:.5f}; backward's largest device "
-        f"activities {bwd_top}")
+        f"activities {prof['backward_top']}")
     require(all(math.isfinite(st["loss"]) for st in steps), "non-finite loss")
     require(steps[-1]["loss"] < steps[0]["loss"],
             "the train steps did not lower the loss")
-    require(all(st["dense_launches"] == 1 + 2 * fixed for st in steps),
+    require(all(st["launches"]["dense_intersect"] == 1 + 2 * fixed
+                for st in steps),
             f"a train step did not launch the dense kernel {1 + 2 * fixed} "
             "times (camera rays, each body, each body's recompute)")
+    require(not any("indexing_backward_kernel" in name
+                    for name, _, _ in prof["backward_top"]),
+            "ATen's index backward is among the backward's largest device "
+            "activities")
 
     # (d) the worklist route
     t0 = time.perf_counter()
@@ -1848,6 +1962,193 @@ def phase_diff(dev, cornell) -> tuple[dict, dict]:
             f"the sphere-grid gradient launched the worklist kernel "
             f"{wl_launches} times, not {1 + 2 * fixed}")
     return out, _read_counts()
+
+
+def _grads_vs_cpu(dev, scene, budget) -> tuple[dict, dict]:
+    """Colour and emission gradients of the pixel loss and the shape-space
+    prim_verts gradient of the mean squared radiance of `scene` forced
+    through the two-level build at `budget`, DIFF_CHECK_RES, 8 bounces,
+    on the card against the CPU within GRAD_TOL; and the card side's
+    launches."""
+    t0 = time.perf_counter()
+    _zero_counts()
+    card = param_grads(scene, DIFF_CHECK_RES, dev, seed=DIFF_SEED,
+                       hybrid_budget=budget)
+    card_v = vertex_grads(scene, DIFF_CHECK_RES, dev, budget, seed=DIFF_SEED)
+    launched = _read_counts()
+    cpu = param_grads(scene, DIFF_CHECK_RES, "cpu", seed=DIFF_SEED,
+                      hybrid_budget=budget)
+    cpu_v = vertex_grads(scene, DIFF_CHECK_RES, "cpu", budget, seed=DIFF_SEED)
+    live = int((cpu_v[1].abs().reshape(len(cpu_v[1]), -1).amax(1) > 0).sum())
+    return dict(
+        res=DIFF_CHECK_RES, tol=GRAD_TOL,
+        loss_rel=abs(card[0] - cpu[0]) / cpu[0],
+        color=grads_close(card[1], cpu[1]),
+        emission=grads_close(card[2], cpu[2]),
+        radiance_rel=abs(card_v[0] - cpu_v[0]) / cpu_v[0],
+        prim_verts=grads_close(card_v[1], cpu_v[1]), live_vertex_rows=live,
+        seconds=time.perf_counter() - t0), launched
+
+
+def phase_diff_instanced(dev, inst) -> tuple[dict, dict]:
+    """The differentiable path on instanced and hybrid scenes (the
+    instanced re-test of ops/diff_hit.py over the cull and row 7, the
+    hybrid's soup over row 6): (a) at 512 x 512, 8 bounces, on
+    instanced_scene() and hybrid_scene() (the main paths' Renderers,
+    `inst`), the fixed-trip render against the while loop's with the same
+    options unsorted, bit for bit (and, for information, the lanes that
+    differ when the while loop keeps the Renderer's sort); (b) colour,
+    emission and prim_verts gradients on the card against the CPU's
+    (_grads_vs_cpu) on the reduced scenes forced_agreement renders, with
+    row 7 and the cull (and row 6 for the hybrid) launched; (c) DIFF_STEPS
+    shard_train_step steps on instanced_scene() at 512 x 512 from
+    perturbed colours (on the one-process NCCL group the caller holds):
+    the loss falls and each step launches row 7 and the cull 1 + 2 x
+    fixed times; one step's forward and backward by the profiler, row 7's
+    and the cull's ms a launch on these unsorted rays; then one step on
+    hybrid_scene(), whose row-6 (or regroup tri-test) and row-7 launches
+    are 1 + 2 x fixed each; (d) the instanced intersector twice on
+    unsorted full-width bounce rays of instanced_scene(), bit-equal Hits
+    (torch.utils.checkpoint does not check that the recompute equals the
+    forward). Returns (stats, the launches of (a)-(d), zeroed before)."""
+    out, total = {}, dict.fromkeys(_read_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    pix = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
+
+    # (a) forward parity at full size
+    for name in ("instanced", "hybrid"):
+        r = inst[name]
+        opts = diff_options(r.options, r.config)
+        args = (r.cam_arrays, MAIN_RES, MAIN_RES, pix, 0, DIFF_SEED)
+        _zero_counts()
+        with torch.no_grad():
+            rad_w = render_radiance(r.dscene, r.config,
+                                    r.options._replace(sort_rays=False), *args,
+                                    intersect=r.intersect)
+            rad_f = render_radiance(r.dscene, r.config, opts, *args,
+                                    intersect=r.intersect)
+            rad_s = render_radiance(r.dscene, r.config, r.options, *args,
+                                    intersect=r.intersect)
+        add(_read_counts())
+        out[f"{name}_forward"] = dict(
+            fixed_iterations=opts.fixed_iterations,
+            lanes_differ_share=float((rad_w != rad_f).any(dim=-1).float().mean()),
+            sorted_lanes_differ=int((rad_s != rad_f).any(dim=-1).sum()),
+            sorted_max_abs_diff=float((rad_s - rad_f).abs().max()),
+            mean=float(rad_f.mean()))
+        log(f"diff_instanced (a) {name}: fixed-trip vs unsorted while-loop "
+            f"render at {MAIN_RES}x{MAIN_RES}, {MAIN_BOUNCES} bounces: "
+            f"{out[f'{name}_forward']}")
+        require(torch.equal(rad_w, rad_f),
+                f"the {name} fixed-trip render differs from the while loop's")
+        del rad_w, rad_f, rad_s
+
+    # (b) card against CPU gradients on the reduced scenes
+    for key, scene, budget in (
+            ("instanced_grads", instanced_scene(4, (16, 12)), 0),
+            ("hybrid_grads", hybrid_scene(8, 8, 4, 32), 5000)):
+        out[key], launched = _grads_vs_cpu(dev, scene, budget)
+        add(launched)
+        log(f"diff_instanced (b) {key}: card vs cpu: {out[key]}")
+        for kernel in ("instanced_intersect", "candidate_cull") + (
+                ("worklist_intersect",) if budget else ()):
+            require(launched[kernel] > 0,
+                    f"the {key} gradients never launched {kernel}")
+
+    # (c) train steps
+    r = inst["instanced"]
+    fixed = diff_options(r.options, r.config).fixed_iterations
+    items = ("instanced_intersect", "candidate_cull")
+    step = shard_train_step(make_mesh(dev), r.dscene, r.config, r.options,
+                            r.cam_arrays, MAIN_RES, MAIN_RES)
+    mats = r.dscene.materials
+    with torch.no_grad():
+        target = render_radiance(r.dscene, r.config, diff_options(
+            r.options, r.config), r.cam_arrays, MAIN_RES, MAIN_RES, pix, 0,
+            DIFF_SEED, intersect=step.intersect)
+    color = _perturbed(mats, dev)
+    err0 = float((color - mats.color).abs().mean())
+    _zero_counts()
+    steps, color, emission = _train_steps(
+        step, color, mats.emission, pix, target, DIFF_STEPS, items, dev,
+        "diff_instanced (c) instanced")
+    add(_read_counts())
+    prof = _profile_step(r, color, emission, pix, target)
+    per_launch = _per_launch(prof, (("row7", "instanced_intersect_kernel"),
+                                    ("cull", "candidate_cull_kernel")))
+    out["instanced_train"] = dict(
+        steps=steps, **prof, kernels=per_launch, color_err_start=err0,
+        color_err_end=float((color - mats.color).abs().mean()))
+    log(f"diff_instanced (c) instanced: forward "
+        f"{prof['forward_device_ms']:.2f} ms, backward "
+        f"{prof['backward_device_ms']:.2f} ms device; row 7 and the cull a "
+        f"launch: {per_launch}; forward's largest {prof['forward_top']}; "
+        f"backward's largest {prof['backward_top']}; mean |colour - truth| "
+        f"{err0:.5f} -> {out['instanced_train']['color_err_end']:.5f}")
+    require(all(math.isfinite(st["loss"]) for st in steps), "non-finite loss")
+    require(steps[-1]["loss"] < steps[0]["loss"],
+            "the instanced train steps did not lower the loss")
+    require(all(st["launches"][k] == 1 + 2 * fixed
+                for st in steps for k in items),
+            f"an instanced train step did not launch row 7 and the cull "
+            f"{1 + 2 * fixed} times each")
+    del step, target
+
+    r = inst["hybrid"]
+    hfixed = diff_options(r.options, r.config).fixed_iterations
+    soup, soup_kernel = (("worklist_intersect", "worklist_intersect_kernel")
+                         if r.intersect.livegate is None
+                         else ("regroup_tritest", "tritest_kernel"))
+    step = shard_train_step(make_mesh(dev), r.dscene, r.config, r.options,
+                            r.cam_arrays, MAIN_RES, MAIN_RES)
+    with torch.no_grad():
+        target = render_radiance(r.dscene, r.config, diff_options(
+            r.options, r.config), r.cam_arrays, MAIN_RES, MAIN_RES, pix, 0,
+            DIFF_SEED, intersect=step.intersect)
+    _zero_counts()
+    color = _perturbed(r.dscene.materials, dev)
+    hsteps, _, _ = _train_steps(
+        step, color, r.dscene.materials.emission, pix, target, 1,
+        items + (soup,), dev, "diff_instanced (c) hybrid")
+    add(_read_counts())
+    prof = _profile_step(r, color, r.dscene.materials.emission, pix, target)
+    per_launch = _per_launch(prof, (("row7", "instanced_intersect_kernel"),
+                                    ("cull", "candidate_cull_kernel"),
+                                    ("soup", soup_kernel)))
+    out["hybrid_train"] = dict(steps=hsteps, soup_kernel=soup, **prof,
+                               kernels=per_launch)
+    log(f"diff_instanced (c) hybrid: forward "
+        f"{prof['forward_device_ms']:.2f} ms, backward "
+        f"{prof['backward_device_ms']:.2f} ms device; row 7, the cull and "
+        f"the soup's kernel a launch: {per_launch}; backward's largest "
+        f"{prof['backward_top']}")
+    require(math.isfinite(hsteps[0]["loss"]), "non-finite hybrid loss")
+    require(all(hsteps[0]["launches"][k] == 1 + 2 * hfixed
+                for k in ("instanced_intersect", soup)),
+            f"the hybrid train step did not launch row 7 and {soup} "
+            f"{1 + 2 * hfixed} times each")
+    del step, target
+
+    # (d) recompute determinism: the same unsorted bounce rays twice
+    r = inst["instanced"]
+    _zero_counts()
+    primary = _primary_rays(r, dev)
+    bounce = _bounce_rays(r.intersect(*primary), primary[1], dev)
+    first = r.intersect(*bounce)
+    second = r.intersect(*bounce)
+    add(_read_counts())
+    out["recompute_bit_equal"] = _bit_equal(first, second)
+    out["recompute_hits"] = int(first.hit.sum())
+    log(f"diff_instanced (d): two calls on {N_RAYS} unsorted bounce rays "
+        f"({out['recompute_hits']} hits): bit-equal "
+        f"{out['recompute_bit_equal']}")
+    require(out["recompute_bit_equal"],
+            "the instanced intersector's hits differ between two calls")
+    return out, total
 
 
 def _sample_device_ms(renderer, scene, dev) -> float:
@@ -2028,6 +2329,7 @@ sys.path.insert(0, sys.argv[1])
 from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
+from julia_raytracer_tpu_torch.ops import row_gather as rgat
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 REPS = @REPS@
 CLUSTER_REPS = @CLUSTER_REPS@
@@ -2304,7 +2606,6 @@ def main() -> int:
     require(inst_launch["hybrid"]["worklist_intersect"] > 0
             or inst_launch["hybrid"]["regroup_tritest"] > 0,
             "the hybrid path never launched the soup's kernels")
-    del inst
     log(f"host syncs per sample: heavy {h_stats['host_syncs_per_sample']:.1f} "
         f"('auto' {a_stats['host_syncs_per_sample']:.1f}), sphere grid "
         f"{s_stats['host_syncs_per_sample']:.1f}, Cornell box "
@@ -2357,9 +2658,16 @@ def main() -> int:
     cli_launch = {name: sum(run.get(name, 0)
                             for run in cli_phase["launches"].values())
                   for name in phases}
-    t0 = time.perf_counter()
-    diff_phase, diff_launch = phase_diff(dev, cornell)
-    log(f"diff: {json.dumps(diff_phase)} ({time.perf_counter() - t0:.1f} s)")
+    with one_rank_group():
+        t0 = time.perf_counter()
+        diff_phase, diff_launch = phase_diff(dev, cornell)
+        log(f"diff: {json.dumps(diff_phase)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        dinst_phase, dinst_launch = phase_diff_instanced(dev, inst)
+        log(f"diff_instanced: {json.dumps(dinst_phase)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    del inst
     t0 = time.perf_counter()
     content_phase, content_launch = phase_scene_content(dev)
     log(f"scene_content: {json.dumps(content_phase)} "
@@ -2373,7 +2681,8 @@ def main() -> int:
             launches=(c_launch[name] + s_launch[name] + h_launch[name]
                       + a_launch[name] + inst_launch["instanced"][name]
                       + inst_launch["hybrid"][name] + cli_launch[name]
-                      + diff_launch[name] + content_launch.get(name, 0)),
+                      + diff_launch[name] + dinst_launch[name]
+                      + content_launch.get(name, 0)),
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],

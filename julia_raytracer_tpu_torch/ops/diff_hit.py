@@ -24,14 +24,25 @@ normal. No kernel has a backward pass there either.
 So the forward is bit-equal to the non-differentiable render, and the
 backward is the gradient of the JAX package's argmin-selected hit.
 
-Only flat scenes: an instanced or hybrid scene's prim ids index
-shape-space quads, whose re-test would need the instance transform."""
+`make_diff_intersect_instanced` does the same around a work-item
+intersector (ops/instanced_intersect.py: the cull and the work-item
+kernel on the card), whose prim ids index shape-space quads: each hit
+lane's differentiable ray moves into its instance's shape space
+(`_to_shape_space` on the hit instance's row, the kernel's arithmetic),
+the taken triangle is re-tested there, and the hit returns what the JAX
+package's make_intersect_instanced_ref returns: t (the same in both
+spaces, the shape-space direction is not normalised), the world
+position ro + rd t, and the world element normal
+normalize(quad_normal(verts) Fw). A hybrid scene's soup branch takes
+make_diff_intersect over the world-space soup (render/integrator.py
+`_diff_intersect` wraps the two branches before they are composed)."""
 
 from __future__ import annotations
 
 import torch
 
-from julia_raytracer_tpu_torch.ops.geometry import intersect_triangle
+from julia_raytracer_tpu_torch.ops.geometry import intersect_triangle, quad_normal
+from julia_raytracer_tpu_torch.ops.instanced_intersect import _to_shape_space
 from julia_raytracer_tpu_torch.ops.traversal import hit_surface
 
 
@@ -70,21 +81,27 @@ def retest_quad(verts, ro, rd, tmin, tmax, lower):
             torch.where(lower, t1, t2))
 
 
+def _unit_case(device):
+    return (torch.tensor(x, device=device)
+            for x in (_UNIT_QUAD, _UNIT_RO, _UNIT_RD))
+
+
+def _wants_grad(ro, rd, prim_verts) -> bool:
+    return torch.is_grad_enabled() and (
+        ro.requires_grad or rd.requires_grad or prim_verts.requires_grad)
+
+
 def make_diff_intersect(intersect, prim_verts):
     """intersect(ro, rd, tmin, tmax) -> Hit of `intersect` (a flat
     intersector over the quads `prim_verts` [Q, 4, 3]) whose u, v, t,
     position and gnormal carry gradients to `prim_verts` and to ro/rd on
     hit lanes. Without a gradient to carry (grad mode off, or neither the
     rays nor prim_verts require one) it returns the wrapped Hit."""
-    dev = prim_verts.device
-    unit_quad, unit_ro, unit_rd = (torch.tensor(x, device=dev) for x in (
-        _UNIT_QUAD, _UNIT_RO, _UNIT_RD))
+    unit_quad, unit_ro, unit_rd = _unit_case(prim_verts.device)
 
     def diff_intersect(ro, rd, tmin, tmax):
         h = intersect(ro.detach(), rd.detach(), tmin, tmax)
-        if not (torch.is_grad_enabled()
-                and (ro.requires_grad or rd.requires_grad
-                     or prim_verts.requires_grad)):
+        if not _wants_grad(ro, rd, prim_verts):
             return h
         prim = h.prim.clamp(0, prim_verts.shape[0] - 1)
         hit, hit3 = h.hit, h.hit[:, None]
@@ -105,6 +122,49 @@ def make_diff_intersect(intersect, prim_verts):
                                       torch.where(hit3, position, 0.0)),
             gnormal=straight_through(h.gnormal,
                                      torch.where(hit3, gnormal, 0.0)),
+        )
+
+    return diff_intersect
+
+
+def make_diff_intersect_instanced(intersect, prim_verts, inst_rows):
+    """intersect(ro, rd, tmin, tmax) -> Hit of `intersect` (a work-item
+    intersector over the shape-space quads `prim_verts` [Q, 4, 3] and the
+    instance rows `inst_rows` [I, 24]: shape from world Ri (0:9), oi
+    (9:12), the normal's Fw (12:21)) whose u, v, t, position and gnormal
+    carry gradients to `prim_verts` and to ro/rd on hit lanes; no
+    gradient reaches `inst_rows`. Without a gradient to carry it returns
+    the wrapped Hit."""
+    unit_quad, unit_ro, unit_rd = _unit_case(prim_verts.device)
+
+    def diff_intersect(ro, rd, tmin, tmax):
+        h = intersect(ro.detach(), rd.detach(), tmin.detach(), tmax.detach())
+        if not _wants_grad(ro, rd, prim_verts):
+            return h
+        prim = h.prim.clamp(0, prim_verts.shape[0] - 1)
+        hit, hit3 = h.hit, h.hit[:, None]
+        xf = inst_rows[h.instance.clamp(0, inst_rows.shape[0] - 1).long()]
+        # miss lanes move and re-test the fixed unit case (finite
+        # derivatives under their zero gradient, as in make_diff_intersect)
+        ro_w = torch.where(hit3, ro, unit_ro)
+        rd_w = torch.where(hit3, rd, unit_rd)
+        so, sd = _to_shape_space(ro_w, rd_w, xf)
+        verts = torch.where(hit[:, None, None], prim_verts[prim], unit_quad)
+        u, v, t = retest_quad(verts, torch.where(hit3, so, unit_ro),
+                              torch.where(hit3, sd, unit_rd), tmin, tmax,
+                              h.u + h.v <= 1.0)
+        t = torch.where(hit, t, 0.0)
+        gn = (quad_normal(*verts.unbind(-2))[:, None]
+              @ xf[:, 12:21].reshape(-1, 3, 3))[:, 0]
+        gl = torch.sqrt((gn * gn).sum(dim=-1, keepdim=True))
+        gn = gn / torch.where(gl > 0, gl, 1.0)
+        return h._replace(
+            u=straight_through(h.u, torch.where(hit, u, 0.0)),
+            v=straight_through(h.v, torch.where(hit, v, 0.0)),
+            t=straight_through(h.t, t),
+            position=straight_through(
+                h.position, torch.where(hit3, ro_w + rd_w * t[:, None], 0.0)),
+            gnormal=straight_through(h.gnormal, torch.where(hit3, gn, 0.0)),
         )
 
     return diff_intersect

@@ -17,6 +17,7 @@ from julia_raytracer_tpu_torch.ops import texture as tex_ops
 from julia_raytracer_tpu_torch.ops.geometry import (
     interpolate_quad, quad_normal, triangle_tangents_fromuv,
 )
+from julia_raytracer_tpu_torch.ops.row_gather import gather_rows
 from julia_raytracer_tpu_torch.scene.flatten import (
     FLAG_HAS_COLORS, FLAG_HAS_NORMALS, FLAG_HAS_TEXCOORDS,
 )
@@ -203,17 +204,23 @@ def eval_material(scene, inst, texcoord, shp_color):
     color_tex = tex_ops.eval_texture(tex, m.color_tex[mid], texcoord, True)
     roughness_tex = tex_ops.eval_texture(tex, m.roughness_tex[mid], texcoord, False)
     scattering_tex = tex_ops.eval_texture(tex, m.scattering_tex[mid], texcoord, True)
+    # the float tables in one gather, whose backward sums the lanes into
+    # the few material rows without serialising (ops/row_gather.py)
+    (emission, color, opacity, roughness, metallic, ior, scattering,
+     scanisotropy, trdepth) = gather_rows(
+        mid, m.emission, m.color, m.opacity, m.roughness, m.metallic, m.ior,
+        m.scattering, m.scanisotropy, m.trdepth)
     return _material_point(
         m.type[mid],
-        emission=m.emission[mid] * emission_tex[..., :3],
-        color=m.color[mid] * color_tex[..., :3] * shp_color[..., :3],
-        opacity=m.opacity[mid] * color_tex[..., 3] * shp_color[..., 3],
-        roughness=m.roughness[mid] * roughness_tex[..., 1],
-        metallic=m.metallic[mid] * roughness_tex[..., 2],
-        ior=m.ior[mid],
-        scattering=m.scattering[mid] * scattering_tex[..., :3],
-        scanisotropy=m.scanisotropy[mid],
-        trdepth=m.trdepth[mid],
+        emission=emission * emission_tex[..., :3],
+        color=color * color_tex[..., :3] * shp_color[..., :3],
+        opacity=opacity * color_tex[..., 3] * shp_color[..., 3],
+        roughness=roughness * roughness_tex[..., 1],
+        metallic=metallic * roughness_tex[..., 2],
+        ior=ior,
+        scattering=scattering * scattering_tex[..., :3],
+        scanisotropy=scanisotropy,
+        trdepth=trdepth,
     )
 
 

@@ -5,8 +5,8 @@ julia_raytracer_tpu/ops/traversal.py).
 `intersect_bruteforce` is the reference the dense kernel
 (ops/dense_intersect.py) is held against. On a miss it returns prim 0
 and t = F32_MAX, as the JAX function does; the kernel returns prim -1
-and t = tmax. Parity tests compare hit lanes only. The BVH walk
-(`intersect_bvh`) is not ported yet (ROADMAP.md queue 1, item 4).
+and t = tmax. Parity tests compare hit lanes only. `intersect_bvh` is
+the JAX package's lock-step walk of the packed BVH, a plain reference.
 """
 
 from __future__ import annotations

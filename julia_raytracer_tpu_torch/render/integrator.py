@@ -68,15 +68,15 @@ gradients (detached sampling), and the intersector is wrapped by
 ops/diff_hit.py, whose hits carry the gradients of the JAX package's
 argmin-selected hit (with curves, the quad intersector inside
 `curve_wrap` is wrapped, and the line/point sweep differentiates as it
-is). The body is fully masked, so the radiance equals the while loop's
-bit for bit.
-
-Not ported yet (NotImplementedError, see ROADMAP.md): the fixed-trip
-loop on instanced and hybrid scenes.
+is; on instanced scenes the work-item hits are re-tested under their
+instance's transform, and a hybrid's soup and work-item branches are
+wrapped apart, then composed). The body is fully masked, so the radiance
+equals the while loop's bit for bit.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -87,7 +87,9 @@ from julia_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from julia_raytracer_tpu_torch.ops import eval as eval_ops
 from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
-from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
+from julia_raytracer_tpu_torch.ops.diff_hit import (
+    make_diff_intersect, make_diff_intersect_instanced,
+)
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
 from julia_raytracer_tpu_torch.ops.geometry import (
     F32_MAX, RAY_EPS, intersect_line, intersect_point, intersect_quad,
@@ -425,18 +427,25 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
     `_flat_intersector` (`regroup`, `regroup_min_prims` as in
     build_intersector) and the work items take
     ops/instanced_intersect.py, on the scene's device. `.primary` is
-    composed from the flat part's when it has one."""
+    composed from the flat part's when it has one.
+
+    Each returned function exposes its branches, `.flat_part` (prim ids
+    index the soup) and `.inst_part` (None without work items), and
+    `.compose(flat_fn, inst_fn)`, which composes two such branches (the
+    fixed-trip loop's wrapped ones) with the same arithmetic;
+    `.world_verts()` is the soup as a tensor on the scene's device, made
+    on first use."""
     device = dscene.prim_verts.device
     wpv = np.asarray(config.hyb_world_verts)
     winst = np.asarray(config.hyb_world_inst)
     remap = torch.as_tensor(config.hyb_remap, device=device)
     has_items = len(config.inst_tables.wi_inst) > 0
+    world_verts = functools.cache(lambda: torch.as_tensor(wpv, device=device))
     if reference:
-        wpv_d = torch.as_tensor(wpv, device=device)
         winst_d = torch.as_tensor(winst, device=device)
 
         def flat_part(ro, rd, tmin, tmax):
-            return intersect_bruteforce(wpv_d, ro, rd, tmin, tmax,
+            return intersect_bruteforce(world_verts(), ro, rd, tmin, tmax,
                                         prim_instance=winst_d)
 
         inst_part = (make_intersect_instanced_ref(dscene, config)
@@ -448,14 +457,14 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
         inst_part = (make_instanced_intersect(config.inst_tables, device)
                      if has_items else None)
 
-    def compose(flat_fn):
+    def compose(flat_fn, inst_fn):
         def intersect(ro, rd, tmin, tmax):
             h1 = flat_fn(ro, rd, tmin, tmax)
             prim1 = torch.where(h1.hit, remap[h1.prim.clamp(min=0).long()], -1)
-            if inst_part is None:
+            if inst_fn is None:
                 return h1._replace(prim=prim1)
             t_cut = torch.where(h1.hit, h1.t * HYBRID_T_CUT, tmax)
-            h2 = inst_part(ro, rd, tmin, torch.minimum(tmax, t_cut))
+            h2 = inst_fn(ro, rd, tmin, torch.minimum(tmax, t_cut))
             take = h2.hit
             hit = h1.hit | take
 
@@ -471,11 +480,13 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
                 instance=sel(h2.instance, h1.instance),
             )
 
+        intersect.flat_part, intersect.inst_part = flat_fn, inst_fn
+        intersect.compose, intersect.world_verts = compose, world_verts
         return intersect
 
-    intersect = compose(flat_part)
+    intersect = compose(flat_part, inst_part)
     if hasattr(flat_part, "primary"):
-        intersect.primary = compose(flat_part.primary)
+        intersect.primary = compose(flat_part.primary, inst_part)
     # the soup's regroup gate, for reports (None: no regroup)
     intersect.livegate = getattr(flat_part, "livegate", None)
     return intersect
@@ -519,7 +530,23 @@ def make_intersect(dscene: DeviceScene, config: SceneConfig):
 def _diff_intersect(intersect, dscene: DeviceScene, config: SceneConfig):
     """The fixed-trip loop's intersector: ops/diff_hit.py around the quad
     intersector, inside curve_wrap when the scene has lines or points (a
-    curve hit's prim id >= Q names no quad to re-test)."""
+    curve hit's prim id >= Q names no quad to re-test). Instanced scenes:
+    the instanced re-test over the shape-space dscene.prim_verts; a
+    hybrid's branches are wrapped apart and composed again (the composed
+    prim is remapped into shape space, so the soup is re-tested before,
+    over the world soup, a constant, as in the JAX package)."""
+    if config.inst_tables is not None:
+        rows = torch.as_tensor(config.inst_tables.inst_rows,
+                               dtype=torch.float32,
+                               device=dscene.prim_verts.device)
+        if not hasattr(intersect, "compose"):
+            return make_diff_intersect_instanced(intersect, dscene.prim_verts,
+                                                 rows)
+        inst = intersect.inst_part
+        return intersect.compose(
+            make_diff_intersect(intersect.flat_part, intersect.world_verts()),
+            inst and make_diff_intersect_instanced(inst, dscene.prim_verts,
+                                                   rows))
     inner = getattr(intersect, "inner", None)
     if inner is None and not (config.n_lines or config.n_points):
         return make_diff_intersect(intersect, dscene.prim_verts)
@@ -651,11 +678,6 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     With `options.fixed_iterations` the loop is the fixed-trip,
     differentiable one (module docstring)."""
     fixed = options.fixed_iterations
-    if fixed and config.inst_tables is not None:
-        raise NotImplementedError(
-            "the fixed-trip (differentiable) loop on instanced and hybrid "
-            "scenes is not ported yet (ROADMAP.md queue 1, item 5)"
-        )
     n = ro.shape[0]
     dev = ro.device
     if intersect is None:

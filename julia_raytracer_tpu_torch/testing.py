@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
-from julia_raytracer_tpu_torch.render.diff import make_param_loss
+from julia_raytracer_tpu_torch.render.diff import (
+    diff_options, make_param_loss, render_radiance,
+)
 from julia_raytracer_tpu_torch.render.integrator import (
     TraceOptions, build_intersector, trace_wavefront,
 )
@@ -255,23 +257,59 @@ def grads_close(got, want) -> float:
     return err
 
 
+def _diff_scene(scene, res: int, device, bounces: int,
+                hybrid_budget: int | None):
+    """(dscene, config, options, camera arrays) of a gradient: the
+    Renderer's, or with `hybrid_budget` the two-level build forced
+    (build_device_scene(instancing=True, hybrid_budget=), as
+    render_instanced forces it) with the path sampler's options."""
+    if hybrid_budget is None:
+        r = Renderer(scene, Params(resolution=res, bounces=bounces),
+                     device=device)
+        return r.dscene, r.config, r.options, r.cam_arrays
+    d, cfg = build_device_scene(scene, instancing=True, device=device,
+                                hybrid_budget=hybrid_budget)
+    return (d, cfg, TraceOptions(sampler="path", bounces=bounces),
+            camera_arrays(scene.cameras[0], device))
+
+
 def param_grads(scene, res: int, device, bounces: int = 8,
-                pixel_step: int = 1, seed: int = 0):
+                pixel_step: int = 1, seed: int = 0,
+                hybrid_budget: int | None = None):
     """The pixel loss of render/diff.py make_param_loss on `scene` at res x
     res (every `pixel_step`-th pixel, one sample), against a target drawn
     from numpy with `seed`: (loss, d/d colour, d/d emission) on the CPU,
-    the render on `device` through build_intersector's intersector."""
-    r = Renderer(scene, Params(resolution=res, bounces=bounces), device=device)
+    the render on `device` through build_intersector's intersector (of
+    the two-level build when `hybrid_budget` is given)."""
+    d, cfg, opts, cam = _diff_scene(scene, res, device, bounces, hybrid_budget)
     pix = torch.arange(0, res * res, pixel_step, dtype=torch.int32,
                        device=device)
     target = torch.as_tensor(np.random.default_rng(seed).uniform(
         0.0, 0.5, (len(pix), 3)).astype(np.float32), device=device)
-    loss = make_param_loss(r.dscene, r.config, r.options, r.cam_arrays, res, res)
-    color = r.dscene.materials.color.clone().requires_grad_()
-    emission = r.dscene.materials.emission.clone().requires_grad_()
+    loss = make_param_loss(d, cfg, opts, cam, res, res)
+    color = d.materials.color.clone().requires_grad_()
+    emission = d.materials.emission.clone().requires_grad_()
     value = loss(color, emission, pix, target, 1, seed)
     value.backward()
     return float(value.detach()), color.grad.cpu(), emission.grad.cpu()
+
+
+def vertex_grads(scene, res: int, device, hybrid_budget: int | None = None,
+                 bounces: int = 8, seed: int = 0):
+    """(mean squared radiance, its gradient with respect to
+    dscene.prim_verts on the CPU) of one sample of res x res camera paths
+    on `device` (render/diff.py render_radiance; shape-space quads for
+    the two-level build of `hybrid_budget`)."""
+    d, cfg, opts, cam = _diff_scene(scene, res, device, bounces, hybrid_budget)
+    pv = d.prim_verts.clone().requires_grad_()
+    rad = render_radiance(d._replace(prim_verts=pv), cfg,
+                          diff_options(opts, cfg), cam, res, res,
+                          torch.arange(res * res, dtype=torch.int32,
+                                       device=device), 0, seed,
+                          intersect=build_intersector(d, cfg))
+    value = torch.mean(rad * rad)
+    value.backward()
+    return float(value.detach()), pv.grad.cpu()
 
 
 def render_instanced(scene, res: int, spp: int, bounces: int,

@@ -17,7 +17,10 @@ from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
-from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
+from julia_raytracer_tpu_torch.ops import row_gather as rgat
+from julia_raytracer_tpu_torch.ops.diff_hit import (
+    make_diff_intersect, make_diff_intersect_instanced,
+)
 from julia_raytracer_tpu_torch.render import diff as tdiff
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render.renderer import (
@@ -28,7 +31,7 @@ from julia_raytracer_tpu_torch.testing import (
     adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
     cornell_scene, dense_soup, grads_close, hairball_scene, hybrid_scene,
     image_close, instanced_scene, many_lights_scene, param_grads,
-    regroup_bits, render_instanced, sphere_grid_scene,
+    regroup_bits, render_instanced, sphere_grid_scene, vertex_grads,
 )
 
 pytestmark = pytest.mark.cuda
@@ -567,6 +570,90 @@ def test_diff_grads_on_card_match_cpu(dev):
     np.testing.assert_allclose(card[0], cpu[0], rtol=1e-3)
     for got, want in zip(card[1:], cpu[1:]):
         grads_close(got, want)
+
+
+def _instanced_case(hybrid):
+    """A reduced instanced scene (pure) or hybrid (a 262-quad soup through
+    the worklist kernel, 3 big spheres as work items) and its budget."""
+    if hybrid:
+        return hybrid_scene(4, 4, 3, 12), 300
+    return instanced_scene(3, (8, 6)), 0
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_diff_hit_instanced_forward_equals_the_kernels(dev, hybrid):
+    """The instanced re-test's forward values (rays and shape-space
+    corners requiring grad) are the cull's and the work-item kernel's,
+    bit for bit; a hybrid's wrapped and composed branches the hybrid's
+    (the worklist kernel for the soup)."""
+    scene, budget = _instanced_case(hybrid)
+    d, cfg = build_device_scene(scene, instancing=True, hybrid_budget=budget,
+                                device=dev)
+    isect = tint.build_intersector(d, cfg)
+    ro, rd, tmin, tmax = _room_rays(dev, 5000, 6)
+    rd = rd.clone().requires_grad_()
+    pv = d.prim_verts.clone().requires_grad_()
+    if hybrid:
+        wrapped = tint._diff_intersect(isect, d._replace(prim_verts=pv), cfg)
+    else:
+        rows = torch.as_tensor(cfg.inst_tables.inst_rows, device=dev)
+        wrapped = make_diff_intersect_instanced(isect, pv, rows)
+    ii.instanced_intersect_kernel.launches = 0
+    ii.candidate_keys_kernel.launches = 0
+    got = wrapped(ro, rd, tmin, tmax)
+    assert ii.instanced_intersect_kernel.launches == 1
+    assert ii.candidate_keys_kernel.launches == 1
+    want = isect(ro, rd.detach(), tmin, tmax)
+    assert got.u.requires_grad and int(want.hit.sum()) > 500
+    assert _same_bits(tuple(x.detach() for x in got), want)
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_instanced_diff_grads_on_card_match_cpu(dev, hybrid):
+    """Colour, emission and shape-space vertex gradients on the reduced
+    instanced scene (pure and hybrid) on the card against the CPU's,
+    within testing.GRAD_TOL, with the work-item kernel and the cull (and
+    the soup's worklist kernel) launched."""
+    scene, budget = _instanced_case(hybrid)
+    ii.instanced_intersect_kernel.launches = 0
+    ii.candidate_keys_kernel.launches = 0
+    wl.worklist_intersect_kernel.launches = 0
+    card = param_grads(scene, 32, dev, bounces=4, hybrid_budget=budget)
+    card_v = vertex_grads(scene, 32, dev, budget, bounces=4)
+    assert ii.instanced_intersect_kernel.launches > 0
+    assert ii.candidate_keys_kernel.launches > 0
+    assert (wl.worklist_intersect_kernel.launches > 0) == hybrid
+    cpu = param_grads(scene, 32, "cpu", bounces=4, hybrid_budget=budget)
+    cpu_v = vertex_grads(scene, 32, "cpu", budget, bounces=4)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-3)
+    np.testing.assert_allclose(card_v[0], cpu_v[0], rtol=1e-3)
+    for got, want in zip(card[1:] + card_v[1:], cpu[1:] + cpu_v[1:]):
+        grads_close(got, want)
+
+
+def test_row_gather_backward_on_card(dev):
+    """The material gathers' backward on the card (the one-hot product)
+    at 262,144 lanes onto 7 rows: bit-equal across two calls, and within
+    float32 rounding of index_add_ in float64."""
+    g = np.random.default_rng(3)
+    n, rows = 262_144, 7
+    idx = torch.as_tensor(g.integers(0, rows, n), device=dev)
+    table = torch.as_tensor(g.uniform(0, 1, (rows, 3)), dtype=torch.float32,
+                            device=dev)
+    grad = torch.as_tensor(g.normal(size=(n, 3)), dtype=torch.float32,
+                           device=dev)
+    sums = []
+    for _ in range(2):
+        leaf = table.clone().requires_grad_()
+        (out,) = rgat.gather_rows(idx, leaf)
+        assert torch.equal(out.detach(), table[idx])
+        out.backward(grad)
+        sums.append(leaf.grad)
+    assert torch.equal(sums[0], sums[1])
+    want = torch.zeros((rows, 3), dtype=torch.float64, device=dev).index_add_(
+        0, idx, grad.double())
+    np.testing.assert_allclose(sums[0].cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-6, atol=1e-4)
 
 
 def test_hairball_render_on_card_matches_cpu(dev):

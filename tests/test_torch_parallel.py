@@ -11,7 +11,10 @@ and tests/test_parallel.py hold the JAX package's counterparts).
   - broadcast_host_arrays gives every rank rank 0's float tensors;
   - one shard_train_step gives the single-process step's loss and
     parameters within rtol 1e-5 (the all-reduce adds the two ranks'
-    partial gradients in another order than one process adds its lanes).
+    partial gradients in another order than one process adds its lanes),
+    on the Cornell box and on the instanced test scene of
+    tests/test_torch_diff_instanced.py (the two-level build, hybrid
+    budget 0: the work-item intersector under the instanced re-test).
 
 Each test joins its processes within JOIN_S seconds, then kills them and
 fails: a hung process group cannot run into the suite's clock."""
@@ -30,8 +33,13 @@ from julia_raytracer_tpu_torch.parallel import mesh as pm
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
 from julia_raytracer_tpu_torch.render import renderer as tren
 from julia_raytracer_tpu_torch.render.diff import make_param_loss
+from julia_raytracer_tpu_torch.render.integrator import TraceOptions
+from julia_raytracer_tpu_torch.render.scene_device import (
+    build_device_scene_instanced,
+)
 from julia_raytracer_tpu_torch.testing import cornell_scene
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from torch_parity import instanced_test_camera, instanced_test_scene
 
 WORLD = 2
 RES, BOUNCES = 9, 4  # 81 pixels: 41 lanes a rank, one of them padding
@@ -54,14 +62,28 @@ def _rays(r, pixel_ids, sample=0, seed=0):
     return ro, rd, rng
 
 
-def _train_inputs(r):
+def _train_parts(scene):
+    """(dscene, config, options, camera arrays) of a train step's scene on
+    the CPU: the Cornell box through the Renderer, or the instanced test
+    scene through the two-level build, seen from (0, 0, 8)."""
+    if scene == "cornell":
+        r = _renderer()
+        return r.dscene, r.config, r.options, r.cam_arrays
+    d, cfg = build_device_scene_instanced(
+        instanced_test_scene(emissive=True, env=True), hybrid_budget=0,
+        device="cpu")
+    return (d, cfg, TraceOptions(sampler="path", bounces=BOUNCES),
+            tren.camera_arrays(instanced_test_camera(), "cpu"))
+
+
+def _train_inputs(dscene):
     g = np.random.default_rng(11)
-    color = r.dscene.materials.color + torch.as_tensor(
-        g.uniform(-0.1, 0.1, tuple(r.dscene.materials.color.shape)),
+    color = dscene.materials.color + torch.as_tensor(
+        g.uniform(-0.1, 0.1, tuple(dscene.materials.color.shape)),
         dtype=torch.float32)
     target = torch.as_tensor(g.uniform(0.0, 0.4, (RES * RES, 3)),
                              dtype=torch.float32)
-    return color, r.dscene.materials.emission, target
+    return color, dscene.materials.emission, target
 
 
 def _worker(rank, task, init_file, out_dir):
@@ -71,13 +93,13 @@ def _worker(rank, task, init_file, out_dir):
             backend="gloo", init_method=f"file://{init_file}",
             world_size=WORLD, rank=rank)
         assert (world, got_rank) == (WORLD, rank)
-        r = _renderer()
         mesh = pm.make_mesh("cpu")
         assert mesh == pm.Mesh(WORLD, rank, torch.device("cpu"))
         n = RES * RES
         pix = torch.arange(n, dtype=torch.int32)
         out = {}
         if task == "render":
+            r = _renderer()
             ro, rd, rng = _rays(r, pix)
             render = pm.shard_render_fn(mesh, r.dscene, r.config, r.options)
             out["sharded"] = render(r.dscene, ro, rd, rng)
@@ -93,9 +115,9 @@ def _worker(rank, task, init_file, out_dir):
                 color=mats.color + rank))
             out["broadcast"] = pd.broadcast_host_arrays(drift).materials.color
         else:
-            color, emission, target = _train_inputs(r)
-            step = pm.shard_train_step(mesh, r.dscene, r.config, r.options,
-                                       r.cam_arrays, RES, RES, lr=LR)
+            parts = _train_parts(task)
+            color, emission, target = _train_inputs(parts[0])
+            step = pm.shard_train_step(mesh, *parts, RES, RES, lr=LR)
             out["step"] = step(color, emission, pix, target, 1)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         torch.distributed.destroy_process_group()
@@ -146,19 +168,18 @@ def test_sharded_render_equals_single_process(tmp_path):
         assert torch.equal(out["broadcast"], r.dscene.materials.color)
 
 
-def test_sharded_train_step_matches_single_process(tmp_path):
-    outs = _spawn("train", tmp_path)
-    r = _renderer()
-    color, emission, target = _train_inputs(r)
+@pytest.mark.parametrize("scene", ["cornell", "instanced"])
+def test_sharded_train_step_matches_single_process(tmp_path, scene):
+    outs = _spawn(scene, tmp_path)
+    parts = _train_parts(scene)
+    color, emission, target = _train_inputs(parts[0])
     pix = torch.arange(RES * RES, dtype=torch.int32)
-    step = pm.shard_train_step(pm.make_mesh("cpu"), r.dscene, r.config,
-                               r.options, r.cam_arrays, RES, RES, lr=LR)
+    step = pm.shard_train_step(pm.make_mesh("cpu"), *parts, RES, RES, lr=LR)
     want = step(color, emission, pix, target, 1)
     # the single-process step is make_param_loss's SGD step
     c = color.clone().requires_grad_()
     e = emission.clone().requires_grad_()
-    loss = make_param_loss(r.dscene, r.config, r.options, r.cam_arrays, RES,
-                           RES)(c, e, pix, target, 1)
+    loss = make_param_loss(*parts, RES, RES)(c, e, pix, target, 1)
     loss.backward()
     torch.testing.assert_close(want[0], loss.detach(), rtol=1e-5, atol=0)
     torch.testing.assert_close(want[1], color - LR * c.grad, rtol=1e-5,

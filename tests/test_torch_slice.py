@@ -148,15 +148,20 @@ def test_renderer_rejects_unported_options():
             cornell_scene(), tren.Params(resolution=8), device="cpu"))
     with pytest.raises(ValueError):
         tren.Renderer(cornell_scene(), tren.Params(regroup="yes"), device="cpu")
-    # the fixed-trip (differentiable) loop is ported for flat scenes; an
-    # instanced scene's would re-test shape-space quads: it raises
+    # the fixed-trip (differentiable) loop is ported for instanced scenes
+    # too: it no longer raises, and renders the while loop's radiance
     dscene, config = build_device_scene(instanced_test_scene(),
                                         instancing=True, device="cpu")
-    ro = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="instanced"):
-        tint.trace_wavefront(dscene, config,
-                             tint.TraceOptions(fixed_iterations=9), ro, ro,
-                             torch.zeros(4, dtype=torch.int32))
+    ro = torch.tensor([[0.0, 0.0, 8.0]]).expand(4, 3)
+    rd = torch.nn.functional.normalize(torch.tensor(
+        [[0.0, 0.0, -1.0], [0.3, 0.0, -1.0], [0.0, 0.3, -1.0],
+         [2.0, 0.0, -1.0]]), dim=1)
+    rng = torch.arange(4, dtype=torch.int32)
+    with torch.no_grad():
+        got, want = (tint.trace_wavefront(
+            dscene, config, tint.TraceOptions(fixed_iterations=k), ro, rd,
+            rng)[0] for k in (9, 0))
+    assert torch.equal(got, want)
 
 
 def test_heavy_scene_routing(capsys, monkeypatch):

@@ -130,6 +130,12 @@ def instanced_test_scene(emissive=False, env=False) -> SceneData:
                      instances=instances, environments=envs)
 
 
+def instanced_test_camera() -> CameraData:
+    """A camera at (0, 0, 8) looking down -z at the instanced test scene,
+    whose default camera sits inside its first instance."""
+    return CameraData(frame=frame(0, [0.0, 0.0, 8.0]), lens=0.035, aspect=1.0)
+
+
 INSTANCED_N_RAYS = 2048
 
 
