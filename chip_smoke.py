@@ -83,6 +83,24 @@ scene whose cube shape's PLY is empty and whose Catmull-Clark cage asks
 for 4 levels (1,536 quads, the worklist kernel) through cli.main, its PNG
 byte-equal to the Renderer's on the scene the loader gives. (a) and (b)
 are held card against CPU at 64 x 64. It prints a `scene_content:` line.
+Then the host_build phase times the scene set-up on the host: the heavy
+scene written with write_yocto_scene (JRT_CACHE_DIR a fresh temporary
+directory), load_scene + Renderer cold and then warm, by step (load, BVH,
+lights, cluster tables, kernel select, cache reads and writes); the warm
+build reads the products "geom", "clusters" and "kernel_select" and calls
+no builder, and its 512 x 512 sample is bit-equal to the cold build's; the
+cold build's tables come from the C++ builder (ops/native.py); the heavy
+tables and the hybrid scene's world soup are built natively and in numpy
+(JRT_NO_NATIVE=1), timed and held together. It prints a `host_build:`
+line. Last, the cost phase counts one 512 x 512, 8-bounce sample of each
+of the five main paths (Cornell, spheres, heavy "auto" from the warm
+build, instanced, hybrid) with Renderer.sample_kernel_cost (utils/
+roofline.py count_cost: the ATen ops by name, each kernel's
+utils/kernel_flops.py model), gives roofline() over the path's timed wall
+ms a sample and over its device ms a sample, and holds the Cornell box's
+count on the card within 1% of the CPU's at 64 x 64. It prints a `cost:`
+line. Every bound in the kernels line comes from utils/kernel_flops.py's
+model of its kernel and utils/roofline.py's `bound`.
 
 `--parent DIR`: DIR holds an earlier checkout of the repository (`git
 archive` of a commit). The inputs of the dense kernel, of the two cluster
@@ -103,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import inspect
@@ -121,6 +140,7 @@ import torch
 from julia_raytracer_tpu_torch import cli
 
 from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
+from julia_raytracer_tpu_torch.ops import cluster_tables, native
 from julia_raytracer_tpu_torch.ops import cuda_build, dense_intersect as di
 from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
@@ -145,8 +165,14 @@ from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, TraceState, adaptive_cdf, adaptive_draw,
     inclusive_scan, make_trace_state, pixel_sums,
 )
-from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
+from julia_raytracer_tpu_torch.render import scene_device
+from julia_raytracer_tpu_torch.render.scene_device import (
+    auto_hybrid_budget, build_device_scene,
+)
 from julia_raytracer_tpu_torch.scene.flatten import flatten_scene
+from julia_raytracer_tpu_torch.scene.instanced import (
+    build_world_flat, select_flatten_shapes,
+)
 from julia_raytracer_tpu_torch.scene.loader import load_scene
 from julia_raytracer_tpu_torch.testing import (
     GRAD_TOL, HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat,
@@ -155,9 +181,11 @@ from julia_raytracer_tpu_torch.testing import (
     render_instanced, require, sphere_grid_scene, subdiv_cube_scene,
     vertex_grads, write_cube_cage, write_yocto_scene,
 )
+from julia_raytracer_tpu_torch.utils import diskcache, kernel_flops as kf
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 from julia_raytracer_tpu_torch.utils.imgio import save_png
+from julia_raytracer_tpu_torch.utils.roofline import bound, roofline
 from julia_raytracer_tpu_torch.utils.vecmath import normalize
 
 MAIN_RES, MAIN_BOUNCES, WARM_SPP, TIMED_SPP = 512, 8, 8, 32
@@ -193,6 +221,14 @@ CONTENT_WARM_SPP, CONTENT_TIMED_SPP = 1, 2
 CONTENT_CHECK_RES, HAIR_CHECK_SPP, LIGHTS_CHECK_SPP = 64, 2, 1
 HAIR_HAIRS, HAIR_SEGMENTS, HAIR_POINTS = 1024, 4, 256
 SUBDIV_LEVELS, SUBDIV_SPP = 4, 4
+# the host_build phase: native tables against numpy's within the JAX
+# package's tolerance (tests/test_pallas_kernels.py), the world soup's
+# float32 sums (another order) within 4 ulps of its largest coordinate
+HOST_TABLE_TOL = 2e-6
+HOST_WORLD_RTOL = 4 * float(np.finfo(np.float32).eps)
+# the cost phase: ops listed a path, and the Cornell box's card-vs-CPU
+# count check at 64 x 64 within 1%
+COST_TOP_OPS, COST_CHECK_RES, COST_CPU_RTOL = 10, 64, 0.01
 CORNELL_QUADS = 18
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
 COMPACT_CAP = N_RAYS // 4  # first two-phase boundary of the main path
@@ -207,22 +243,7 @@ GROUP_SWEEP = (32, 64, 128, 256)
 # live shares of the regroup-vs-worklist sweep (the JAX package's gates
 # are 0.45 and 0.2)
 LIVE_SHARES = (0.45, 0.2, 0.1, 0.03)
-# H100 SXM peaks (NVIDIA's data sheet): HBM rate and fp32 outside the
-# tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# fp32 arithmetic of one Moller-Trumbore test in dense_intersect.cu by how
-# far its pre-test lets it go (compares and selects not counted): every
-# test 25 (9 pvec, 5 det, 3 tvec, 5 u numerator, |det|, 2|det|, 2^-23
-# |det|), past the pre-test 24 more (9 qvec, the reciprocal, u, 6 v, 6 t,
-# u + v)
-DENSE_OPS = (25, 24)
-# the test with its 6 edge subtractions and no pre-test (the count of the
-# kernel before its table was precomputed)
-DENSE_OPS_PER_TRI_TEST = 52
 PRETEST_SUBSET = 16384  # rays of the labelled subset of the pre-test share
-RAY_IN_BYTES = 32  # origin, direction, tmin, tmax
-HIT_OUT_BYTES = 44  # prim, u, v, t, position, normal, instance
 
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "dense_intersect": ("julia_raytracer_tpu_torch/csrc/dense_intersect.cu",
@@ -348,12 +369,9 @@ def kernel_ms(fn, reps: int = REPS) -> dict:
     return dict(ms=device_ms(fn, reps), call_ms=median_ms(fn, reps))
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the fp32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def cost_bound(cost: dict) -> dict:
+    """roofline.bound of a kernel_flops cost."""
+    return bound(cost["bytes"], cost["ops"])
 
 
 def int_max_abs_err(a, b) -> float:
@@ -431,12 +449,13 @@ def phase_intersect(dev, table, turn_inputs: dict | None) -> dict:
     plain_ms = median_ms(lambda: di.dense_intersect_plain(table.prims, *args))
     t = kernel_ms(lambda: di.dense_intersect(table, *args))
     c = _pretest_counts(table, args[0], args[1])
-    n_bytes = (N_RAYS * (RAY_IN_BYTES + HIT_OUT_BYTES) + table.quads.nbytes
-               + table.prims.numel() * 4)
+    cost = kf.dense_intersect_cost(
+        N_RAYS, table.quads.nbytes + table.prims.numel() * 4, c["tests"],
+        c["reach"])
     out = dict(max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
-               pretest=c, **bound(n_bytes, c["tests"] * DENSE_OPS[0]
-                                  + c["reach"] * DENSE_OPS[1]))
-    old_bound = bound(n_bytes, c["tests"] * DENSE_OPS_PER_TRI_TEST)["bound_ms"]
+               pretest=c, **cost_bound(cost))
+    old_bound = bound(cost["bytes"],
+                      c["tests"] * kf.DENSE_OPS_PER_TRI_TEST)["bound_ms"]
     if turn_inputs is not None:
         turn_inputs.update(dense_args=[x.cpu() for x in args],
                            dense_ref=[x.cpu() for x in ref])
@@ -448,7 +467,7 @@ def phase_intersect(dev, table, turn_inputs: dict | None) -> dict:
         f"lane that reaches it {c['warp_reach'] / c['warp_tests']:.4f}; kernel "
         f"{out['ms']:.4f} ms (device; {out['call_ms']:.4f} ms with the "
         f"host's launch), bound {out['bound_ms']:.4f} ms ({out['bound_by']}; "
-        f"{old_bound:.4f} ms at {DENSE_OPS_PER_TRI_TEST} operations a test, "
+        f"{old_bound:.4f} ms at {kf.DENSE_OPS_PER_TRI_TEST} operations a test, "
         f"the count before the pre-test)")
     return out
 
@@ -482,10 +501,10 @@ def phase_compact(dev) -> dict:
     plain_ms = median_ms(lambda: lc.compact_planes_plain(vals, alive, COMPACT_CAP))
     t = kernel_ms(lambda: lc.compact_planes(vals, alive, COMPACT_CAP))
     library_ms = median_ms(lambda: vals[:, alive])
-    n_bytes = vals.numel() * 4 + alive.numel() + STATE_PLANES * COMPACT_CAP * 4
     return dict(max_abs_err=int_max_abs_err(got[:, :total], ref[:, :total]),
                 **t, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(n_bytes, 0))
+                **cost_bound(kf.lane_compact_cost(STATE_PLANES, N_RAYS,
+                                                  COMPACT_CAP)))
 
 
 def phase_expand(dev) -> dict:
@@ -509,9 +528,10 @@ def phase_expand(dev) -> dict:
     plain_ms = median_ms(lambda: lc.expand_planes_plain(narrow, alive, fallback))
     t = kernel_ms(lambda: lc.expand_planes(narrow, alive, fallback))
     library_ms = median_ms(library)
-    n_bytes = (narrow.numel() + 2 * fallback.numel()) * 4 + alive.numel()
     return dict(max_abs_err=int_max_abs_err(got, ref), **t,
-                plain_ms=plain_ms, library_ms=library_ms, **bound(n_bytes, 0))
+                plain_ms=plain_ms, library_ms=library_ms,
+                **cost_bound(kf.lane_expand_cost(OUTPUT_PLANES, COMPACT_CAP,
+                                                 N_RAYS)))
 
 
 def _primary_rays(renderer, dev):
@@ -557,8 +577,9 @@ def _walk_counters(work) -> str:
     return (f"warps walking {work['groups']}, (warp, list entry) steps "
             f"{work['steps']}, mask votes {work['votes']} (one per step a ray "
             f"enters, none per cluster), (warp, cluster) table loads "
-            f"{work['warp_pairs']}, (ray, cluster) pairs in the bound "
-            f"{work['pairs']}, rays per table load "
+            f"{work['warp_pairs']}, (ray, cluster) pairs walked "
+            f"{work['pairs']} (needed, the bound's: {work['bound_pairs']}), "
+            f"rays per table load "
             f"{work['pairs'] / max(work['warp_pairs'], 1):.3f}, lanes busy in "
             f"the triangle loop "
             f"{work['tri_slots'] / max(work['pairs'] * wl.TRIS, 1):.4f} (of "
@@ -583,17 +604,15 @@ def _worklist_case(tables, rays) -> dict:
         lambda: wl.worklist_intersect_plain(tables, *rays, order, cnt),
         PLAIN_WORKLIST_REPS)
     precull_ms = median_ms(lambda: wl.precull(*rays, tables.sbbox))
-    n = rays[0].shape[0]
-    table_bytes = (tables.tab.numel() + tables.bbox.numel()
-                   + tables.sbbox.numel()) * 4
-    list_bytes = (order.numel() + cnt.numel()) * 4
+    # the bound counts what the call needs (wl.call_cost, as the
+    # dispatcher reports it): the pairs entered before the closest hit
+    bound_pairs, _ = wl.needed_pairs(tables, *rays[:3], got.t, order, cnt)
     return dict(
         max_abs_err=err, bit_equal=bit_equal, same_prim=same_prim, **t,
         plain_ms=plain_ms, plain_wall_s=plain_wall, precull_ms=precull_ms,
         library_ms=None, hit_rate=float(got.hit.float().mean()),
-        mean_list=float(cnt.float().mean()), **work,
-        **bound(n * (RAY_IN_BYTES + HIT_OUT_BYTES) + table_bytes + list_bytes,
-                work["pairs"] * wl.TRIS * wl.OPS_PER_TRI_TEST),
+        mean_list=float(cnt.float().mean()), **work, bound_pairs=bound_pairs,
+        **cost_bound(wl.call_cost(tables, *rays[:3], got.t, order, cnt)),
     )
 
 
@@ -640,7 +659,7 @@ def phase_worklist(dev, renderer, primary, bounce) -> dict:
             f"ms, mean work list {sweep[g]['mean_list']:.3f}")
     return dict(b, primary={k: p[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "pairs",
-        "warp_pairs", "groups", "steps", "votes", "mean_list", "precull_ms")},
+        "bound_pairs", "warp_pairs", "groups", "steps", "votes", "mean_list", "precull_ms")},
         sorted_rays_ms=sorted_ms, group_sweep=sweep)
 
 
@@ -689,7 +708,7 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
     live_lanes = int(plan.bits.any(dim=1).sum())
     # the plan as pack and unpack must read it: every pair's count (to skip
     # the empty pairs), and the bits and slot base of the live pairs only
-    plan_bytes = 4 * plan.cnt_ts.numel() + live_pairs * (rg.TILE + 4)
+    plan_bytes = kf.regroup_plan_bytes(plan.cnt_ts.numel(), live_pairs)
     # what the pair walks of pack and unpack meet: the words (32 lanes) of
     # the live pairs that hold a set bit, each one step of a walk, and how
     # unevenly the tiles (one unpack CTA pair each) hold them
@@ -726,8 +745,8 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
         library_ms=median_ms(lambda: rays8[order]),
         # + seg_base and cnt_s, each lane that enters a super read once,
         # every slot (padding included) written once
-        **bound(plan_bytes + 8 * n_super + live_lanes * rg.PAYLOAD * 4
-                + packed.numel() * 4, 0))
+        **cost_bound(kf.regroup_pack_cost(plan_bytes, n_super, live_lanes,
+                                          packed.numel())))
 
     # ---- tri-test
     tri = rg.regroup_tritest(packed, tables, grp_super)
@@ -742,17 +761,13 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
                     for k, v in tables._asdict().items()},
             plan={k: v.cpu() for k, v in plan._asdict().items()},
             rays8=rays8.cpu(), pack_ref=ref.cpu())
-    # the tables the function must read: each wanted cluster's 8 KB once,
-    # and the boxes of the supers its groups test
-    table_bytes = (work["clusters"] * wl.ROWS * wl.TRIS
-                   + torch.unique(grp_super).numel() * tables.sup * 8) * 4
     tritest = dict(
         max_abs_err=int_max_abs_err(tri, tri_ref),
         **kernel_ms(lambda: rg.regroup_tritest(packed, tables, grp_super)),
         plain_ms=plain_ms, library_ms=None, **work,
-        **bound(packed.numel() * 4 + table_bytes + grp_super.numel() * 4
-                + tri.numel() * 4,
-                work["passes"] * wl.TRIS * wl.OPS_PER_TRI_TEST))
+        **cost_bound(kf.regroup_tritest_cost(
+            packed.numel(), work["clusters"], torch.unique(grp_super).numel(),
+            tables.sup, grp_super.numel(), tri.numel(), work["passes"])))
     log(f"regroup_tritest: {packed.shape[0]} slots in {n_groups} groups, "
         f"{work['warps']} warps, {work['votes']} of them vote (the rest hold "
         f"only padding and leave), (warp, cluster) table loads "
@@ -777,8 +792,8 @@ def phase_regroup(dev, renderer, bounce, turn_inputs: dict | None) -> dict:
         **kernel_ms(lambda: rg.regroup_unpack(plan, tri)),
         plain_ms=median_ms(lambda: rg.regroup_unpack_plain(plan, tri), PLAIN_REPS),
         library_ms=None,
-        # + the (tri, t) of each set bit's slot, each ray's result written
-        **bound(plan_bytes + set_bits * 8 + res.numel() * 4, 0))
+        **cost_bound(kf.regroup_unpack_cost(plan_bytes, set_bits,
+                                            res.numel())))
     stages = dict(rays8=rays8, res=res, plan=plan, packed=packed, tri=tri,
                   grp_super=grp_super)
     return dict(regroup_pack=pack, regroup_tritest=tritest,
@@ -921,8 +936,7 @@ def _box_culls(work, n: int, n_clusters: int) -> float:
             + work["steps"] * ci.SUPER) / n_warps
 
 
-def phase_cluster(dev, renderer, rays, need_pairs: int,
-                  turn_inputs: dict | None) -> dict:
+def phase_cluster(dev, renderer, rays, turn_inputs: dict | None) -> dict:
     """Rows 4 and 5 (ops/cluster_intersect.py: each warp of 32 rays sweeps
     every cluster, or every supercluster of 64 and then its clusters, each
     ray culling against its tmax) on the sphere grid's 262,144 pixel-order
@@ -930,10 +944,10 @@ def phase_cluster(dev, renderer, rays, need_pairs: int,
     bit, and within check_hits of the worklist intersector on the same rays
     (both pack the BVH-ordered quads, so prim ids agree); the walks' table
     loads (`loads`, counted by the plain versions). The bound counts
-    the operations of what the function needs, `need_pairs`: the (ray,
-    cluster) pairs that the worklist intersector, computing the same closest
-    hits front to back against each ray's running best, tests on these
-    rays; the kernels' own cull against tmax passes more. No PyTorch call
+    what the function needs (ci.call_cost, as the dispatcher reports it):
+    the (ray, cluster) pairs whose box the ray enters before its closest
+    hit, `bound_pairs`, and the tables of their clusters; the kernels' own
+    cull against tmax passes more. No PyTorch call
     computes this function (library_ms null). The tables, the rays and the
     plain versions' results go into `turn_inputs` when it is a dict."""
     cfg = renderer.config
@@ -961,18 +975,18 @@ def phase_cluster(dev, renderer, rays, need_pairs: int,
             turn_inputs[name + "_ref"] = [x.cpu() for x in want]
         t = kernel_ms(lambda: kernel(tables, *rays), CLUSTER_REPS)
         ms = t["ms"]
+        need_pairs, need_clusters = ci.needed_pairs(tables, *rays[:3], got.t)
         out[name] = dict(
             max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
-            bound_pairs=need_pairs,
-            **work, **bound(n * (RAY_IN_BYTES + HIT_OUT_BYTES) + box_bytes
-                            + work["clusters"] * wl.ROWS * wl.TRIS * 4,
-                            need_pairs * wl.TRIS * wl.OPS_PER_TRI_TEST))
+            bound_pairs=need_pairs, bound_clusters=need_clusters, **work,
+            **cost_bound(ci.call_cost(tables, *rays[:3], got.t, box_bytes)))
         log(f"{name}: {n} sphere-grid bounce rays, {ci.n_clusters(tables)} "
             f"clusters in {tables.sbbox.shape[0]} supers of {ci.SUPER}, "
             f"bit-equal to its plain version, within check_hits of the "
             f"worklist (max |dt| {wl_dt}), (ray, cluster) pairs culled against "
-            f"tmax {work['pairs']}, needed (the worklist's on these rays) "
-            f"{need_pairs}, clusters tested {work['clusters']}, (warp, "
+            f"tmax {work['pairs']}, needed (entered before the closest hit) "
+            f"{need_pairs} in {need_clusters} clusters, clusters tested "
+            f"{work['clusters']}, (warp, "
             f"cluster) table loads {work['loads']}, rays per table load "
             f"{work['pairs'] / max(work['loads'], 1):.3f}, box culls a lane "
             f"{_box_culls(work, n, ci.n_clusters(tables)):.1f}, kernel "
@@ -1078,22 +1092,20 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
     ms = t["ms"]
     precull_ms = median_ms(lambda: ii.precull(*bounce, tables.wi_bbox),
                            CLUSTER_REPS)
-    n, ng = bounce[0].shape[0], lists[2].shape[0]
-    # each input read once: the rays, the group counts, the list entries the
-    # warps walk (order, t_low, and the item's supercluster and instance),
-    # the boxes of the superclusters, the rows of the instances and the
-    # tables of the clusters they visit; each result written once
-    n_bytes = (n * (RAY_IN_BYTES + HIT_OUT_BYTES) + ng * 4
-               + work["steps"] * 16 + work["supers"] * tables.sup * 32
-               + work["instances"] * 96 + work["clusters"] * wl.ROWS * wl.TRIS * 4)
+    n = bounce[0].shape[0]
     out = dict(max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
                precull_ms=precull_ms, **work,
                candidates=int(lists[2].sum()),
-               **bound(n_bytes, work["pairs"] * wl.TRIS * wl.OPS_PER_TRI_TEST))
+               bound_pairs=ii.needed_work(tables, *bounce[:3], got.t, lists[0],
+                                          lists[2])["pairs"],
+               # what the call needs (ii.call_cost, as the dispatcher
+               # reports it): the walk bounded by each ray's closest hit
+               **cost_bound(ii.call_cost(tables, *bounce[:3], got.t, lists[0],
+                                         lists[2])))
     log(f"instanced_intersect: {n} sorted bounce rays, {len(tables.wi_sup)} "
         f"work items, candidates per {ii.GROUP_RAYS} rays "
         f"{float(lists[2].float().mean()):.1f} ({out['candidates']} in all), "
-        f"{_walk_counters(work)}, clusters {work['clusters']}, bit-equal to "
+        f"{_walk_counters(out)}, clusters {work['clusters']}, bit-equal to "
         f"its plain version, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"precull (cull kernel, sort, count) {precull_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
@@ -1205,7 +1217,7 @@ def phase_cull(tables, rays) -> dict:
     """The candidate cull (ops/instanced_intersect.py candidate_keys_*) on
     the instanced scene's sorted bounce rays against its work items' world
     boxes: kernel against plain version on the card, bit for bit. Bound:
-    rays x items x CULL_OPS_PER_TEST operations against the rays, the boxes
+    rays x items x kf.CULL_OPS_PER_TEST operations against the rays, the boxes
     and the keys. No single PyTorch call computes it (library_ms null)."""
     boxes = tables.wi_bbox
     got = ii.candidate_keys_kernel(*rays, boxes)
@@ -1218,9 +1230,8 @@ def phase_cull(tables, rays) -> dict:
     ng, items = got.shape
     out = dict(max_abs_err=0.0, **t, plain_ms=plain_ms, library_ms=None,
                finite_keys=int(torch.isfinite(got).sum()),
-               **bound(rays[0].shape[0] * RAY_IN_BYTES + items * 24
-                       + ng * items * 4,
-                       ng * ii.GROUP_RAYS * items * ii.CULL_OPS_PER_TEST))
+               **cost_bound(kf.candidate_cull_cost(rays[0].shape[0], items, ng,
+                                                   ii.GROUP_RAYS)))
     log(f"candidate_cull: {rays[0].shape[0]} sorted bounce rays in {ng} "
         f"groups of {ii.GROUP_RAYS} x {items} items, keys bit-equal to the "
         f"plain version ({out['finite_keys']} finite), kernel {ms:.4f} ms, "
@@ -2321,6 +2332,248 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
     return out, launches
 
 
+def _timed(stack, module, name, acc, key):
+    """Patch module.name with a wrapper that adds its seconds to acc[key]
+    (and returns what the function returns) for the ExitStack's span."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
+
+    stack.enter_context(mock.patch.object(module, name, wrapper))
+
+
+def _raising(stack, module, name):
+    def refuse(*_args, **_kwargs):
+        raise AssertionError(f"{name} ran on the warm build")
+
+    stack.enter_context(mock.patch.object(module, name, refuse))
+
+
+def _build_renderer(path, params, dev, warm: bool):
+    """load_scene(path) and Renderer(scene, params) on the card, with the
+    set-up's seconds by step (load, bvh, lights, tables, kernel_select, the
+    cache's reads and writes, setup: load + Renderer) and the cache tags
+    read and written. Warm: every builder of a cached product raises."""
+    secs, tags = {}, dict(read=[], written=[], native=[])
+    load_arrays, save_arrays = diskcache.load_arrays, diskcache.save_arrays
+    build_native = native.build_cluster_tables_native
+
+    def reading(key, tag):
+        got = load_arrays(key, tag)
+        if got is not None:
+            tags["read"].append(tag)
+        return got
+
+    def writing(key, tag, arrays):
+        tags["written"].append(tag)
+        return save_arrays(key, tag, arrays)
+
+    def native_tables(*args):
+        tags["native"].append(build_native(*args))
+        return tags["native"][-1]
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(diskcache, "load_arrays", reading))
+        stack.enter_context(mock.patch.object(diskcache, "save_arrays", writing))
+        stack.enter_context(mock.patch.object(
+            native, "build_cluster_tables_native", native_tables))
+        for module, name, key in ((scene_device, "build_bvh", "bvh"),
+                                  (scene_device, "build_lights_np", "lights"),
+                                  (cluster_tables, "build_cluster_tables",
+                                   "tables"),
+                                  (ks, "predict_ratio", "kernel_select")):
+            if warm:
+                _raising(stack, module, name)
+            else:
+                _timed(stack, module, name, secs, key)
+        _timed(stack, diskcache, "load_arrays", secs, "cache_read")
+        _timed(stack, diskcache, "save_arrays", secs, "cache_write")
+        t0 = time.perf_counter()
+        scene = load_scene(path)
+        secs["load"] = time.perf_counter() - t0
+        renderer = Renderer(scene, params, device=dev)
+        torch.cuda.synchronize()
+        secs["setup"] = time.perf_counter() - t0
+    return renderer, scene, secs, tags
+
+
+def _one_sample(renderer, scene, dev) -> np.ndarray:
+    st = make_trace_state(scene, renderer.params, device=dev)
+    renderer.trace_samples(st)
+    return renderer.get_image(st)
+
+
+def phase_host_build(dev, hybrid) -> tuple[dict, Renderer, object, dict]:
+    """The scene set-up on the host: testing.heavy_scene() written with
+    write_yocto_scene into a temporary directory, JRT_CACHE_DIR a fresh
+    temporary directory; load_scene + Renderer (regroup="auto") cold, then
+    warm, with the set-up's seconds by step. The warm build must read the
+    products "geom", "clusters" and "kernel_select" and call no builder
+    (each raises), and one 512 x 512 sample of each must be bit-equal. The
+    cold build's tables must come from the C++ builder (ops/native.py).
+    Then build_cluster_tables on the heavy prims, native and numpy
+    (JRT_NO_NATIVE=1), within rtol = atol = 2e-6, boxes exact; and
+    build_world_flat on `hybrid` (testing.hybrid_scene(), its soup at the
+    automatic budget) both ways, within HOST_WORLD_RTOL of the largest
+    coordinate. Returns (stats, the warm Renderer, its scene, launches)."""
+    out = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out")
+    os.makedirs(root, exist_ok=True)
+    saved_env = {k: os.environ.get(k) for k in ("JRT_CACHE_DIR", "JRT_NO_NATIVE")}
+    _zero_counts()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        os.environ["JRT_CACHE_DIR"] = os.path.join(tmp, "cache")
+        os.environ.pop("JRT_NO_NATIVE", None)
+        try:
+            t0 = time.perf_counter()
+            path = write_yocto_scene(heavy_scene(), os.path.join(tmp, "heavy"))
+            out["write_s"] = time.perf_counter() - t0
+            params = Params(scene=path, resolution=MAIN_RES, samples=1, batch=1,
+                            bounces=MAIN_BOUNCES, sampler="path")
+            cold, cold_scene, out["cold"], cold_tags = _build_renderer(
+                path, params, dev, False)
+            require(cold_tags["native"] and all(cold_tags["native"]),
+                    "the cold build's cluster tables did not take the C++ "
+                    f"builder ({cold_tags['native']})")
+            require({"geom", "clusters", "kernel_select"}
+                    <= set(cold_tags["written"]),
+                    f"the cold build saved {cold_tags['written']}")
+            img_cold = _one_sample(cold, cold_scene, dev)
+            warm, warm_scene, out["warm"], warm_tags = _build_renderer(
+                path, params, dev, True)
+            require({"geom", "clusters", "kernel_select"}
+                    <= set(warm_tags["read"]) and not warm_tags["written"],
+                    f"the warm build read {warm_tags['read']}, wrote "
+                    f"{warm_tags['written']}")
+            img_warm = _one_sample(warm, warm_scene, dev)
+            require(np.array_equal(img_cold, img_warm),
+                    "the warm build's sample differs from the cold one's")
+            out["products_read"] = sorted(warm_tags["read"])
+            out["cache_mb"] = sum(
+                os.path.getsize(os.path.join(dirpath, f))
+                for dirpath, _, files in os.walk(os.environ["JRT_CACHE_DIR"])
+                for f in files) / 2**20
+            out["warm_intersector"] = ("worklist" if getattr(
+                warm.intersect, "livegate", None) is None else "regroup")
+            del cold, cold_scene
+
+            pv = np.asarray(warm.config.host_prim_verts, np.float64)
+            inst = warm.config.host_prim_instance
+            out["native_threads"] = native.threads()
+            out["native_build_s"] = native.build_seconds.get("cluster_tables")
+            t0 = time.perf_counter()
+            got = cluster_tables.build_cluster_tables(pv, inst)
+            out["tables_native_s"] = time.perf_counter() - t0
+            os.environ["JRT_NO_NATIVE"] = "1"
+            t0 = time.perf_counter()
+            want = cluster_tables.build_cluster_tables(pv, inst)
+            out["tables_numpy_s"] = time.perf_counter() - t0
+            require(got[3] == want[3] and np.array_equal(got[2], want[2]),
+                    "native cluster boxes differ from numpy's")
+            for a, b, what in ((got[0], want[0], "transforms"),
+                               (got[1], want[1], "normals")):
+                err = float(np.abs(a.astype(np.float64) - b).max())
+                require(np.allclose(a, b, rtol=HOST_TABLE_TOL,
+                                    atol=HOST_TABLE_TOL),
+                        f"native {what} differ from numpy's by {err}")
+                out[f"tables_{what}_max_abs_err"] = err
+            out["tables_bit_equal"] = all(np.array_equal(a, b)
+                                          for a, b in zip(got[:3], want[:3]))
+            del got, want, pv
+
+            flat = flatten_scene(hybrid, expand_prims=False)
+            mask = select_flatten_shapes(flat, auto_hybrid_budget(flat))
+            os.environ.pop("JRT_NO_NATIVE", None)
+            t0 = time.perf_counter()
+            wn = build_world_flat(flat, mask)
+            out["world_native_s"] = time.perf_counter() - t0
+            os.environ["JRT_NO_NATIVE"] = "1"
+            t0 = time.perf_counter()
+            wp = build_world_flat(flat, mask)
+            out["world_numpy_s"] = time.perf_counter() - t0
+            require(len(wp[0]) > 0, "the hybrid scene flattened no soup")
+            scale = float(np.abs(wp[0]).max())
+            err = float(np.abs(wn[0] - wp[0]).max())
+            require(np.array_equal(wn[1], wp[1]) and np.array_equal(wn[2], wp[2])
+                    and err <= HOST_WORLD_RTOL * scale,
+                    f"native world soup differs from numpy's by {err} "
+                    f"(scale {scale})")
+            out.update(world_quads=len(wn[0]), world_max_abs_err=err,
+                       world_bit_equal=bool(np.array_equal(wn[0], wp[0])))
+            del wn, wp, flat
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    launches = _read_counts()
+    require(launches["worklist_intersect"] > 0,
+            "the host_build samples never launched worklist_intersect")
+    return out, warm, warm_scene, launches
+
+
+def _cost_row(renderer, scene, dev) -> dict:
+    st = make_trace_state(scene, renderer.params, device=dev)
+    t0 = time.perf_counter()
+    c = renderer.sample_kernel_cost(st)
+    c["count_s"] = time.perf_counter() - t0
+    return c
+
+
+def phase_cost(dev, paths: dict) -> tuple[dict, dict]:
+    """Renderer.sample_kernel_cost of one 512 x 512, 8-bounce sample on
+    each main path (`paths`: {name: (renderer, scene, ms per sample of its
+    timed main_path samples)}), with roofline() over the main path's wall
+    ms a sample and over one sample's device ms (torch.profiler); the
+    op-name and kernel tables. The Cornell box's count on the card must be
+    within COST_CPU_RTOL of the CPU's at 64 x 64. Returns (stats,
+    launches)."""
+    out = {}
+    _zero_counts()
+    for name, (r, scene, wall_ms) in paths.items():
+        t0 = time.perf_counter()
+        c = _cost_row(r, scene, dev)
+        params, r.params = r.params, dataclasses.replace(r.params, batch=1)
+        try:
+            dev_ms = _sample_device_ms(r, scene, dev)
+        finally:
+            r.params = params
+        top = sorted(c["ops"].items(), key=lambda kv: -kv[1][2])[:COST_TOP_OPS]
+        out[name] = dict(
+            flops=c["flops"], bytes=c["bytes_accessed"],
+            kernel_flops=c["kernel_flops"], kernel_bytes=c["kernel_bytes"],
+            other_flops=c["other_flops"], other_bytes=c["other_bytes"],
+            chunks_per_sample=c["chunks_per_sample"],
+            op_calls=sum(v[0] for v in c["ops"].values()),
+            kernels=c["kernels"], top_ops_by_bytes=dict(top),
+            count_s=c["count_s"], wall_ms=wall_ms, device_ms=dev_ms,
+            at_wall=roofline(c["flops"], c["bytes_accessed"], wall_ms / 1e3),
+            at_device=roofline(c["flops"], c["bytes_accessed"], dev_ms / 1e3),
+            seconds=time.perf_counter() - t0)
+        for k in ("at_wall", "at_device"):
+            out[name][k].pop("mfu_note", None)
+        log(f"cost {name}: {json.dumps(out[name])}")
+    launches = _read_counts()
+    small = Params(resolution=COST_CHECK_RES, samples=1, batch=1,
+                   bounces=MAIN_BOUNCES, sampler="path")
+    scene = cornell_scene()
+    got = [_cost_row(Renderer(scene, small, device=device), scene, device)
+           for device in (dev, "cpu")]
+    agree = {k: abs(got[0][k] - got[1][k]) / got[1][k]
+             for k in ("flops", "bytes_accessed")}
+    require(max(agree.values()) <= COST_CPU_RTOL,
+            f"the Cornell box's count on the card is {agree} off the CPU's")
+    out["cornell_card_vs_cpu_rel"] = agree
+    out["mfu_note"] = roofline(1.0, 1.0, 1.0)["mfu_note"]
+    return out, launches
+
+
 _TURN_CHILD = """
 import json, os, sys
 import numpy as np
@@ -2524,9 +2777,7 @@ def main() -> int:
         "worklist_intersect": phase_worklist(dev, spheres, sp_primary,
                                              sp_bounce),
     }
-    phases.update(phase_cluster(dev, spheres, sp_bounce,
-                                phases["worklist_intersect"]["pairs"],
-                                turn_inputs))
+    phases.update(phase_cluster(dev, spheres, sp_bounce, turn_inputs))
     del sp_primary, sp_bounce
     phases["instanced_intersect"], phases["candidate_cull"] = phase_instanced(
         dev, inst["instanced"], inst_scenes["instanced"])
@@ -2667,11 +2918,27 @@ def main() -> int:
         dinst_phase, dinst_launch = phase_diff_instanced(dev, inst)
         log(f"diff_instanced: {json.dumps(dinst_phase)} "
             f"({time.perf_counter() - t0:.1f} s)")
-    del inst
     t0 = time.perf_counter()
     content_phase, content_launch = phase_scene_content(dev)
     log(f"scene_content: {json.dumps(content_phase)} "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    host_phase, heavy_warm, heavy_scene_warm, host_launch = phase_host_build(
+        dev, inst_scenes["hybrid"])
+    log(f"host_build: {json.dumps(host_phase)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cost_phase, cost_launch = phase_cost(dev, {
+        "cornell": (cornell, cornell_scene(), c_stats["ms_per_sample"]),
+        "spheres": (spheres, spheres_scene, s_stats["ms_per_sample"]),
+        "heavy_auto": (heavy_warm, heavy_scene_warm, a_stats["ms_per_sample"]),
+        "instanced": (inst["instanced"], inst_scenes["instanced"],
+                      inst_stats["instanced"]["ms_per_sample"]),
+        "hybrid": (inst["hybrid"], inst_scenes["hybrid"],
+                   inst_stats["hybrid"]["ms_per_sample"]),
+    })
+    del inst, heavy_warm
+    log(f"cost: {json.dumps(cost_phase)} ({time.perf_counter() - t0:.1f} s)")
 
     kernels = []
     for name, p in phases.items():
@@ -2682,14 +2949,15 @@ def main() -> int:
                       + a_launch[name] + inst_launch["instanced"][name]
                       + inst_launch["hybrid"][name] + cli_launch[name]
                       + diff_launch[name] + dinst_launch[name]
-                      + content_launch.get(name, 0)),
+                      + content_launch.get(name, 0) + host_launch[name]
+                      + cost_launch[name]),
             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"],
             library_ms=p["library_ms"],
         )
         for extra in ("call_ms", "parent_ms", "ms_turns", "pretest", "primary",
                       "sorted_rays_ms", "passes", "group_passes",
-                      "clusters", "pairs", "bound_pairs", "loads", "warps",
+                      "clusters", "pairs", "bound_pairs", "bound_clusters", "loads", "warps",
                       "groups", "steps", "votes", "warp_pairs", "tri_slots",
                       "precull_ms", "candidates", "finite_keys",
                       "group_sweep", "hybrid_group_sweep"):

@@ -51,6 +51,7 @@ from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER, TRIS
 from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
 
 SUPER = 64  # clusters per supercluster of the streamed kernel
 FLAGS = ("-fmad=false",)
@@ -214,27 +215,60 @@ def _lib():
     return lib
 
 
-def _dispatch(plain, kernel, tables, ro, rd, tmin, tmax) -> Hit:
-    if ro.device.type == "cpu":
-        return plain(tables, ro, rd, tmin, tmax)[0]
-    if ro.device.type == "cuda":
-        return kernel(tables, ro, rd, tmin, tmax)
-    raise ValueError(f"unsupported device {ro.device}")
+def needed_pairs(tables: wl.WorklistTables, ro, rd, tmin,
+                 t_hit) -> tuple[int, int]:
+    """(pairs, clusters) a sweep over every cluster needs: worklist_
+    intersect.needed_pairs with every supercluster listed for every group."""
+    n_super = tables.sbbox.shape[0]
+    n_groups = -(-ro.shape[0] // wl.GROUP_RAYS)
+    order = torch.arange(n_super, dtype=torch.int32, device=ro.device)
+    return wl.needed_pairs(
+        tables, ro, rd, tmin, t_hit, order.expand(n_groups, n_super),
+        torch.full((n_groups,), n_super, dtype=torch.int32, device=ro.device))
+
+
+def call_cost(tables: wl.WorklistTables, ro, rd, tmin, t_hit,
+              box_bytes: int) -> dict:
+    """kernel_flops.cluster_sweep_cost of one call: the (ray, cluster)
+    pairs and clusters it needs (needed_pairs)."""
+    pairs, clusters = needed_pairs(tables, ro, rd, tmin, t_hit)
+    return kf.cluster_sweep_cost(ro.shape[0], box_bytes, clusters, pairs)
+
+
+def _dispatch(name, plain, kernel, box_bytes, tables, ro, rd, tmin,
+              tmax) -> Hit:
+    with roofline.kernel_region() as counter:
+        if ro.device.type == "cpu":
+            hit = plain(tables, ro, rd, tmin, tmax)[0]
+        elif ro.device.type == "cuda":
+            hit = kernel(tables, ro, rd, tmin, tmax)
+        else:
+            raise ValueError(f"unsupported device {ro.device}")
+        if counter is not None:
+            counter.add_kernel(name, call_cost(tables, ro, rd, tmin, hit.t,
+                                               box_bytes))
+    return hit
 
 
 def cluster_intersect(tables, ro, rd, tmin, tmax) -> Hit:
     """Closest hit over every cluster: the plain version for CPU tensors,
-    the kernel for CUDA tensors."""
-    return _dispatch(cluster_intersect_plain, cluster_intersect_kernel,
+    the kernel for CUDA tensors; under roofline.count_cost the call
+    reports call_cost (the cluster boxes read)."""
+    return _dispatch("cluster_intersect", cluster_intersect_plain,
+                     cluster_intersect_kernel, n_clusters(tables) * 32,
                      tables, ro, rd, tmin, tmax)
 
 
 def cluster_intersect_streamed(tables, ro, rd, tmin, tmax) -> Hit:
     """Closest hit over every supercluster's clusters: the plain version
-    for CPU tensors, the kernel for CUDA tensors."""
-    return _dispatch(cluster_intersect_streamed_plain,
-                     cluster_intersect_streamed_kernel, tables, ro, rd, tmin,
-                     tmax)
+    for CPU tensors, the kernel for CUDA tensors; under
+    roofline.count_cost the call reports call_cost (the cluster and
+    supercluster boxes read)."""
+    return _dispatch("cluster_intersect_streamed",
+                     cluster_intersect_streamed_plain,
+                     cluster_intersect_streamed_kernel,
+                     (tables.bbox.numel() + tables.sbbox.numel()) * 4,
+                     tables, ro, rd, tmin, tmax)
 
 
 def make_cluster_intersect(prim_verts: np.ndarray, prim_instance, device):

@@ -15,9 +15,11 @@ and (p3, p4, p2); degenerate triangles and the padding of the last
 cluster get the never-hit transform (all zero but t_w = 1, so d'_z = 0).
 Fully padded cluster boxes sit at min = max = +3e38, which no ray enters.
 
-The JAX package tries a C++ builder first (same math); the port does not
-need it at the scene sizes it serves, nor the on-disk table cache the
-JAX package uses above 200k primitives.
+build_cluster_tables takes the C++/OpenMP builder of ops/native.py first
+(the same math; within 2e-6 of this path, boxes exact), this numpy path
+when that is not in use. load_cluster_tables reads and writes the tables
+of scenes above utils/diskcache.CACHE_MIN_PRIMS prims in the disk cache
+(product "clusters"), as the JAX package's `_load_tables`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from julia_raytracer_tpu_torch.ops import native
+from julia_raytracer_tpu_torch.utils import diskcache
 
 PRIMS_PER_CLUSTER = 64  # -> 128 triangles per cluster
 TRIS = 2 * PRIMS_PER_CLUSTER
@@ -99,6 +104,10 @@ def build_cluster_tables(prim_verts: np.ndarray, prim_instance=None):
         iid[:q] = np.asarray(prim_instance, np.float32)
         nrm4[:, 3, :] = np.repeat(iid, 2).reshape(c, TRIS)
 
+    if native.build_cluster_tables_native(np.ascontiguousarray(pv32), q, c,
+                                          tfm, nrm4, bbox):
+        return tfm, nrm4, bbox, c
+
     def fill(c_lo: int, c_hi: int) -> None:
         p_lo = c_lo * PRIMS_PER_CLUSTER
         p_hi = c_hi * PRIMS_PER_CLUSTER
@@ -141,6 +150,23 @@ def build_cluster_tables(prim_verts: np.ndarray, prim_instance=None):
         with ThreadPoolExecutor(max_workers=workers) as ex:
             list(ex.map(lambda r: fill(*r), ranges))
     return tfm, nrm4, bbox, c
+
+
+def load_cluster_tables(prim_verts: np.ndarray, prim_instance=None,
+                        cache_key: str = ""):
+    """build_cluster_tables, through the disk cache: the product
+    "clusters" under `cache_key` when its prim count matches, else built
+    (and saved above diskcache.CACHE_MIN_PRIMS prims)."""
+    q = len(prim_verts)
+    cached = diskcache.load_arrays(cache_key, "clusters")
+    if cached is not None and int(cached["q"]) == q:
+        return (cached["tfm"], cached["nrm"], cached["bbox"],
+                int(cached["n_clusters"]))
+    tfm, nrm, bbox, n_clusters = build_cluster_tables(prim_verts, prim_instance)
+    if q > diskcache.CACHE_MIN_PRIMS:
+        diskcache.save_arrays(cache_key, "clusters", dict(
+            tfm=tfm, nrm=nrm, bbox=bbox, n_clusters=n_clusters, q=q))
+    return tfm, nrm, bbox, n_clusters
 
 
 def _wl_super_bbox(bbox: np.ndarray, sup: int) -> np.ndarray:

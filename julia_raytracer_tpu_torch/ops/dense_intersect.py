@@ -36,6 +36,7 @@ import torch
 
 from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
 
 MAX_PRIMS = 112
 STRIDE = 16
@@ -213,10 +214,42 @@ def _check(x, dtype, shape, device, name):
         raise ValueError(f"{name} must be contiguous")
 
 
+def pretest_counts(table: DenseTable, ro, rd) -> tuple[int, int]:
+    """(tests, reach): the triangle tests the kernel runs on these rays
+    (second triangles of quads with p3 == p4 are skipped) and those that
+    pass the pre-test and reach the reciprocal (pretest_pass)."""
+    quads = torch.from_numpy(table.quads).to(ro.device)
+    tested = quads[:, 18] == 0.0
+    tests = reach = 0
+    for second in (False, True):
+        passed = pretest_pass(ro, rd, quads, second)
+        if second:
+            passed = passed[:, tested]
+        tests += passed.numel()
+        reach += int(passed.sum())
+    return tests, reach
+
+
+def call_cost(table: DenseTable, ro, rd) -> dict:
+    """kernel_flops.dense_intersect_cost of one call on these rays."""
+    return kf.dense_intersect_cost(
+        ro.shape[0], table.quads.nbytes + table.prims.numel() * 4,
+        *pretest_counts(table, ro, rd))
+
+
 def dense_intersect(table: DenseTable, ro, rd, tmin, tmax) -> Hit:
     """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] against the quads of
     `table` (make_dense_table). Plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors; under roofline.count_cost the call reports
+    call_cost."""
+    with roofline.kernel_region() as counter:
+        hit = _dense_intersect(table, ro, rd, tmin, tmax)
+        if counter is not None:
+            counter.add_kernel("dense_intersect", call_cost(table, ro, rd))
+    return hit
+
+
+def _dense_intersect(table: DenseTable, ro, rd, tmin, tmax) -> Hit:
     prims, quads = table
     if ro.device.type == "cpu":
         return dense_intersect_plain(prims, ro, rd, tmin, tmax)

@@ -58,6 +58,7 @@ from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import TRIS
 from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
 
 WARP = wl.WARP  # rays of a walking warp
 # rays per candidate list (the JAX package's: 1,024): of 32-256, the sum
@@ -69,9 +70,6 @@ SLACK = wl.SLACK
 # [rays, items] float temporaries of the plain cull above this many bytes
 # are cut into chunks of groups (six of them are live at once)
 PRECULL_BYTES = 1.5e9
-# fp32 operations of one (ray, item) slab test of the cull, counted in
-# candidate_cull.cu
-CULL_OPS_PER_TEST = 28
 FLAGS = ("-fmad=false",)
 
 
@@ -185,8 +183,12 @@ def precull(ro, rd, tmin, tmax, wi_bbox, group: int = GROUP_RAYS):
     (order [ng, items] i32, tlow [ng, items] f32 sorted, cnt [ng] i32):
     the cull's plain version for CPU tensors, its kernel for CUDA
     tensors."""
-    keys = (candidate_keys_plain if ro.device.type == "cpu"
-            else candidate_keys_kernel)(ro, rd, tmin, tmax, wi_bbox, group)
+    with roofline.kernel_region() as counter:
+        keys = (candidate_keys_plain if ro.device.type == "cpu"
+                else candidate_keys_kernel)(ro, rd, tmin, tmax, wi_bbox, group)
+        if counter is not None:
+            counter.add_kernel("candidate_cull", kf.candidate_cull_cost(
+                ro.shape[0], wi_bbox.shape[0], keys.shape[0], group))
     order = torch.argsort(keys, dim=1, stable=True)
     tlow = keys.gather(1, order)
     cnt = torch.isfinite(keys).sum(dim=1, dtype=torch.int32)
@@ -202,20 +204,6 @@ def _to_shape_space(ro, rd, xf):
     so = torch.stack([row(ro, j) + xf[:, 9 + j] for j in range(3)], dim=-1)
     sd = torch.stack([row(rd, j) for j in range(3)], dim=-1)
     return so, sd
-
-
-def _cull_all(o, inv, tmin, tlim, boxes):
-    """[n] rays against their [n, sup] cluster boxes: cluster_cull for
-    every cluster of each ray's item at once -> [n, sup]."""
-    t0 = (boxes[..., 0:3] - o[:, None]) * inv[:, None]
-    t1 = (boxes[..., 3:6] - o[:, None]) * inv[:, None]
-    lo = torch.minimum(t0, t1)
-    hi = torch.maximum(t0, t1)
-    enter = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
-    exit_ = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
-    enter = torch.maximum(enter, tmin[:, None])
-    exit_ = torch.minimum(exit_, tlim[:, None])
-    return enter <= exit_ * SLACK
 
 
 def instanced_intersect_plain(tables: InstancedDeviceTables, ro, rd, tmin,
@@ -297,8 +285,8 @@ def instanced_intersect_plain(tables: InstancedDeviceTables, ro, rd, tmin,
         inv = wl._inverse_dir(sd)
         tmin_w, tmax_w, b = tmin[w], tmax[w], best[w]
         boxes = bbox[sc]  # [w, sup, 8]
-        start = enter[:, None] & _cull_all(so, inv, tmin_w,
-                                           torch.minimum(tmax_w, b), boxes)
+        start = enter[:, None] & wl.cull_all(so, inv, tmin_w,
+                                             torch.minimum(tmax_w, b), boxes)
         ri, ci = torch.nonzero(start, as_tuple=True)
         if ri.numel() == 0:
             continue
@@ -433,6 +421,58 @@ def normalize_normal(hit: Hit) -> Hit:
     return hit._replace(gnormal=gn / torch.where(gl > 0, gl, 1.0))
 
 
+def needed_work(tables: InstancedDeviceTables, ro, rd, tmin, t_hit, order,
+                cnt, group: int = GROUP_RAYS) -> dict:
+    """What a walk over these candidate lists needs, with each ray's
+    closest hit t_hit (the hit's t, tmax for a miss) as its bound: the
+    (warp, item) steps in which some ray of the warp enters the item's
+    world box before t_hit (`steps`), the (ray, cluster) pairs whose
+    shape-space box the entering rays enter before t_hit (`pairs`), and
+    the distinct clusters, superclusters and instances among those pairs
+    (`clusters`, `supers`, `instances`). The kernel's walk against its
+    running best does at least this (instanced_intersect_plain's work)."""
+    n, dev, sup = ro.shape[0], ro.device, tables.sup
+    inv_w = wl._inverse_dir(rd)
+    bbox = tables.bbox.view(-1, sup, 8)
+    touched = torch.zeros(bbox.shape[0] * sup, dtype=torch.bool, device=dev)
+    touched_sup = torch.zeros(bbox.shape[0], dtype=torch.bool, device=dev)
+    touched_inst = torch.zeros(tables.inst_rows.shape[0], dtype=torch.bool,
+                               device=dev)
+    cl_of = torch.arange(sup, device=dev)
+    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    n_items = max(order.shape[1], 1)
+    for rays, k in wl.list_entries(cnt, group, n):
+        item = order[rays // group, k].long()
+        enter = wl._cluster_cull(ro[rays], inv_w[rays], tmin[rays],
+                                 t_hit[rays], tables.wi_bbox[item])
+        rays, k, item = rays[enter], k[enter], item[enter]
+        steps += torch.unique((rays // WARP) * n_items + k).numel()
+        step = max(1, wl.COUNT_TESTS // sup)
+        for r, it in zip(rays.split(step), item.split(step)):
+            sc, inst = tables.wi_sup[it].long(), tables.wi_inst[it].long()
+            so, sd = _to_shape_space(ro[r], rd[r], tables.inst_rows[inst])
+            want = wl.cull_all(so, wl._inverse_dir(sd), tmin[r], t_hit[r],
+                               bbox[sc])
+            pairs += want.sum()
+            touched[(sc[:, None] * sup + cl_of)[want]] = True
+            any_c = want.any(dim=1)
+            touched_sup[sc[any_c]] = True
+            touched_inst[inst[any_c]] = True
+    return dict(steps=int(steps), pairs=int(pairs),
+                clusters=int(touched.sum()), supers=int(touched_sup.sum()),
+                instances=int(touched_inst.sum()))
+
+
+def call_cost(tables: InstancedDeviceTables, ro, rd, tmin, t_hit, order, cnt,
+              group: int = GROUP_RAYS) -> dict:
+    """kernel_flops.instanced_intersect_cost of one call (needed_work)."""
+    w = needed_work(tables, ro, rd, tmin, t_hit, order, cnt, group)
+    return kf.instanced_intersect_cost(
+        ro.shape[0], cnt.shape[0], w["steps"], w["supers"], tables.sup,
+        w["instances"], w["clusters"], w["pairs"])
+
+
 def instanced_intersect(tables: InstancedDeviceTables, ro, rd, tmin,
                         tmax) -> Hit:
     """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] over the work
@@ -448,10 +488,15 @@ def instanced_intersect(tables: InstancedDeviceTables, ro, rd, tmin,
         return Hit(torch.zeros(n, dtype=torch.bool, device=ro.device), zi - 1,
                    z, z, tmax, ro + tmax[:, None] * rd, torch.zeros_like(ro), zi)
     lists = precull(ro, rd, tmin, tmax, tables.wi_bbox)
-    if ro.device.type == "cpu":
-        hit = instanced_intersect_plain(tables, ro, rd, tmin, tmax, *lists)[0]
-    else:
-        hit = instanced_intersect_kernel(tables, ro, rd, tmin, tmax, *lists)
+    with roofline.kernel_region() as counter:
+        if ro.device.type == "cpu":
+            hit = instanced_intersect_plain(tables, ro, rd, tmin, tmax,
+                                            *lists)[0]
+        else:
+            hit = instanced_intersect_kernel(tables, ro, rd, tmin, tmax, *lists)
+        if counter is not None:
+            counter.add_kernel("instanced_intersect", call_cost(
+                tables, ro, rd, tmin, hit.t, lists[0], lists[2]))
     return normalize_normal(hit)
 
 

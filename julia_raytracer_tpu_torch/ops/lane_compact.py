@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from julia_raytracer_tpu_torch.ops import cuda_build
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
 
 TILE = 1024
 
@@ -98,7 +99,18 @@ def _check(vals, alive, planes_n):
 
 
 def compact_planes(vals, alive, cap: int):
-    """Pack the alive lanes of vals [P, n] into the prefix of [P, cap]."""
+    """Pack the alive lanes of vals [P, n] into the prefix of [P, cap]
+    (the plain version for CPU tensors, the kernel for CUDA tensors; under
+    roofline.count_cost the call reports kernel_flops.lane_compact_cost)."""
+    with roofline.kernel_region() as counter:
+        out = _compact_planes(vals, alive, cap)
+        if counter is not None:
+            counter.add_kernel("lane_compact", kf.lane_compact_cost(
+                vals.shape[0], vals.shape[1], cap))
+    return out
+
+
+def _compact_planes(vals, alive, cap: int):
     if vals.device.type == "cpu":
         return compact_planes_plain(vals, alive, cap)
     if vals.device.type != "cuda":
@@ -125,7 +137,18 @@ compact_planes.launches = 0
 
 def expand_planes(narrow, alive, fallback):
     """Scatter narrow [P, cap] back to the alive lanes of [P, n]; other
-    lanes keep fallback [P, n]."""
+    lanes keep fallback [P, n] (the plain version for CPU tensors, the
+    kernel for CUDA tensors; under roofline.count_cost the call reports
+    kernel_flops.lane_expand_cost)."""
+    with roofline.kernel_region() as counter:
+        out = _expand_planes(narrow, alive, fallback)
+        if counter is not None:
+            counter.add_kernel("lane_expand", kf.lane_expand_cost(
+                narrow.shape[0], narrow.shape[1], fallback.shape[1]))
+    return out
+
+
+def _expand_planes(narrow, alive, fallback):
     if narrow.device.type == "cpu":
         return expand_planes_plain(narrow, alive, fallback)
     if narrow.device.type != "cuda":

@@ -60,6 +60,7 @@ from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import TRIS
 from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
 
 TILE = 1024  # rays per tile = slots per tri-test group
 LANES = 128
@@ -187,6 +188,35 @@ def regroup_pack_plain(plan: Plan, rays8, n_slots: int):
     return out
 
 
+def tritest_pairs(packed, tables: wl.WorklistTables, grp_super):
+    """The (slot, cluster) pairs the tri-test tests: each slot against the
+    clusters of its group's super, culled against the slot's tmax ->
+    (slot, cluster index in the super, cluster id), each [pairs] i64."""
+    dev = packed.device
+    sup = tables.sup
+    n = packed.shape[0]
+    o, tmin, tmax = packed[:, 0:3], packed[:, 6], packed[:, 7]
+    inv = wl._inverse_dir(packed[:, 3:6])
+    sc = grp_super.long().repeat_interleave(TILE)
+    boxes = tables.bbox.view(-1, sup, 8)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    pair_slot, pair_ci = [none], [none]
+    for lo in range(0, n, PLAIN_SLOTS):  # the cull, [slots, sup] at a time
+        sl = slice(lo, min(lo + PLAIN_SLOTS, n))
+        m = sl.stop - lo
+
+        def rep(x):
+            return x[sl, None].expand((m, sup) + x.shape[1:]).reshape((m * sup,) + x.shape[1:])
+
+        want = wl._cluster_cull(rep(o), rep(inv), rep(tmin), rep(tmax),
+                                boxes[sc[sl]].reshape(-1, 8)).view(m, sup)
+        slot, ci = torch.nonzero(want, as_tuple=True)
+        pair_slot.append(slot + lo)
+        pair_ci.append(ci)
+    slot_p, ci_p = torch.cat(pair_slot), torch.cat(pair_ci)
+    return slot_p, ci_p, sc[slot_p] * sup + ci_p
+
+
 def regroup_tritest_plain(packed, tables: wl.WorklistTables, grp_super):
     """Plain version of the tri-test kernel -> (out [slots, 2] i32, work),
     where work counts the (slot, cluster) pairs that pass the cull
@@ -214,25 +244,7 @@ def regroup_tritest_plain(packed, tables: wl.WorklistTables, grp_super):
     n = packed.shape[0]
     o, d = packed[:, 0:3], packed[:, 3:6]
     tmin, tmax = packed[:, 6], packed[:, 7]
-    inv = wl._inverse_dir(d)
-    sc = grp_super.long().repeat_interleave(TILE)
-    boxes = tables.bbox.view(-1, sup, 8)
-    none = torch.zeros(0, dtype=torch.int64, device=dev)
-    pair_slot, pair_ci = [none], [none]
-    for lo in range(0, n, PLAIN_SLOTS):  # the cull, [slots, sup] at a time
-        sl = slice(lo, min(lo + PLAIN_SLOTS, n))
-        m = sl.stop - lo
-
-        def rep(x):
-            return x[sl, None].expand((m, sup) + x.shape[1:]).reshape((m * sup,) + x.shape[1:])
-
-        want = wl._cluster_cull(rep(o), rep(inv), rep(tmin), rep(tmax),
-                                boxes[sc[sl]].reshape(-1, 8)).view(m, sup)
-        slot, ci = torch.nonzero(want, as_tuple=True)
-        pair_slot.append(slot + lo)
-        pair_ci.append(ci)
-    slot_p, ci_p = torch.cat(pair_slot), torch.cat(pair_ci)
-    cl_p = sc[slot_p] * sup + ci_p
+    slot_p, ci_p, cl_p = tritest_pairs(packed, tables, grp_super)
     t_pair = torch.empty(slot_p.shape[0], device=dev)
     tri_pair = torch.empty(slot_p.shape[0], dtype=torch.int64, device=dev)
     hit_pair = torch.empty(slot_p.shape[0], dtype=torch.bool, device=dev)
@@ -300,10 +312,27 @@ def _check(x, dtype, shape, device, name):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def plan_bytes(plan: Plan) -> int:
+    """kernel_flops.regroup_plan_bytes of a plan."""
+    return kf.regroup_plan_bytes(plan.cnt_ts.numel(),
+                                 int((plan.cnt_ts > 0).sum()))
+
+
 def regroup_pack(plan: Plan, rays8, n_slots: int):
     """Pack kernel on CUDA tensors, its plain version on CPU tensors (any
     other device raises) -> packed [n_slots, 8] f32. `n_slots` must be the
-    plan's segment total (1024 x its groups)."""
+    plan's segment total (1024 x its groups). Under roofline.count_cost
+    the call reports kernel_flops.regroup_pack_cost."""
+    with roofline.kernel_region() as counter:
+        out = _regroup_pack(plan, rays8, n_slots)
+        if counter is not None:
+            counter.add_kernel("regroup_pack", kf.regroup_pack_cost(
+                plan_bytes(plan), plan.bits.shape[1],
+                int(plan.bits.any(dim=1).sum()), out.numel()))
+    return out
+
+
+def _regroup_pack(plan: Plan, rays8, n_slots: int):
     if rays8.device.type == "cpu":
         return regroup_pack_plain(plan, rays8, n_slots)
     _require_cuda(rays8, "regroup_pack")
@@ -330,7 +359,20 @@ def regroup_pack(plan: Plan, rays8, n_slots: int):
 
 def regroup_tritest(packed, tables: wl.WorklistTables, grp_super):
     """Tri-test kernel on CUDA tensors, its plain version on CPU tensors
-    -> [slots, 2] i32 (tri, t bits)."""
+    -> [slots, 2] i32 (tri, t bits). Under roofline.count_cost the call
+    reports kernel_flops.regroup_tritest_cost (its passes: tritest_pairs)."""
+    with roofline.kernel_region() as counter:
+        out = _regroup_tritest(packed, tables, grp_super)
+        if counter is not None:
+            _, _, cl_p = tritest_pairs(packed, tables, grp_super)
+            counter.add_kernel("regroup_tritest", kf.regroup_tritest_cost(
+                packed.numel(), torch.unique(cl_p).numel(),
+                torch.unique(grp_super).numel(), tables.sup,
+                grp_super.numel(), out.numel(), cl_p.numel()))
+    return out
+
+
+def _regroup_tritest(packed, tables: wl.WorklistTables, grp_super):
     if packed.device.type == "cpu":
         return regroup_tritest_plain(packed, tables, grp_super)[0]
     _require_cuda(packed, "regroup_tritest")
@@ -354,7 +396,17 @@ def regroup_tritest(packed, tables: wl.WorklistTables, grp_super):
 
 def regroup_unpack(plan: Plan, trires):
     """Unpack kernel on CUDA tensors, its plain version on CPU tensors ->
-    [T * 1024, 2] i32 (tri, t bits)."""
+    [T * 1024, 2] i32 (tri, t bits). Under roofline.count_cost the call
+    reports kernel_flops.regroup_unpack_cost."""
+    with roofline.kernel_region() as counter:
+        out = _regroup_unpack(plan, trires)
+        if counter is not None:
+            counter.add_kernel("regroup_unpack", kf.regroup_unpack_cost(
+                plan_bytes(plan), int(plan.cnt_s.sum()), out.numel()))
+    return out
+
+
+def _regroup_unpack(plan: Plan, trires):
     if trires.device.type == "cpu":
         return regroup_unpack_plain(plan, trires)
     _require_cuda(trires, "regroup_unpack")
@@ -499,12 +551,15 @@ regroup_intersect.fallbacks = 0
 def make_regroup_intersect(prim_verts: np.ndarray, prim_instance, device,
                            blk_cap: int = DEF_BLK_CAP,
                            chunk_blocks: int = DEF_CHUNK_BLOCKS,
-                           livegate: float | None = None):
+                           livegate: float | None = None,
+                           cache_key: str = ""):
     """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup, on
     `device`, by regrouping; `.primary` is the worklist intersector over
     the same tables, for coherent camera rays (JAX :1036-1042). `livegate`
-    None means DEF_LIVEGATE."""
-    tables = wl.pack_tables(prim_verts, prim_instance, wl.WL_SUPER, device)
+    None means DEF_LIVEGATE; the cluster tables go through the disk cache
+    under `cache_key`."""
+    tables = wl.pack_tables(prim_verts, prim_instance, wl.WL_SUPER, device,
+                            cache_key)
     gate = DEF_LIVEGATE if livegate is None else livegate
 
     def intersect(ro, rd, tmin, tmax):

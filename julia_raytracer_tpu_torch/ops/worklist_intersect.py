@@ -50,9 +50,10 @@ import torch
 
 from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops.cluster_tables import (
-    TRIS, WL_SUPER, _wl_super_bbox, build_cluster_tables,
+    TRIS, WL_SUPER, _wl_super_bbox, load_cluster_tables,
 )
 from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
 
 WARP = 32  # rays of a walking warp
 GROUP_RAYS = 32  # rays per work list (the JAX package's: 1,024)
@@ -62,10 +63,9 @@ SLACK = 1.00000024  # box-test slack of the TPU kernel (2 ulp at 1.0)
 TINY_DIR = 1e-30  # stands in for a zero direction component
 # [rays, S] precull temporaries above this many bytes are cut into chunks
 PRECULL_BYTES = 200e6
-# fp32 arithmetic of one triangle test, counted from tri_test in the .cu
-# (18 for o', 15 for d', negate and divide for t, 4 for u and v, 1 for
-# u + v; compares and selects not counted)
-OPS_PER_TRI_TEST = 40
+# (ray, box) tests per step of the cost counts (needed_pairs,
+# instanced_intersect.needed_work): bounds their [entries, boxes, 8] gathers
+COUNT_TESTS = 1 << 22
 
 
 class WorklistTables(NamedTuple):
@@ -77,15 +77,17 @@ class WorklistTables(NamedTuple):
 
 
 def pack_tables(prim_verts: np.ndarray, prim_instance=None,
-                sup: int = WL_SUPER, device="cpu") -> WorklistTables:
+                sup: int = WL_SUPER, device="cpu",
+                cache_key: str = "") -> WorklistTables:
     """[Q, 4, 3] quads in BVH order (+ [Q] instance ids) -> the packed
-    tables on `device` (the JAX function's lines 1099-1131)."""
+    tables on `device` (the JAX function's lines 1099-1131); the cluster
+    tables through the disk cache under `cache_key`."""
     if not (1 <= sup <= MAX_SUP and (sup <= 8 or sup % 8 == 0)):
         raise ValueError(f"sup={sup}: must be <= 8 or a multiple of 8, "
                          f"at most {MAX_SUP}")
     q = len(prim_verts)
-    tfm, nrm, bbox, n_clusters = build_cluster_tables(
-        np.asarray(prim_verts, np.float64), prim_instance
+    tfm, nrm, bbox, n_clusters = load_cluster_tables(
+        np.asarray(prim_verts, np.float64), prim_instance, cache_key
     )
     sbbox = _wl_super_bbox(bbox, sup)
     n_super = len(sbbox)
@@ -182,6 +184,20 @@ def _cluster_cull(o, inv, tmin, tlim, box):
     exit_ = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
     enter = torch.maximum(enter, tmin)
     exit_ = torch.minimum(exit_, tlim)
+    return enter <= exit_ * SLACK
+
+
+def cull_all(o, inv, tmin, tlim, boxes):
+    """[n] rays against their [n, k] boxes: cluster_cull for every box of
+    each ray at once -> [n, k]."""
+    t0 = (boxes[..., 0:3] - o[:, None]) * inv[:, None]
+    t1 = (boxes[..., 3:6] - o[:, None]) * inv[:, None]
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    enter = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    exit_ = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    enter = torch.maximum(enter, tmin[:, None])
+    exit_ = torch.minimum(exit_, tlim[:, None])
     return enter <= exit_ * SLACK
 
 
@@ -371,24 +387,92 @@ def _lib():
     return lib
 
 
+def list_entries(cnt, group: int, n: int, boxes_per_entry: int = 1):
+    """Every (ray, list position) of n rays whose lists (groups of `group`
+    rays, cnt [groups] entries each) hold it, as (ray [m] i64, position
+    [m] i64) blocks of whole groups of about COUNT_TESTS /
+    boxes_per_entry entries (one host read of the counts)."""
+    if n == 0:
+        return
+    dev = cnt.device
+    ray_cnt = cnt.long()[torch.arange(n, device=dev) // group]
+    ends = torch.cumsum(ray_cnt, 0)
+    n_groups = -(-n // group)
+    last = torch.clamp(torch.arange(1, n_groups + 1, device=dev) * group,
+                       max=n) - 1
+    group_ends = ends[last].cpu().numpy()
+    step = max(1, COUNT_TESTS // boxes_per_entry)
+    g0, done = 0, 0
+    while g0 < n_groups:
+        g1 = max(g0 + 1, int(np.searchsorted(group_ends, done + step, "right")))
+        r0, r1 = g0 * group, min(g1 * group, n)
+        rc = ray_cnt[r0:r1]
+        ray = torch.repeat_interleave(torch.arange(r0, r1, device=dev), rc)
+        first = torch.repeat_interleave(torch.cumsum(rc, 0) - rc, rc)
+        yield ray, torch.arange(ray.shape[0], device=dev) - first
+        g0, done = g1, int(group_ends[g1 - 1])
+
+
+def needed_pairs(tables: WorklistTables, ro, rd, tmin, t_hit, order, cnt,
+                 group: int = GROUP_RAYS) -> tuple[int, int]:
+    """(pairs, clusters): the (ray, cluster) pairs of the rays' work lists
+    whose box the ray enters before its closest hit t_hit (the hit's t,
+    tmax for a miss), and the distinct clusters among them. Every correct
+    walk over these lists tests at least these pairs: the least work the
+    call needs (the kernel's walk against its running best tests more,
+    worklist_intersect_plain's `pairs`)."""
+    dev, sup = ro.device, tables.sup
+    inv = _inverse_dir(rd)
+    boxes = tables.bbox.view(-1, sup, 8)
+    touched = torch.zeros(boxes.shape[0] * sup, dtype=torch.bool, device=dev)
+    cl_of = torch.arange(sup, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    for r, k in list_entries(cnt, group, ro.shape[0], sup):
+        sc = order[r // group, k].long()
+        want = cull_all(ro[r], inv[r], tmin[r], t_hit[r], boxes[sc])
+        pairs += want.sum()
+        touched[(sc[:, None] * sup + cl_of)[want]] = True
+    return int(pairs), int(touched.sum())
+
+
+def call_cost(tables: WorklistTables, ro, rd, tmin, t_hit, order, cnt,
+              group: int = GROUP_RAYS) -> dict:
+    """kernel_flops.worklist_intersect_cost of one call: the pairs it
+    needs (needed_pairs), the tables and the lists."""
+    pairs, _ = needed_pairs(tables, ro, rd, tmin, t_hit, order, cnt, group)
+    table_bytes = (tables.tab.numel() + tables.bbox.numel()
+                   + tables.sbbox.numel()) * 4
+    return kf.worklist_intersect_cost(
+        ro.shape[0], table_bytes, (order.numel() + cnt.numel()) * 4, pairs)
+
+
 def worklist_intersect(tables: WorklistTables, ro, rd, tmin, tmax) -> Hit:
     """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] over the packed
     tables: precull (work lists per GROUP_RAYS rays), then the plain
-    version for CPU tensors and the CUDA kernel for CUDA tensors."""
+    version for CPU tensors and the CUDA kernel for CUDA tensors; under
+    roofline.count_cost the walk reports call_cost."""
     if ro.device.type not in ("cpu", "cuda"):
         raise ValueError(f"worklist_intersect: unsupported device {ro.device}")
     order, cnt = precull(ro, rd, tmin, tmax, tables.sbbox)
-    if ro.device.type == "cpu":
-        return worklist_intersect_plain(tables, ro, rd, tmin, tmax, order,
-                                        cnt)[0]
-    return worklist_intersect_kernel(tables, ro, rd, tmin, tmax, order, cnt)
+    with roofline.kernel_region() as counter:
+        if ro.device.type == "cpu":
+            hit = worklist_intersect_plain(tables, ro, rd, tmin, tmax, order,
+                                           cnt)[0]
+        else:
+            hit = worklist_intersect_kernel(tables, ro, rd, tmin, tmax, order,
+                                            cnt)
+        if counter is not None:
+            counter.add_kernel("worklist_intersect", call_cost(
+                tables, ro, rd, tmin, hit.t, order, cnt))
+    return hit
 
 
 def make_worklist_intersect(prim_verts: np.ndarray, prim_instance, device,
-                            sup: int = WL_SUPER):
+                            sup: int = WL_SUPER, cache_key: str = ""):
     """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup, on
-    `device`."""
-    tables = pack_tables(prim_verts, prim_instance, sup, device)
+    `device` (the cluster tables through the disk cache under
+    `cache_key`)."""
+    tables = pack_tables(prim_verts, prim_instance, sup, device, cache_key)
 
     def intersect(ro, rd, tmin, tmax):
         return worklist_intersect(tables, ro, rd, tmin, tmax)

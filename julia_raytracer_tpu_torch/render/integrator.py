@@ -77,6 +77,7 @@ equals the while loop's bit for bit.
 from __future__ import annotations
 
 import functools
+import hashlib
 from typing import NamedTuple
 
 import numpy as np
@@ -385,27 +386,43 @@ def _check_regroup(regroup: str) -> None:
 
 
 def _flat_intersector(verts, inst, device, n_prims, leaf, regroup,
-                      regroup_min_prims, label):
+                      regroup_min_prims, label, cache_key=""):
     """The intersector of a flat quad soup, routed as the JAX package
     routes one (integrator.py:471-538, and :199-248 for a hybrid soup):
     dense, regroup (by kernel_select under "auto", whose decision line is
-    printed with `label`) or worklist."""
+    printed with `label`) or worklist; the cluster tables and the kernel
+    choice through the disk cache under `cache_key`."""
     _check_regroup(regroup)
     if leaf or n_prims <= BRUTEFORCE_THRESHOLD:
         return make_dense_intersect(verts, inst, device)
     if n_prims >= regroup_min_prims and regroup != "off":
         livegate = None
         if regroup == "auto":
-            sel = kernel_select.select_bounce_kernel(verts, inst, device=device)
+            sel = kernel_select.select_bounce_kernel(
+                verts, inst, device=device, cache_key=cache_key)
             print(f"{label}: {sel['kernel']} (predicted "
                   f"regroup/worklist ratio {sel['ratio']}, threshold "
                   f"{sel['threshold']})", flush=True)
             if sel["kernel"] == "worklist":
-                return wl.make_worklist_intersect(verts, inst, device)
+                return wl.make_worklist_intersect(verts, inst, device,
+                                                  cache_key=cache_key)
             if sel["ratio"] < 0.25:
                 livegate = 0.2
-        return rg.make_regroup_intersect(verts, inst, device, livegate=livegate)
-    return wl.make_worklist_intersect(verts, inst, device)
+        return rg.make_regroup_intersect(verts, inst, device, livegate=livegate,
+                                         cache_key=cache_key)
+    return wl.make_worklist_intersect(verts, inst, device, cache_key=cache_key)
+
+
+def soup_cache_key(cache_key: str, wpv: np.ndarray) -> str:
+    """The disk-cache key of a hybrid's world soup's tables and kernel
+    choice: the scene's key and the soup's content (a sampled
+    fingerprint), so different hybrid budgets never share tables (JAX
+    integrator.py:204-212); "" when the scene has no key."""
+    if not cache_key:
+        return ""
+    samp = wpv[:: max(1, len(wpv) // 1024)]
+    fp = hashlib.sha1(np.ascontiguousarray(samp)).hexdigest()[:10]
+    return f"{cache_key}:hybf{len(wpv)}-{fp}"
 
 
 # the instanced branch of the hybrid only reports hits closer than the
@@ -453,7 +470,8 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
     else:
         flat_part = _flat_intersector(wpv, winst, device, len(wpv), False,
                                       regroup, regroup_min_prims,
-                                      "hybrid flat kernel")
+                                      "hybrid flat kernel",
+                                      soup_cache_key(config.cache_key, wpv))
         inst_part = (make_instanced_intersect(config.inst_tables, device)
                      if has_items else None)
 
@@ -592,7 +610,7 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
     return curve_wrap(
         _flat_intersector(verts, inst, device, config.n_prims,
                           config.root_is_leaf, regroup, regroup_min_prims,
-                          "bounce kernel"),
+                          "bounce kernel", config.cache_key),
         dscene, config)
 
 

@@ -37,6 +37,8 @@ from julia_raytracer_tpu_torch.render.scene_device import (
 )
 from julia_raytracer_tpu_torch.scene.loader import find_camera
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from julia_raytracer_tpu_torch.utils.diskcache import scene_cache_key
+from julia_raytracer_tpu_torch.utils.roofline import count_cost
 
 MAX_CHUNK = 1 << 20  # rays per trace_wavefront call
 # scenes of at least this many quads sort their wavefronts by default
@@ -311,9 +313,17 @@ class Renderer:
     def __init__(self, scene_data, params: Params, device=None):
         self.params = params
         self.device = resolve_device(device)
+        # --addsky/--envname change scene_data after the load
+        # (scene/augment.py), so they are part of the content key, or a
+        # cached light table would carry the wrong environments; a scene
+        # made in code has no file, so its key is "" and nothing is cached
+        aug = f"sky{int(params.addsky)}:env{params.envname or '-'}"
+        cache_key = scene_cache_key(
+            params.scene, "sah" if params.highqualitybvh else "mid", aug)
         self.dscene, self.config = build_device_scene(
             scene_data, highquality_bvh=params.highqualitybvh,
             device=self.device, hybrid_budget=params.hybrid_budget,
+            cache_key=cache_key,
         )
         cam_id = max(find_camera(scene_data, params.camera), 0)
         self.camera = scene_data.cameras[cam_id]
@@ -436,7 +446,43 @@ class Renderer:
         params = self.params
         if state.samples >= params.samples:
             return state
-        target = min(state.samples + params.batch, params.samples)
+        return self._advance(
+            state, min(state.samples + params.batch, params.samples))
+
+    def sample_kernel_cost(self, state: TraceState) -> dict:
+        """The cost of ONE sample (all chunks) of `state`'s next sample,
+        counted by utils/roofline.count_cost on a copy of the state (the
+        caller's comes back unchanged): the JAX keys "flops",
+        "bytes_accessed" and "chunks_per_sample" (ceil(n_pixels / chunk),
+        chunk = min(MAX_CHUNK, n_pixels) as the sample loop takes it), the
+        hand-written kernels' share ("kernel_flops", "kernel_bytes": their
+        models, utils/kernel_flops.py) and the eager program's ATen ops'
+        ("other_flops", "other_bytes"), and the tables by op and by kernel
+        name ("ops", "kernels": {name: [calls, flops, bytes]}). The other
+        bytes are the eager program's own traffic (every op reads its
+        inputs from memory and writes its outputs back), not the work a
+        sample needs: a fused shading would lower them."""
+        def copy(x):
+            return None if x is None else x.clone()
+
+        work = TraceState(
+            width=state.width, height=state.height, samples=state.samples,
+            image=copy(state.image), albedo=copy(state.albedo),
+            normal=copy(state.normal), hits=copy(state.hits),
+            denoised=copy(state.denoised), counts=copy(state.counts),
+            m2=copy(state.m2))
+        _, counter = count_cost(self._advance, work, work.samples + 1)
+        tot = counter.totals()
+        return dict(
+            flops=tot["other_flops"] + tot["kernel_flops"],
+            bytes_accessed=tot["other_bytes"] + tot["kernel_bytes"],
+            chunks_per_sample=-(-state.n_pixels // min(MAX_CHUNK,
+                                                       state.n_pixels)),
+            **tot, ops=counter.ops, kernels=counter.kernels)
+
+    def _advance(self, state: TraceState, target: int) -> TraceState:
+        """Trace samples state.samples .. target - 1 into state."""
+        params = self.params
         n = state.n_pixels
         chunk = min(MAX_CHUNK, n)
         if params.adaptive:

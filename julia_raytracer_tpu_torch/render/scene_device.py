@@ -20,7 +20,12 @@ holds the static facts that prune the integrator. Entry points take
 `device=None`, which means the card (`resolve_device`); the CPU only
 when the caller passes `device="cpu"`.
 
-Not ported (see ROADMAP.md): the on-disk cache.
+Disk cache (utils/diskcache.py), as the JAX package's: with a
+`cache_key` (Renderer derives it from the scene file), the flat build
+reads and writes the product "geom" (BVH, sorted prim arrays, light
+tables) and the hybrid build "hybrid{budget}" (the world soup), each
+saved above diskcache.CACHE_MIN_PRIMS prims; SceneConfig.cache_key
+carries the key on to the intersector's build.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from julia_raytracer_tpu_torch.scene.instanced import (
     InstancedTables, build_instanced_tables, build_world_flat,
     expand_emissive_world_prims, select_flatten_shapes,
 )
+from julia_raytracer_tpu_torch.utils import diskcache
 
 
 def resolve_device(device=None) -> torch.device:
@@ -160,6 +166,8 @@ class SceneConfig(NamedTuple):
     hyb_world_verts: object = None  # f32 [Pf, 4, 3]
     hyb_world_inst: object = None  # i32 [Pf]
     hyb_remap: object = None  # i32 [Pf] -> eval prim id
+    # disk-cache key of the scene's host products ("" = nothing cached)
+    cache_key: str = ""
 
 
 def _inst_mat_dense(g, m) -> np.ndarray:
@@ -297,7 +305,8 @@ def _scene_fields(flat, prim_verts, prim_vidx, prim_instance, prim_flags,
 
 def build_device_scene_instanced(scene_data, sup: int = 32,
                                  hybrid_budget: int | None = None,
-                                 device=None) -> tuple[DeviceScene, SceneConfig]:
+                                 device=None, cache_key: str = "",
+                                 ) -> tuple[DeviceScene, SceneConfig]:
     """Two-level instanced build on `device` (None: the card): per-shape
     cluster tables in shape space + (instance, supercluster) work items
     (scene/instanced.py); the world expansion never happens.
@@ -306,7 +315,8 @@ def build_device_scene_instanced(scene_data, sup: int = 32,
     small shapes into a world-space soup for the flat intersectors and
     keeps the big shapes as work items. `hybrid_budget` (the JAX
     package's JRT_HYBRID_BUDGET): the most world prims to flatten; None =
-    `auto_hybrid_budget`; 0 = no hybrid."""
+    `auto_hybrid_budget`; 0 = no hybrid. The world soup goes through
+    the disk cache under `cache_key` (product "hybrid{budget}")."""
     device = resolve_device(device)
     flat = flatten_scene(scene_data, expand_prims=False)
     g = flat.geometry
@@ -317,8 +327,21 @@ def build_device_scene_instanced(scene_data, sup: int = 32,
     if hybrid_budget > 0:
         shape_mask = select_flatten_shapes(flat, hybrid_budget)
         if shape_mask.any():
-            hyb_pv, hyb_inst, hyb_remap = build_world_flat(flat, shape_mask,
-                                                           sup=sup)
+            hyb_name = f"hybrid{hybrid_budget}"
+            # what the soup is made of: a product of another source (a
+            # tessellated load, a scene edited in code) is rebuilt
+            src = np.array([len(g.prim_verts), flat.n_instances,
+                            int(shape_mask.sum())], np.int64)
+            cached = diskcache.load_arrays(cache_key, hyb_name)
+            if cached is not None and np.array_equal(cached.get("src"), src):
+                hyb_pv, hyb_inst, hyb_remap = (cached["pv"], cached["inst"],
+                                               cached["remap"])
+            else:
+                hyb_pv, hyb_inst, hyb_remap = build_world_flat(
+                    flat, shape_mask, sup=sup)
+                if len(hyb_pv) > diskcache.CACHE_MIN_PRIMS:
+                    diskcache.save_arrays(cache_key, hyb_name, dict(
+                        pv=hyb_pv, inst=hyb_inst, remap=hyb_remap, src=src))
             if len(hyb_pv):
                 inst_shape = g.inst_shape[: flat.n_instances]
                 flattened = shape_mask[
@@ -373,41 +396,68 @@ def build_device_scene_instanced(scene_data, sup: int = 32,
     config_fields.update(
         inst_tables=tables, world_bounds=world_bounds,
         hyb_world_verts=hyb_pv, hyb_world_inst=hyb_inst, hyb_remap=hyb_remap,
+        cache_key=cache_key,
     )
     return device_scene_from_numpy(arrays, config_fields, device)
 
 
+# the prim arrays the flat build sorts into BVH leaf order, in
+# _scene_fields' argument order
+_SORTED = ("prim_verts", "prim_vidx", "prim_instance", "prim_flags")
+
+
 def build_device_scene(scene_data, highquality_bvh: bool = False,
                        instancing: bool | None = None, device=None,
-                       hybrid_budget: int | None = None,
+                       hybrid_budget: int | None = None, cache_key: str = "",
                        ) -> tuple[DeviceScene, SceneConfig]:
     """Host SceneData -> (DeviceScene, SceneConfig) on `device` (None: the
     card): flattens, builds the BVH, reorders primitives, assembles the
     light table. Scenes whose flattening would mostly duplicate shared
     shapes take the two-level instanced build (`instancing` overrides;
-    `hybrid_budget` goes to build_device_scene_instanced)."""
+    `hybrid_budget` goes to build_device_scene_instanced). With a
+    `cache_key`, the BVH, the sorted prim arrays and the light tables come
+    from the disk cache (product "geom") when it holds them for this prim
+    count, and are saved there above diskcache.CACHE_MIN_PRIMS prims."""
     device = resolve_device(device)
     if instancing is None:
         instancing = _should_instance(scene_data)
     if instancing:
         return build_device_scene_instanced(
-            scene_data, hybrid_budget=hybrid_budget, device=device)
+            scene_data, hybrid_budget=hybrid_budget, device=device,
+            cache_key=cache_key)
     flat = flatten_scene(scene_data)
     g = flat.geometry
-    bb_min, bb_max = quad_bounds(g.prim_verts)
-    tree = build_bvh(bb_min, bb_max, sah=highquality_bvh)
-    order = tree.order
-
-    def sort(a):
-        return a[order] if len(order) else a
-
-    lights_np, light_counts = build_lights_np(flat, order)
+    cached = diskcache.load_arrays(cache_key, "geom")
+    if cached is not None and int(cached["n_prims"]) == len(g.prim_verts):
+        sorted_arrays = [cached[k] for k in _SORTED]
+        nodes, n_prims = cached["nodes"], int(cached["n_prims"])
+        root_is_leaf = bool(cached["root_is_leaf"])
+        lights_np = {k: cached["L_" + k] for k in DeviceLights._fields}
+        light_counts = LightCounts(**{
+            f.name: int(cached["c_" + f.name])
+            for f in dataclasses.fields(LightCounts)})
+    else:
+        bb_min, bb_max = quad_bounds(g.prim_verts)
+        tree = build_bvh(bb_min, bb_max, sah=highquality_bvh)
+        order = tree.order
+        sorted_arrays = [getattr(g, k)[order] if len(order) else getattr(g, k)
+                         for k in _SORTED]
+        nodes, n_prims, root_is_leaf = tree.nodes, tree.n_prims, tree.root_is_leaf
+        lights_np, light_counts = build_lights_np(flat, order)
+        if n_prims > diskcache.CACHE_MIN_PRIMS:
+            save = dict(zip(_SORTED, sorted_arrays), nodes=nodes,
+                        n_prims=n_prims, root_is_leaf=root_is_leaf)
+            save.update({"L_" + k: v for k, v in lights_np.items()})
+            save.update({"c_" + f.name: getattr(light_counts, f.name)
+                         for f in dataclasses.fields(LightCounts)})
+            diskcache.save_arrays(cache_key, "geom", save)
     arrays, config_fields = _scene_fields(
-        flat, sort(g.prim_verts), sort(g.prim_vidx), sort(g.prim_instance),
-        sort(g.prim_flags), tree.nodes, lights_np, light_counts,
-        tree.n_prims, tree.root_is_leaf,
+        flat, *sorted_arrays, nodes, lights_np, light_counts, n_prims,
+        root_is_leaf,
     )
+    config_fields["cache_key"] = cache_key
     return device_scene_from_numpy(arrays, config_fields, device)
+
 
 
 def device_scene_from_numpy(arrays: dict, config_fields: dict, device=None,

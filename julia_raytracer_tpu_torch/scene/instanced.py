@@ -18,8 +18,9 @@ The hybrid build (`select_flatten_shapes`, `build_world_flat`) expands
 the instances of small, many-instance shapes into one world-space soup
 for the flat intersectors and keeps the big shapes as work items.
 
-The JAX package's C++ helper for the world expansion (ops/native.py) is
-not carried over: this is its numpy path, the same arithmetic. One
+The world expansion takes the C++/OpenMP pass of ops/native.py
+(world_expand_permute) first, its numpy path (an einsum, the same
+products summed in another order) when that is not in use. One
 difference: the work items' world boxes are computed from the rotated
 supercluster corners in float64 and rounded outward to float32 (the JAX
 package computes them in float32, rounded to nearest), so each box holds
@@ -33,6 +34,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from julia_raytracer_tpu_torch.ops import native
 from julia_raytracer_tpu_torch.ops.bvh import _morton3
 from julia_raytracer_tpu_torch.ops.cluster_tables import (
     NOHIT, PRIMS_PER_CLUSTER, TRIS, build_cluster_tables,
@@ -368,15 +370,18 @@ def build_world_flat(flat: FlatScene, shape_mask: np.ndarray, sup: int = 32):
     key = (_spread10(qv[:, 0]) | (_spread10(qv[:, 1]) << np.uint32(1))
            | (_spread10(qv[:, 2]) << np.uint32(2)))
     gorder = np.argsort(key)
-    src_prim = src_prim[gorder]
+    src_prim = np.ascontiguousarray(src_prim[gorder])
     src_inst = np.ascontiguousarray(src_inst[gorder])
     remap = remap[gorder]
 
-    # pass 2: expand into the permuted order
+    # pass 2: expand into the permuted order (native: one streaming pass,
+    # no [Pf, 4, 3] intermediates)
     sv = np.ascontiguousarray(g.prim_verts, np.float32)
     fr = np.ascontiguousarray(g.inst_frame, np.float32)
     world_pv = np.empty((len(src_prim), 4, 3), np.float32)
-    np.einsum("nkj,nji->nki", sv[src_prim], fr[src_inst, :3], out=world_pv,
-              casting="unsafe")
-    world_pv += fr[src_inst, 3][:, None, :]
+    if not native.world_expand_permute_native(sv, fr, src_prim, src_inst,
+                                              world_pv):
+        np.einsum("nkj,nji->nki", sv[src_prim], fr[src_inst, :3],
+                  out=world_pv, casting="unsafe")
+        world_pv += fr[src_inst, 3][:, None, :]
     return world_pv, src_inst, remap

@@ -1,6 +1,6 @@
 """Build-time choice of the bounce-ray intersector of a heavy scene:
 worklist or regroup, per scene (port of julia_raytracer_tpu/utils/
-kernel_select.py, without its disk cache).
+kernel_select.py).
 
 Method (the JAX package's): sample divergent bounce-like rays (uniform
 surface points, uniform-sphere directions), count both intersectors'
@@ -27,17 +27,26 @@ chip_smoke.py (phase regroup_vs_worklist) from the stage times of both
 intersectors on 262,144 bounce rays of testing.heavy_scene() and the
 same pass, pair and ray counts. RATIO_THRESHOLD is the JAX package's
 decision rule, a ratio and not a time.
+
+Disk cache (utils/diskcache.py), as the JAX package's: the decision is
+the product "kernel_select" under a key that also covers the costs
+(select_cache_key), so a refit of the costs never reuses an old
+decision; the counting rays' cluster boxes come from the product
+"clusters" (ops/cluster_tables.py load_cluster_tables).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from julia_raytracer_tpu_torch.ops.cluster_tables import build_cluster_tables
+from julia_raytracer_tpu_torch.ops.cluster_tables import load_cluster_tables
+from julia_raytracer_tpu_torch.utils import diskcache
 
 
 class SelectCosts(NamedTuple):
@@ -219,12 +228,13 @@ def wavefront_order(verts_np, o, d):
 
 
 def bounce_counts(verts_np, inst_np, n_rays: int = 65536, seed: int = 11,
-                  device="cpu", sort_rays: bool = False) -> dict:
+                  device="cpu", sort_rays: bool = False,
+                  cache_key: str = "") -> dict:
     """count_passes of `n_rays` synthetic bounce rays (bounce_rays) over
-    the scene's cluster boxes, on `device`; with `sort_rays`, in the
-    wavefront sort's order."""
-    _, _, bbox, n_clusters = build_cluster_tables(
-        np.asarray(verts_np, np.float64), inst_np)
+    the scene's cluster boxes (through the disk cache under `cache_key`),
+    on `device`; with `sort_rays`, in the wavefront sort's order."""
+    _, _, bbox, n_clusters = load_cluster_tables(
+        np.asarray(verts_np, np.float64), inst_np, cache_key)
     o, d, tmin, tmax = bounce_rays(verts_np, n_rays, seed)
     if sort_rays:
         order = wavefront_order(verts_np, o, d)
@@ -246,11 +256,12 @@ def ratio_from_counts(st: dict, costs: SelectCosts = H100_COSTS) -> dict:
 
 def predict_ratio(verts_np, inst_np, n_rays: int = 65536, seed: int = 11,
                   costs: SelectCosts = H100_COSTS, device="cpu",
-                  sort_rays: bool = False) -> dict:
+                  sort_rays: bool = False, cache_key: str = "") -> dict:
     """Predicted t_regroup / t_worklist for one synthetic bounce dispatch
     of `n_rays` rays, the pass counts on `device` (bounce_counts)."""
     return ratio_from_counts(
-        bounce_counts(verts_np, inst_np, n_rays, seed, device, sort_rays),
+        bounce_counts(verts_np, inst_np, n_rays, seed, device, sort_rays,
+                      cache_key),
         costs)
 
 
@@ -261,13 +272,32 @@ def decide(st: dict) -> dict:
     return dict(st, kernel=kernel, threshold=RATIO_THRESHOLD)
 
 
+def select_cache_key(cache_key: str, costs: SelectCosts = H100_COSTS) -> str:
+    """The decision's disk-cache key: the scene's key and the costs ("" when
+    the scene has no key: nothing is cached)."""
+    if not cache_key:
+        return ""
+    token = repr(tuple(costs)) + repr(RATIO_THRESHOLD)
+    return f"{cache_key}-{hashlib.sha1(token.encode()).hexdigest()[:10]}"
+
+
 def select_bounce_kernel(verts_np, inst_np, costs: SelectCosts = H100_COSTS,
-                         device="cpu") -> dict:
+                         device="cpu", cache_key: str = "") -> dict:
     """{"kernel": "regroup" | "worklist", "ratio", "threshold", ...}: regroup
     only on a decisive predicted win, the rays counted in the wavefront
-    sort's order."""
+    sort's order. Disk-cached under select_cache_key(cache_key, costs),
+    reused only for the same prim count."""
+    key = select_cache_key(cache_key, costs)
+    q = len(verts_np)
+    cached = diskcache.load_arrays(key, "kernel_select")
+    if cached is not None and "payload" in cached and int(
+            cached.get("q", -1)) == q:
+        return json.loads(bytes(cached["payload"]).decode())
     t0 = time.time()
     st = predict_ratio(verts_np, inst_np, costs=costs, device=device,
-                       sort_rays=True)
+                       sort_rays=True, cache_key=cache_key)
     st["probe_s"] = round(time.time() - t0, 1)
-    return decide(st)
+    st = decide(st)
+    diskcache.save_arrays(key, "kernel_select", dict(
+        payload=np.frombuffer(json.dumps(st).encode(), dtype=np.uint8), q=q))
+    return st

@@ -30,6 +30,12 @@ from julia_raytracer_tpu_torch.utils.imgio import save_png
 SMALL = ["--resolution", "32", "--bounces", "4", "--sampler", "path"]
 
 
+@pytest.fixture(autouse=True)
+def _cache_dir(tmp_path, monkeypatch):
+    """Written scenes get disk-cache keys: keep the cache in tmp_path."""
+    monkeypatch.setenv("JRT_CACHE_DIR", str(tmp_path / "cache"))
+
+
 @pytest.fixture(scope="module")
 def scene_path(tmp_path_factory):
     return write_yocto_scene(cornell_scene(), tmp_path_factory.mktemp("cornell"))

@@ -692,3 +692,60 @@ def test_many_lights_march_on_card_matches_cpu(dev):
     stc = make_trace_state(scene, params, device="cpu")
     rc.trace_samples(stc)
     image_close(r.get_image(st), rc.get_image(stc))
+
+
+def _kernel_reports(fn):
+    from julia_raytracer_tpu_torch.utils.roofline import count_cost
+
+    _, counter = count_cost(fn)
+    return counter.kernels
+
+
+def test_kernel_cost_reports_on_card_equal_cpu(dev):
+    """Each dispatcher reports the same kernel_flops cost on the card (the
+    kernel) as on the CPU (its plain version) for the same call: the
+    counts come from the call's inputs and its bit-equal outputs."""
+    g = np.random.default_rng(4)
+
+    def rays(n, lo, hi):
+        o = g.uniform(lo, hi, (n, 3)).astype(np.float32)
+        d = g.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tmax = np.where(g.random(n) < 0.1, -1.0, 3.4e38).astype(np.float32)
+        return [torch.from_numpy(x) for x in
+                (o, d, np.full(n, 1e-4, np.float32), tmax)]
+
+    room = rays(3000, [-0.9, 0.1, -0.9], [0.9, 1.9, 0.9])
+    _, cfg = build_device_scene(sphere_grid_scene(3, 16), device="cpu")
+    _, cor = build_device_scene(cornell_scene(), device="cpu")
+    _, icfg = build_device_scene(instanced_scene(3, (8, 6)), instancing=True,
+                                 hybrid_budget=0, device="cpu")
+    lo, hi = icfg.world_bounds
+    irays = rays(3000, lo, hi)
+    vals = torch.from_numpy(g.integers(-9, 9, (5, 4096)).astype(np.int32))
+    alive = torch.from_numpy(g.random(4096) < 0.4)
+
+    def calls(device):
+        put = [x.to(device) for x in room]
+        iput = [x.to(device) for x in irays]
+        dense = di.make_dense_table(cor.host_prim_verts, cor.host_prim_instance,
+                                    device)
+        tables = wl.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance,
+                                device=device)
+        ctab = ci.pack_tables(cfg.host_prim_verts, cfg.host_prim_instance,
+                              device)
+        itab = ii.upload(icfg.inst_tables, device)
+        v, a = vals.to(device), alive.to(device)
+        return [
+            lambda: di.dense_intersect(dense, *put),
+            lambda: lc.expand_planes(lc.compact_planes(v, a, 2048), a, v),
+            lambda: wl.worklist_intersect(tables, *put),
+            lambda: rg.regroup_intersect(tables, *put, livegate=0.0),
+            lambda: ci.cluster_intersect(ctab, *put),
+            lambda: ci.cluster_intersect_streamed(ctab, *put),
+            lambda: ii.instanced_intersect(itab, *iput),
+        ]
+
+    for on_card, on_cpu in zip(calls(dev), calls("cpu"), strict=True):
+        card, cpu = _kernel_reports(on_card), _kernel_reports(on_cpu)
+        assert card and card == cpu

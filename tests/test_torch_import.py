@@ -7,9 +7,15 @@ kernel_select, the instanced path's scene/instanced.py and
 instanced_intersect, the cluster intersectors, the CLI with its
 denoiser, augmentation, image codecs and timing, the differentiable
 path with its multi-process train step, and the numpy copies of the
-subdivision tessellator and its OBJ reader), and no module of those
+subdivision tessellator and its OBJ reader, the scene set-up's disk
+cache and C++ host builders, the cost accounting), and no module of those
 names is loaded. Source scans reject any import of the JAX ones, and of
-PIL or cv2, in the package and in chip_smoke.py."""
+PIL or cv2, in the package and in chip_smoke.py, and any mention of the
+JAX package's C++ source or cache directory in the package's files (the
+port builds its own copy, csrc/host/cluster_tables.cpp, and caches under
+its own directory)."""
+
+import re
 
 import os
 import subprocess
@@ -65,6 +71,10 @@ REQUIRED = {
     "julia_raytracer_tpu_torch.parallel.distributed",
     "julia_raytracer_tpu_torch.scene.subdiv",
     "julia_raytracer_tpu_torch.scene.objio",
+    "julia_raytracer_tpu_torch.utils.diskcache",
+    "julia_raytracer_tpu_torch.ops.native",
+    "julia_raytracer_tpu_torch.utils.kernel_flops",
+    "julia_raytracer_tpu_torch.utils.roofline",
 }
 
 
@@ -80,12 +90,25 @@ def test_port_imports_without_jax():
     assert REQUIRED <= set(lines[-2].split()), REQUIRED - set(lines[-2].split())
 
 
-def _port_sources():
+def _port_sources(suffixes=(".py",)):
     pkg = os.path.join(ROOT, "julia_raytracer_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(pkg):
-        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for dirpath, dirnames, names in os.walk(pkg):
+        dirnames[:] = [d for d in dirnames if d not in ("_build", "__pycache__")]
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(suffixes)]
     return files
+
+
+def test_port_names_no_jax_native_source_or_cache():
+    jax_cache = re.compile(r"""["']\.cache["']\s*,\s*["']julia_raytracer_tpu["']""")
+    sources = _port_sources((".py", ".cpp", ".cu", ".cuh"))
+    assert any(p.endswith(os.path.join("csrc", "host", "cluster_tables.cpp"))
+               for p in sources)
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        assert "native/cluster_tables.cpp" not in text, path
+        assert not jax_cache.search(text), path
 
 
 def test_no_image_library_in_port_sources():

@@ -96,6 +96,7 @@ def test_decision_counts_rays_in_wavefront_order(soup):
     bounds. Sorted rows are coherent, so the worklist's passes fall."""
     import torch
 
+    from julia_raytracer_tpu_torch.ops.cluster_tables import build_cluster_tables
     from julia_raytracer_tpu_torch.render.integrator import _sort_key
     pv, inst = soup
     o, d, tmin, tmax = tks.bounce_rays(pv, 8192, seed=5)
@@ -107,7 +108,7 @@ def test_decision_counts_rays_in_wavefront_order(soup):
     assert (np.diff(key[order]) >= 0).all()
     sampled = tks.bounce_counts(pv, inst, 8192, 5)
     got = tks.bounce_counts(pv, inst, 8192, 5, sort_rays=True)
-    _, _, bbox, n_clusters = tks.build_cluster_tables(pv.astype(np.float64), inst)
+    _, _, bbox, n_clusters = build_cluster_tables(pv.astype(np.float64), inst)
     want = tks.count_passes(o[order], d[order], tmin[order], tmax[order],
                             bbox[:n_clusters, 0:6])
     assert got == dict(n_rays=8192, **want)

@@ -43,6 +43,12 @@ def _same(got, want):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.fixture(autouse=True)
+def _cache_dir(tmp_path, monkeypatch):
+    """Written scenes get disk-cache keys: keep the cache in tmp_path."""
+    monkeypatch.setenv("JRT_CACHE_DIR", str(tmp_path / "cache"))
+
+
 @pytest.fixture(params=["cube", "uv_cube"])
 def cage(request, tmp_path):
     return write_cube_cage(str(tmp_path / f"{request.param}.obj"),
