@@ -1,0 +1,14 @@
+"""Host ms a train step in its forward pass (the program's
+`train_step/forward` span: the fixed-trip render and the loss), over the
+window's last steps and the traced span's unprofiled ones."""
+
+from benchmark.metrics._units import ms_per_unit, window_units
+
+
+def read(run):
+    if run.traffic["mode"] != "train":
+        return None
+    tables = window_units(run, "train_step")
+    if tables is None:
+        return None
+    return ms_per_unit(tables, lambda p: p == "train_step/forward")

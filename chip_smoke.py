@@ -183,7 +183,7 @@ from julia_raytracer_tpu_torch.testing import (
 )
 from julia_raytracer_tpu_torch.utils import diskcache, kernel_flops as kf
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
-from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from julia_raytracer_tpu_torch.utils import rng as rng_mod, timing
 from julia_raytracer_tpu_torch.utils.imgio import save_png
 from julia_raytracer_tpu_torch.utils.roofline import bound, roofline
 from julia_raytracer_tpu_torch.utils.vecmath import normalize
@@ -1319,6 +1319,13 @@ def _read_counts() -> dict:
     }
 
 
+def body_spans(t0_ns: int) -> int:
+    """The loop bodies of the frames that started at or after t0_ns
+    (time.perf_counter_ns), by their `body` spans."""
+    return sum(row["n"] for u in timing.units() if u["start_ns"] >= t0_ns
+               for path, row in u["table"].items() if path.endswith("/body"))
+
+
 def main_path(renderer, scene, dev) -> tuple[dict, dict]:
     """512 x 512, 8 bounces through Renderer: one batch of warm-up
     samples, then the rest timed; the launch counters are zeroed just
@@ -2184,7 +2191,7 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
       (b) many_lights_scene(): 5,120 emissive quads (> EXACT_ELEMS), so
           the light pdf marches auto_light_pdf_steps steps through the
           worklist kernel; its launches must be one a sample for the
-          camera rays plus (1 + steps) a loop body (trace_wavefront.bodies);
+          camera rays plus (1 + steps) a loop body (the `body` spans);
           Mpaths/s and device ms a sample;
       (c) subdiv_cube_scene() written by write_yocto_scene: the cube's PLY
           is empty, so the loader tessellates its cage to 6 x 4^4 = 1,536
@@ -2266,9 +2273,9 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
             f"the renderer chose {steps} march steps")
     require(not r.options.sort_rays and hasattr(r.intersect, "tables"),
             "the many-lights scene does not take the unsorted worklist path")
-    bodies0 = trace_wavefront.bodies
+    t0_ns = time.perf_counter_ns()
     stats, ln = main_path(r, scene, dev)
-    bodies = trace_wavefront.bodies - bodies0
+    bodies = body_spans(t0_ns)
     spp = CONTENT_WARM_SPP + CONTENT_TIMED_SPP
     predicted = spp + bodies * (1 + steps)
     for name in ("lane_compact", "lane_expand"):
@@ -2465,7 +2472,9 @@ def phase_host_build(dev, hybrid) -> tuple[dict, Renderer, object, dict]:
             pv = np.asarray(warm.config.host_prim_verts, np.float64)
             inst = warm.config.host_prim_instance
             out["native_threads"] = native.threads()
-            out["native_build_s"] = native.build_seconds.get("cluster_tables")
+            # every library this process built, nvcc's and g++'s
+            out["lib_build_s"] = timing.setup().get(
+                "lib_build", {"ns": 0})["ns"] / 1e9
             t0 = time.perf_counter()
             got = cluster_tables.build_cluster_tables(pv, inst)
             out["tables_native_s"] = time.perf_counter() - t0
@@ -2714,8 +2723,10 @@ def main() -> int:
     ii._lib()
     ii._cull_lib()
     ci._lib()
-    log(f"build: {time.perf_counter() - t0:.2f} s, in parallel "
-        f"({', '.join(f'{k} {v:.2f} s' for k, v in cuda_build.build_seconds.items())})")
+    libs = timing.setup()
+    log(f"build: {time.perf_counter() - t0:.2f} s, in parallel ("
+        + ", ".join(f"{k} {v['libs']} libraries {v['ns'] / 1e9:.2f} s"
+                    for k, v in libs.items()) + ")")
     for name, info in cuda_build.ptxas_info.items():
         log(f"ptxas {name}:\n{info}")
     cornell = Renderer(cornell_scene(), Params(

@@ -13,6 +13,7 @@ versions of the kernels on the CPU.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -25,6 +26,7 @@ from julia_raytracer_tpu_torch.render.renderer import (
 from julia_raytracer_tpu_torch.render.scene_device import resolve_device
 from julia_raytracer_tpu_torch.scene.loader import load_scene
 from julia_raytracer_tpu_torch.utils.imgio import save_png
+from julia_raytracer_tpu_torch.utils import timing
 from julia_raytracer_tpu_torch.utils.timing import fence, format_seconds
 
 SAMPLERS = ("path", "naive")
@@ -70,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--trace-profile", default="",
         help="write a torch.profiler Chrome trace (trace.json) of one "
-        "steady-state sample batch to this directory",
+        "steady-state sample batch, and its spans and the device's idle "
+        "time by span (spans.json), to this directory",
     )
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cpu for the CPU)")
@@ -91,18 +94,37 @@ def parse_cli_args(argv) -> tuple[Params, argparse.Namespace]:
 
 
 def _profiled_batch(renderer, state, directory: str, device) -> TraceState:
-    """One batch under torch.profiler, its Chrome trace written to
-    directory/trace.json."""
+    """One batch under torch.profiler with the program's spans recorded
+    (utils/timing.py): the Chrome trace, spans included, written to
+    directory/trace.json, and directory/spans.json: the span records on
+    the profiler's clock (time.time_ns ns), the device's idle seconds by
+    span (`idle_by_span` over the trace's device events, within the
+    batch's frame), and the frame's aggregate table. Prints the three
+    spans that hold the most idle time."""
     import torch.profiler as tp
 
     activities = [tp.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(tp.ProfilerActivity.CUDA)
-    with tp.profile(activities=activities) as prof:
+    with timing.recording() as records, \
+            tp.profile(activities=activities) as prof:
         state = renderer.trace_samples(state)
         fence(state.image)
     os.makedirs(directory, exist_ok=True)
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+    frame = [r for r in records if r["path"] == "frame"][-1]
+    window = (frame["start_ns"], frame["end_ns"])
+    idle = timing.idle_by_span(timing.device_intervals(prof), records, window)
+    idle_s = sum(idle.values())
+    with open(os.path.join(directory, "spans.json"), "w") as f:
+        json.dump({"clock": "time.time_ns", "window_ns": list(window),
+                   "idle_s": idle_s, "idle_by_span_s": idle,
+                   "table": timing.units()[-1]["table"], "records": records},
+                  f)
+    top = sorted(idle.items(), key=lambda kv: -kv[1])[:3]
+    print(f"idle {idle_s * 1e3:.3f} ms of the {(window[1] - window[0]) / 1e6:.3f} "
+          "ms frame, by span: " + ", ".join(
+              f"{k} {100 * v / max(idle_s, 1e-30):.1f}%" for k, v in top))
     return state
 
 

@@ -4,8 +4,10 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on first
 use with nvcc for Hopper (`sm_90a`) into a shared library under
 `csrc/_build/` (listed in .gitignore), keyed by a hash of the source, the
 shared headers `csrc/*.cuh` and the flags, then loaded with ctypes. `build_all` starts one nvcc per
-source, all at once. Nothing here runs at import time:
-the CPU tests import every module on machines without nvcc or a card.
+source, all at once. The nvcc runs and the loads are the set-up spans
+`lib_build` and `lib_load` (utils/timing.py). Nothing here runs at
+import time: the CPU tests import every module on machines without nvcc
+or a card.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
+
+from julia_raytracer_tpu_torch.utils.timing import span
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
@@ -25,8 +28,6 @@ BASE_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# seconds each library took to build in this process (0.0 when reused)
-build_seconds: dict[str, float] = {}
 # ptxas's register, shared-memory and spill report of each build
 ptxas_info: dict[str, str] = {}
 
@@ -59,12 +60,10 @@ def build_all(specs: dict[str, tuple]) -> None:
     """Build csrc/<name>.cu for each {name: extra nvcc flags} whose library
     is missing, one nvcc process per source, all started together."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    t0 = time.perf_counter()
     running = {}
     for name, extra in specs.items():
         src, flags, lib_path = _lib_path(name, extra)
         if os.path.exists(lib_path):
-            build_seconds.setdefault(name, 0.0)
             continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *flags, "-o", tmp, src]
@@ -72,8 +71,9 @@ def build_all(specs: dict[str, tuple]) -> None:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for name, (cmd, tmp, lib_path, proc) in running.items():
-        out, err = proc.communicate()
-        build_seconds[name] = time.perf_counter() - t0
+        # the builds run at once: the spans add up to their wall time
+        with span("lib_build", libs=1):
+            out, err = proc.communicate()
         ptxas_info[name] = "\n".join(
             line for line in (out + err).splitlines()
             if "ptxas info" in line or "spill" in line)
@@ -89,7 +89,8 @@ def load(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
     """Compile csrc/<name>.cu if its library is missing, load it once."""
     if name not in _loaded:
         build_all({name: tuple(extra_flags)})
-        _loaded[name] = ctypes.CDLL(_lib_path(name, extra_flags)[2])
+        with span("lib_load", libs=1):
+            _loaded[name] = ctypes.CDLL(_lib_path(name, extra_flags)[2])
     return _loaded[name]
 
 

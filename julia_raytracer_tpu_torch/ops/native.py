@@ -13,7 +13,8 @@ source and the flags as ops/cuda_build.py keys the CUDA libraries, and
 loaded with ctypes. No failure is hidden: when g++ is on the PATH, a
 build or load that fails raises. Only when there is no g++ at all do the
 callers take their numpy paths, after one note on stderr. JRT_NO_NATIVE=1
-takes the numpy paths (read at each call).
+takes the numpy paths (read at each call). The build and the load are
+the set-up spans `lib_build` and `lib_load` (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ import shutil
 import subprocess
 import sys
 import threading
-import time
 
 import numpy as np
+
+from julia_raytracer_tpu_torch.utils.timing import span
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "csrc", "host", "cluster_tables.cpp")
@@ -38,8 +40,6 @@ FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 _lock = threading.Lock()
 _lib = None
 _no_compiler_noted = False
-# seconds the library took to build in this process (0.0 when reused)
-build_seconds: dict[str, float] = {}
 
 
 def _lib_path() -> str:
@@ -54,17 +54,16 @@ def _build(so: str, gxx: str) -> None:
     # per-process name: concurrent builders must not interleave their
     # output into one file before the atomic rename
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    t0 = time.perf_counter()
     try:
-        proc = subprocess.run([gxx, *FLAGS, "-o", tmp, SRC],
-                              capture_output=True, text=True, timeout=300)
+        with span("lib_build", libs=1):
+            proc = subprocess.run([gxx, *FLAGS, "-o", tmp, SRC],
+                                  capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed to build {SRC}:\n{proc.stderr}")
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    build_seconds["cluster_tables"] = time.perf_counter() - t0
 
 
 def lib():
@@ -87,9 +86,8 @@ def lib():
                     _no_compiler_noted = True
                 return None
             _build(so, gxx)
-        else:
-            build_seconds.setdefault("cluster_tables", 0.0)
-        loaded = ctypes.CDLL(so)
+        with span("lib_load", libs=1):
+            loaded = ctypes.CDLL(so)
         fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
         loaded.build_cluster_tables.argtypes = [
             fp, ctypes.c_int64, ctypes.c_int64, fp, fp, fp]

@@ -34,7 +34,8 @@ over the same tables: the JAX package's own rule (pallas_regroup.py:
 613-627, :923-929), a lax.cond there and host reads here: the live count
 first, so that a chunk the gate sends to the worklist skips the count
 stage, then the group count. `regroup_intersect.host_syncs` counts those
-reads and `regroup_intersect.fallbacks` the chunks that fell back.
+reads (each in a `regroup_read` span, utils/timing.py) and
+`regroup_intersect.fallbacks` the chunks that fell back.
 
 Differences from the JAX function, none of which changes a hit: the tri
 test culls per slot rather than per 128-slot row, and in fp32 (no bf16
@@ -61,6 +62,7 @@ from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import TRIS
 from julia_raytracer_tpu_torch.ops.traversal import Hit
 from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
+from julia_raytracer_tpu_torch.utils.timing import span
 
 TILE = 1024  # rays per tile = slots per tri-test group
 LANES = 128
@@ -500,13 +502,15 @@ def _regroup_chunk(tables, rays8, blk_cap, livegate):
     # the liveness gate first, so a chunk that falls back for it skips the
     # count stage (the JAX package computes both before its lax.cond)
     if livegate > 0.0:
-        live = int((rays8[:, 7] > 0.0).sum())
+        with span("regroup_read"):
+            live = int((rays8[:, 7] > 0.0).sum())
         regroup_intersect.host_syncs += 1
         if live < int(livegate * rays8.shape[0]):
             return _fallback(tables, rays8)
     n_super = tables.sbbox.shape[0]
     plan = count_stage(rays8, tables.sbbox)
-    n_groups = int(plan.groups_s.sum(dtype=torch.int64))
+    with span("regroup_read"):
+        n_groups = int(plan.groups_s.sum(dtype=torch.int64))
     regroup_intersect.host_syncs += 1
     if _capacity_exceeded(n_groups, n_super, blk_cap):
         return _fallback(tables, rays8)

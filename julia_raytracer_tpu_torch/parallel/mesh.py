@@ -25,6 +25,7 @@ from julia_raytracer_tpu_torch.render.diff import (
 )
 from julia_raytracer_tpu_torch.render.integrator import build_intersector
 from julia_raytracer_tpu_torch.render.scene_device import resolve_device
+from julia_raytracer_tpu_torch.utils.timing import span
 
 
 class Mesh(NamedTuple):
@@ -85,27 +86,38 @@ def shard_train_step(mesh: Mesh, dscene, config, options, cam, width, height,
     block of the pixel lanes; its loss is the squared error summed over
     its real lanes and divided by the global count, so the all-reduced
     (SUM) loss and gradients are those of the mean over every real pixel
-    at any world size; every rank then takes the same update."""
+    at any world size; every rank then takes the same update. A step is
+    a `train_step` span (a unit of utils/timing.py) of `forward`,
+    `backward` (the checkpoint's recomputed bodies under it) and
+    `update`."""
     d_opts = diff_options(options, config)
     intersect = build_intersector(dscene, config)
 
     def step(mat_color, mat_emission, pixel_ids, target, n_samples, seed=0):
-        n = pixel_ids.shape[0]
-        lanes, real = local_lanes(mesh, n)
-        color = mat_color.detach().requires_grad_()
-        emission = mat_emission.detach().requires_grad_()
-        mats = dscene.materials._replace(color=color, emission=emission)
-        img = render_radiance_mean(
-            dscene._replace(materials=mats), config, d_opts, cam, width,
-            height, pixel_ids[lanes], n_samples, seed, intersect=intersect)
-        err = torch.where(real[:, None], (img - target[lanes]) ** 2, 0.0)
-        loss = err.sum() / (3 * n)
-        g_color, g_emission = torch.autograd.grad(loss, (color, emission))
-        loss = _all_reduce(loss.detach(), mesh)
-        g_color = _all_reduce(g_color, mesh)
-        g_emission = _all_reduce(g_emission, mesh)
-        return (loss, mat_color.detach() - lr * g_color,
-                mat_emission.detach() - lr * g_emission)
+        with span("train_step"):
+            with span("forward"):
+                n = pixel_ids.shape[0]
+                lanes, real = local_lanes(mesh, n)
+                color = mat_color.detach().requires_grad_()
+                emission = mat_emission.detach().requires_grad_()
+                mats = dscene.materials._replace(color=color,
+                                                 emission=emission)
+                img = render_radiance_mean(
+                    dscene._replace(materials=mats), config, d_opts, cam,
+                    width, height, pixel_ids[lanes], n_samples, seed,
+                    intersect=intersect)
+                err = torch.where(real[:, None], (img - target[lanes]) ** 2,
+                                  0.0)
+                loss = err.sum() / (3 * n)
+            with span("backward"):
+                g_color, g_emission = torch.autograd.grad(loss,
+                                                          (color, emission))
+            with span("update"):
+                loss = _all_reduce(loss.detach(), mesh)
+                g_color = _all_reduce(g_color, mesh)
+                g_emission = _all_reduce(g_emission, mesh)
+                return (loss, mat_color.detach() - lr * g_color,
+                        mat_emission.detach() - lr * g_emission)
 
     step.intersect = intersect
     return step

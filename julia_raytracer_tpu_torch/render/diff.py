@@ -29,6 +29,7 @@ from julia_raytracer_tpu_torch.render.integrator import (
     TraceOptions, build_intersector, trace_wavefront,
 )
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from julia_raytracer_tpu_torch.utils.timing import span
 
 
 def diff_options(options: TraceOptions, config=None,
@@ -53,11 +54,12 @@ def render_radiance(dscene, config, options: TraceOptions, cam, width: int,
     differentiable with respect to every float tensor of `dscene` and
     `cam`; non-finite lanes are zeroed. `intersect`: a prebuilt
     intersector (default build_intersector's on the scene's device)."""
-    rng = rng_mod.seed_state(pixel_ids, sample_id, seed)
-    puv, rng = rng_mod.rand2f(rng)
-    luv, rng = rng_mod.rand2f(rng)
-    ij = torch.stack([pixel_ids % width, pixel_ids // width], dim=-1)
-    ro, rd = sample_camera(cam, ij, (width, height), puv, luv, tentfilter)
+    with span("camera"):
+        rng = rng_mod.seed_state(pixel_ids, sample_id, seed)
+        puv, rng = rng_mod.rand2f(rng)
+        luv, rng = rng_mod.rand2f(rng)
+        ij = torch.stack([pixel_ids % width, pixel_ids // width], dim=-1)
+        ro, rd = sample_camera(cam, ij, (width, height), puv, luv, tentfilter)
     radiance = trace_wavefront(dscene, config, options, ro, rd, rng,
                                intersect=intersect)[0]
     finite = torch.isfinite(radiance).all(dim=-1)

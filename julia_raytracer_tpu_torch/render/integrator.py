@@ -6,8 +6,12 @@ bounce counter, weight, RNG stream and a one-slot volume stack. The loop
 carries the *current intersection* across iterations; each body computes
 the NEXT ray's intersection at its end. The loop runs eagerly on the
 host, one body per iteration, until no lane is alive; each loop test
-reads one bool or count back from the device (`trace_wavefront.host_syncs`
-counts them, `trace_wavefront.bodies` the bodies run).
+reads the live-lane count back from the device (`trace_wavefront.host_syncs`
+counts them). Spans (utils/timing.py) mark the layers: `wavefront`
+around the call, holding `primary_hit`, `loop_test` (each read), `body`
+(with the count its test read, `live=`, and the state's `width=`;
+holding the bounce's `intersect`), `compact` (`live=`, `width=`,
+`cap=`), `expand` and `unsort`.
 
 Wavefront sort (`TraceOptions.sort_rays`; the renderer turns it on for
 scenes of >= 50,000 quads, as the JAX package does): camera rays, and
@@ -106,6 +110,7 @@ from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
 from julia_raytracer_tpu_torch.render.scene_device import DeviceScene, SceneConfig
 from julia_raytracer_tpu_torch.utils import kernel_select
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
+from julia_raytracer_tpu_torch.utils.timing import span
 from julia_raytracer_tpu_torch.utils.vecmath import dot, normalize, orthonormalize
 
 # dense-kernel cutoff: scenes with more quads go to the worklist
@@ -618,10 +623,12 @@ def _vec(mask):
     return mask[..., None]
 
 
-def _host_bool(t) -> bool:
-    """Read a device scalar back to the host (one synchronization)."""
-    trace_wavefront.host_syncs += 1
-    return bool(t)
+def _live_lanes(alive) -> int:
+    """The loop test: the number of live lanes, read back to the host (one
+    synchronization)."""
+    with span("loop_test"):
+        trace_wavefront.host_syncs += 1
+        return int(alive.sum())
 
 
 def _spread3(x):
@@ -695,6 +702,13 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     kernel, as the JAX package routes them), else through `intersect`.
     With `options.fixed_iterations` the loop is the fixed-trip,
     differentiable one (module docstring)."""
+    with span("wavefront"):
+        return _trace(dscene, config, options, ro, rd, rng_state, intersect,
+                      intersect_primary)
+
+
+def _trace(dscene, config, options, ro, rd, rng_state, intersect,
+           intersect_primary):
     fixed = options.fixed_iterations
     n = ro.shape[0]
     dev = ro.device
@@ -715,15 +729,17 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     def full(shape, value, dtype=torch.float32):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    idx0 = torch.arange(n, dtype=torch.int32, device=dev)
-    if do_sort:
-        scene_vmin, scene_vmax = sort_bounds(dscene, config)
-        # camera rays arrive in scanline order: sort them too
-        perm0 = torch.argsort(_sort_key(ro, rd, scene_vmin, scene_vmax),
-                              stable=True)
-        ro, rd, rng_state, idx0 = (x[perm0] for x in (ro, rd, rng_state, idx0))
-
-    h0 = intersect_primary(ro, rd, full((n,), RAY_EPS), full((n,), F32_MAX))
+    with span("primary_hit"):
+        idx0 = torch.arange(n, dtype=torch.int32, device=dev)
+        if do_sort:
+            scene_vmin, scene_vmax = sort_bounds(dscene, config)
+            # camera rays arrive in scanline order: sort them too
+            perm0 = torch.argsort(_sort_key(ro, rd, scene_vmin, scene_vmax),
+                                  stable=True)
+            ro, rd, rng_state, idx0 = (x[perm0]
+                                       for x in (ro, rd, rng_state, idx0))
+        h0 = intersect_primary(ro, rd, full((n,), RAY_EPS),
+                               full((n,), F32_MAX))
     zeros3 = full((n, 3), 0.0)
     state = TraceVars(
         ro=ro, rd=rd,
@@ -743,10 +759,9 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         idx=idx0,
     )
 
-    def body(s: TraceVars) -> TraceVars:
+    def bounce_step(s: TraceVars) -> TraceVars:
         # width-polymorphic: the two-phase dispatch re-enters with a
         # narrowed state, so lane-shaped constants derive from the state
-        trace_wavefront.bodies += 1
         n = s.alive.shape[0]
         alive = s.alive
         bounce = torch.where(alive, s.bounce + 1, s.bounce)
@@ -991,7 +1006,8 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         # ---- ONE traversal: the next bounce's hit. Dead lanes carry
         # tmax = -1 so every test against them fails.
         tmax = torch.where(alive, F32_MAX, -1.0)
-        nxt = intersect(new_ro, new_rd, full((n,), RAY_EPS), tmax)
+        with span("intersect"):
+            nxt = intersect(new_ro, new_rd, full((n,), RAY_EPS), tmax)
 
         # ---- weight updates
         if is_path:
@@ -1114,12 +1130,20 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             has_vol=has_vol, idx=idx,
         )
 
+    def body(s: TraceVars, live: int | None = None) -> TraceVars:
+        """One bounce in a `body` span; `live`: the live lanes the loop
+        test read before it (none in the fixed-trip loop)."""
+        counts = {} if live is None else {"live": live,
+                                          "width": s.alive.shape[0]}
+        with span("body", **counts):
+            return bounce_step(s)
+
     def outputs(s: TraceVars):
         return [s.radiance, s.hit_flag, s.hit_albedo, s.hit_normal, s.rng]
 
     def run(s: TraceVars) -> TraceVars:
-        while _host_bool(s.alive.any()):
-            s = body(s)
+        while live := _live_lanes(s.alive):
+            s = body(s, live)
         return s
 
     if fixed:
@@ -1132,21 +1156,24 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
                 if grad else body(state))
         return tuple(outputs(state))
 
-    def drain(s: TraceVars, cap: int) -> TraceVars:
-        while _host_bool(s.alive.sum() > cap):
-            s = body(s)
-        return s
+    def drain(s: TraceVars, cap: int) -> tuple[TraceVars, int]:
+        """Bodies until at most `cap` lanes live: the state and its live
+        lanes."""
+        while (live := _live_lanes(s.alive)) > cap:
+            s = body(s, live)
+        return s, live
 
     def unsort(outs, idx):
         if not do_sort:
             return tuple(outs)
-        lane = idx.long()
-        res = []
-        for a in outs:
-            out = torch.empty_like(a)
-            out[lane] = a
-            res.append(out)
-        return tuple(res)
+        with span("unsort"):
+            lane = idx.long()
+            res = []
+            for a in outs:
+                out = torch.empty_like(a)
+                out[lane] = a
+                res.append(out)
+            return tuple(res)
 
     div = options.compact_div or (2 if do_sort else 4)
     # instanced scenes stop at 3 levels, as in the JAX package
@@ -1170,17 +1197,21 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
             c = phase_cap(width)
             if c >= width:
                 break
-            s_a = body(drain(cur, c))
+            s_d, live = drain(cur, c)
+            s_a = body(s_d, live)
             snaps.append(s_a)
-            cur, width = TraceVars(*(x[:c] for x in s_a)), c
+            with span("compact", live=live, width=width, cap=c):
+                cur, width = TraceVars(*(x[:c] for x in s_a)), c
         final = run(cur)
         outs, idx = outputs(final), final.idx
         for s_a in reversed(snaps):
-            # contiguous update of the prefix the narrow loop replaced
-            full_outs = outputs(s_a)
-            c = idx.shape[0]
-            outs = [torch.cat([nar, wide[c:]]) for nar, wide in zip(outs, full_outs)]
-            idx = torch.cat([idx, s_a.idx[c:]])
+            with span("expand"):
+                # contiguous update of the prefix the narrow loop replaced
+                full_outs = outputs(s_a)
+                c = idx.shape[0]
+                outs = [torch.cat([nar, wide[c:]])
+                        for nar, wide in zip(outs, full_outs)]
+                idx = torch.cat([idx, s_a.idx[c:]])
         return unsort(outs, idx)
 
     snaps, cur, width = [], state, n
@@ -1188,27 +1219,27 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
         c = phase_cap(width)
         if c >= width or width % lane_compact.TILE:
             break
-        s_a = drain(cur, c)
-        total = s_a.alive.sum()
-        planes, specs = lane_compact.leaves_to_planes(list(s_a))
-        packed = lane_compact.compact_planes(planes, s_a.alive, c)
-        s_n = TraceVars(*lane_compact.planes_to_leaves(packed, specs))
-        # slack lanes past the survivor count hold unspecified bits; the
-        # alive mask itself must be real
-        s_n = s_n._replace(
-            alive=s_n.alive & (torch.arange(c, device=dev) < total)
-        )
+        s_a, live = drain(cur, c)
+        with span("compact", live=live, width=width, cap=c):
+            planes, specs = lane_compact.leaves_to_planes(list(s_a))
+            packed = lane_compact.compact_planes(planes, s_a.alive, c)
+            s_n = TraceVars(*lane_compact.planes_to_leaves(packed, specs))
+            # slack lanes past the survivor count hold unspecified bits;
+            # the alive mask itself must be real
+            s_n = s_n._replace(
+                alive=s_n.alive & (torch.arange(c, device=dev) < live)
+            )
         snaps.append(s_a)
         cur, width = s_n, c
     outs = outputs(run(cur))
     for s_a in reversed(snaps):
-        narrow, specs = lane_compact.leaves_to_planes(outs)
-        fallback, _ = lane_compact.leaves_to_planes(outputs(s_a))
-        outs = lane_compact.planes_to_leaves(
-            lane_compact.expand_planes(narrow, s_a.alive, fallback), specs
-        )
+        with span("expand"):
+            narrow, specs = lane_compact.leaves_to_planes(outs)
+            fallback, _ = lane_compact.leaves_to_planes(outputs(s_a))
+            outs = lane_compact.planes_to_leaves(
+                lane_compact.expand_planes(narrow, s_a.alive, fallback), specs
+            )
     return tuple(outs)
 
 
 trace_wavefront.host_syncs = 0
-trace_wavefront.bodies = 0  # loop bodies run (each one bounce intersect)

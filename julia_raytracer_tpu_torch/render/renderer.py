@@ -39,6 +39,7 @@ from julia_raytracer_tpu_torch.scene.loader import find_camera
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
 from julia_raytracer_tpu_torch.utils.diskcache import scene_cache_key
 from julia_raytracer_tpu_torch.utils.roofline import count_cost
+from julia_raytracer_tpu_torch.utils.timing import span
 
 MAX_CHUNK = 1 << 20  # rays per trace_wavefront call
 # scenes of at least this many quads sort their wavefronts by default
@@ -348,23 +349,28 @@ class Renderer:
 
     def _trace_lanes(self, state: TraceState, ids, sample_ids):
         """Trace one camera path a lane, pixel ids (clamped to the image),
-        sample sample_ids (an int or a tensor): the lanes' image, albedo
-        and normal contributions, and whether each hit or saw the env."""
+        sample sample_ids (an int or a tensor): what `_compose` takes."""
         params, width, height = self.params, state.width, state.height
-        rng = rng_mod.seed_state(ids, sample_ids, params.seed)
-        puv, rng = rng_mod.rand2f(rng)
-        luv, rng = rng_mod.rand2f(rng)
-        ij = torch.stack([ids % width, ids // width], dim=-1)
-        ro, rd = sample_camera(
-            self.cam_arrays, ij, (width, height), puv, luv, params.tentfilter
-        )
+        with span("camera"):
+            rng = rng_mod.seed_state(ids, sample_ids, params.seed)
+            puv, rng = rng_mod.rand2f(rng)
+            luv, rng = rng_mod.rand2f(rng)
+            ij = torch.stack([ids % width, ids // width], dim=-1)
+            ro, rd = sample_camera(
+                self.cam_arrays, ij, (width, height), puv, luv,
+                params.tentfilter)
         radiance, hit, albedo_s, normal_s, _ = trace_wavefront(
             self.dscene, self.config, self.options, ro, rd, rng,
             intersect=self.intersect,
             intersect_primary=getattr(self.intersect, "primary", None),
         )
+        return radiance, hit, albedo_s, normal_s, rd
+
+    def _compose(self, radiance, hit, albedo_s, normal_s, rd):
+        """The traced lanes' image, albedo and normal contributions, and
+        whether each hit or saw the env."""
         img_new, alb_new, nrm_new, env_case = _scrub_compose(
-            radiance, hit, albedo_s, normal_s, rd, params.clamp,
+            radiance, hit, albedo_s, normal_s, rd, self.params.clamp,
             self.options.envhidden, self.config.n_envs > 0,
         )
         return img_new, alb_new, nrm_new, hit | env_case
@@ -376,17 +382,18 @@ class Renderer:
         lane = torch.arange(chunk, dtype=torch.int32, device=self.device)
         pixel = pixel0 + lane
         valid = pixel < n_pixels
-        img_new, alb_new, nrm_new, seen = self._trace_lanes(
-            state, pixel.clamp(0, n_pixels - 1), sample)
-        # running-mean weight 1 / (s + 1), rounded in float32
-        w = float(np.float32(1.0) / (np.float32(sample) + np.float32(1.0)))
-        w = torch.where(valid, w, 0.0)[..., None]
-        sl = slice(pixel0, pixel0 + chunk)
-        for buf, new in ((state.image, img_new), (state.albedo, alb_new),
-                         (state.normal, nrm_new)):
-            old = buf[sl]
-            buf[sl] = old + (new - old) * w
-        state.hits[sl] += (valid & seen).to(torch.int32)
+        traced = self._trace_lanes(state, pixel.clamp(0, n_pixels - 1), sample)
+        with span("fold"):
+            img_new, alb_new, nrm_new, seen = self._compose(*traced)
+            # running-mean weight 1 / (s + 1), rounded in float32
+            w = float(np.float32(1.0) / (np.float32(sample) + np.float32(1.0)))
+            w = torch.where(valid, w, 0.0)[..., None]
+            sl = slice(pixel0, pixel0 + chunk)
+            for buf, new in ((state.image, img_new), (state.albedo, alb_new),
+                             (state.normal, nrm_new)):
+                old = buf[sl]
+                buf[sl] = old + (new - old) * w
+            state.hits[sl] += (valid & seen).to(torch.int32)
 
     def _adaptive_sample(self, state: TraceState, chunk: int, pixel0: int,
                          batch_id: int, n_live: int, uniform: bool):
@@ -412,42 +419,45 @@ class Renderer:
                 self.params.seed)
             valid = lane < n_live
             sample_ids = state.counts[ids] + rank
-        img_new, alb_new, nrm_new, seen = self._trace_lanes(
-            state, ids, sample_ids)
-        vf = valid.to(torch.float32)
-        img_new = img_new * vf[..., None]
-        alb_new = alb_new * vf[..., None]
-        nrm_new = nrm_new * vf[..., None]
-        lum = _luminance(img_new[:, :3]) * vf
-        vals = torch.cat([vf[:, None], img_new, alb_new, nrm_new, lum[:, None],
-                          (lum * lum)[:, None]], dim=1)
-        sid = ids if order is None else ids[order]
-        sums = pixel_sums(sid, vals if order is None else vals[order], n)
-        k, s_img, s_alb, s_nrm = sums[:, 0], sums[:, 1:5], sums[:, 5:8], sums[:, 8:11]
-        s_l, s_l2 = sums[:, 11], sums[:, 12]
+        traced = self._trace_lanes(state, ids, sample_ids)
+        with span("fold"):
+            img_new, alb_new, nrm_new, seen = self._compose(*traced)
+            vf = valid.to(torch.float32)
+            img_new = img_new * vf[..., None]
+            alb_new = alb_new * vf[..., None]
+            nrm_new = nrm_new * vf[..., None]
+            lum = _luminance(img_new[:, :3]) * vf
+            vals = torch.cat([vf[:, None], img_new, alb_new, nrm_new, lum[:, None],
+                              (lum * lum)[:, None]], dim=1)
+            sid = ids if order is None else ids[order]
+            sums = pixel_sums(sid, vals if order is None else vals[order], n)
+            k, s_img, s_alb, s_nrm = sums[:, 0], sums[:, 1:5], sums[:, 5:8], sums[:, 8:11]
+            s_l, s_l2 = sums[:, 11], sums[:, 12]
 
-        n_old = state.counts.to(torch.float32)
-        n_new = torch.clamp(n_old + k, min=1.0)
-        mean_old = _luminance(state.image[:, :3])
-        kc, nc = k[:, None], n_new[:, None]
-        state.image = state.image + (s_img - kc * state.image) / nc
-        state.albedo = state.albedo + (s_alb - kc * state.albedo) / nc
-        state.normal = state.normal + (s_nrm - kc * state.normal) / nc
-        mb = s_l / torch.clamp(k, min=1.0)
-        m2b = torch.clamp(s_l2 - k * mb * mb, min=0.0)
-        delta = mb - mean_old
-        state.m2 = state.m2 + m2b + delta * delta * n_old * k / n_new
-        state.counts = state.counts + k.to(torch.int32)
-        # integer adds commute: the scatter's order cannot change the sum
-        state.hits = state.hits.index_add(0, ids, (valid & seen).to(torch.int32))
+            n_old = state.counts.to(torch.float32)
+            n_new = torch.clamp(n_old + k, min=1.0)
+            mean_old = _luminance(state.image[:, :3])
+            kc, nc = k[:, None], n_new[:, None]
+            state.image = state.image + (s_img - kc * state.image) / nc
+            state.albedo = state.albedo + (s_alb - kc * state.albedo) / nc
+            state.normal = state.normal + (s_nrm - kc * state.normal) / nc
+            mb = s_l / torch.clamp(k, min=1.0)
+            m2b = torch.clamp(s_l2 - k * mb * mb, min=0.0)
+            delta = mb - mean_old
+            state.m2 = state.m2 + m2b + delta * delta * n_old * k / n_new
+            state.counts = state.counts + k.to(torch.int32)
+            # integer adds commute: the scatter's order cannot change the sum
+            state.hits = state.hits.index_add(0, ids, (valid & seen).to(torch.int32))
 
     def trace_samples(self, state: TraceState) -> TraceState:
-        """Advance one batch of samples."""
+        """Advance one batch of samples, in a `frame` span (a unit of
+        utils/timing.py)."""
         params = self.params
-        if state.samples >= params.samples:
-            return state
-        return self._advance(
-            state, min(state.samples + params.batch, params.samples))
+        with span("frame"):
+            if state.samples >= params.samples:
+                return state
+            return self._advance(
+                state, min(state.samples + params.batch, params.samples))
 
     def sample_kernel_cost(self, state: TraceState) -> dict:
         """The cost of ONE sample (all chunks) of `state`'s next sample,
@@ -505,7 +515,8 @@ class Renderer:
             state.hits = torch.nn.functional.pad(state.hits, (0, pad))
         for sample in range(state.samples, target):
             for pixel0 in range(0, n, chunk):
-                self._sample(state, chunk, pixel0, sample)
+                with span("chunk"):
+                    self._sample(state, chunk, pixel0, sample)
         state.samples = target
         return state
 
@@ -525,9 +536,10 @@ class Renderer:
             uniform = sample < self.params.adaptive_warmup
             for ci in range(nchunks):
                 pixel0 = ci * chunk
-                self._adaptive_sample(state, chunk, pixel0,
-                                      sample * nchunks + ci,
-                                      min(chunk, n - pixel0), uniform)
+                with span("chunk"):
+                    self._adaptive_sample(state, chunk, pixel0,
+                                          sample * nchunks + ci,
+                                          min(chunk, n - pixel0), uniform)
         state.samples = target
         return state
 

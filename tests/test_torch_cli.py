@@ -10,6 +10,7 @@ keys, dtypes and shapes are equal, the images meet the slice criterion
 (testing.image_close: means within 1e-3 relative, >= 99% of pixels
 within 1e-3), and the port resumes the JAX checkpoint."""
 
+import json
 import os
 
 import numpy as np
@@ -130,6 +131,19 @@ def test_trace_profile_writes_trace(scene_path, tmp_path):
     prof = tmp_path / "prof"
     _run(scene_path, tmp_path, "prof", "--trace-profile", str(prof))
     assert os.path.getsize(prof / "trace.json") > 0
+    with open(prof / "spans.json") as f:
+        spans = json.load(f)
+    paths = {r["path"] for r in spans["records"]}
+    assert {"frame", "frame/chunk", "frame/chunk/wavefront/body"} <= paths
+    lo, hi = spans["window_ns"]
+    assert all(lo <= r["start_ns"] <= r["end_ns"] <= hi
+               for r in spans["records"])
+    # no device on the CPU: the frame is idle throughout, by span
+    assert spans["idle_by_span_s"] and all(
+        k in paths for k in spans["idle_by_span_s"])
+    assert sum(spans["idle_by_span_s"].values()) == pytest.approx(
+        spans["idle_s"]) == pytest.approx((hi - lo) / 1e9)
+    assert spans["table"]["frame/chunk/wavefront/body"]["n"] > 0
 
 
 def test_main_refuses_without_card(scene_path, tmp_path, monkeypatch):

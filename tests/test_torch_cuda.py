@@ -7,6 +7,8 @@ available. Run them on a GPU machine with
 (`--noconftest`: tests/conftest.py imports jax, which the GPU machine
 need not have; this file imports only the port.)"""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,7 @@ from julia_raytracer_tpu_torch.testing import (
     image_close, instanced_scene, many_lights_scene, param_grads,
     regroup_bits, render_instanced, sphere_grid_scene, vertex_grads,
 )
+from julia_raytracer_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -684,9 +687,10 @@ def test_many_lights_march_on_card_matches_cpu(dev):
     assert steps == 4
     st = make_trace_state(scene, params, device=dev)
     wl.worklist_intersect_kernel.launches = 0
-    bodies = tint.trace_wavefront.bodies
+    t0 = time.perf_counter_ns()
     r.trace_samples(st)
-    bodies = tint.trace_wavefront.bodies - bodies
+    bodies = sum(row["n"] for u in timing.units() if u["start_ns"] >= t0
+                 for path, row in u["table"].items() if path.endswith("/body"))
     assert wl.worklist_intersect_kernel.launches == 1 + bodies * (1 + steps)
     rc = Renderer(scene, params, device="cpu")
     stc = make_trace_state(scene, params, device="cpu")

@@ -38,6 +38,7 @@ from julia_raytracer_tpu_torch.scene.types import MaterialData, MaterialType
 from julia_raytracer_tpu_torch.testing import (
     cornell_scene, image_close, many_lights_scene,
 )
+from julia_raytracer_tpu_torch.utils import timing
 from torch_parity import jax_config_fields, jax_scene_arrays, to_jax_scene
 
 PANEL = (64, 65)  # 4,160 emissive quads
@@ -177,12 +178,12 @@ def test_render_matches_jax(lights_scene):
     want = jax.jit(lambda ro, rd, rng: jint.trace_wavefront(
         dj, cj, jint.TraceOptions(bounces=2, light_pdf_extra_steps=steps),
         ro, rd, rng))(ro, rd, rng)
-    bodies = tint.trace_wavefront.bodies
-    got = tint.trace_wavefront(
-        dt, ct, tint.TraceOptions(bounces=2, light_pdf_extra_steps=steps),
-        torch.from_numpy(np.array(ro)), torch.from_numpy(np.array(rd)),
-        torch.from_numpy(np.asarray(rng).view(np.int32).copy()))
-    assert tint.trace_wavefront.bodies > bodies
+    with timing.span("frame"):
+        got = tint.trace_wavefront(
+            dt, ct, tint.TraceOptions(bounces=2, light_pdf_extra_steps=steps),
+            torch.from_numpy(np.array(ro)), torch.from_numpy(np.array(rd)),
+            torch.from_numpy(np.asarray(rng).view(np.int32).copy()))
+    assert timing.units()[-1]["table"]["frame/wavefront/body"]["n"] > 0
     image_close(got[0].numpy(), want[0])
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     assert got[0].mean() > 0
