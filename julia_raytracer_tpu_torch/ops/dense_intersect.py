@@ -306,11 +306,16 @@ def _lib():
 
 
 def make_dense_intersect(prim_verts: np.ndarray, prim_instance, device):
-    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup."""
+    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup. It
+    declares `graph_safe`: a call reads nothing back from the device and
+    sizes its outputs by its inputs' shapes alone, and the kernel's launch
+    goes onto PyTorch's current stream, so a CUDA graph can capture it
+    (render/body_graphs.py)."""
     table = make_dense_table(prim_verts, prim_instance, device)
 
     def intersect(ro, rd, tmin, tmax):
         return dense_intersect(table, ro, rd, tmin, tmax)
 
     intersect.table = table
+    intersect.graph_safe = True
     return intersect

@@ -9,9 +9,16 @@ host, one body per iteration, until no lane is alive; each loop test
 reads the live-lane count back from the device (`trace_wavefront.host_syncs`
 counts them). Spans (utils/timing.py) mark the layers: `wavefront`
 around the call, holding `primary_hit`, `loop_test` (each read), `body`
-(with the count its test read, `live=`, and the state's `width=`;
-holding the bounce's `intersect`), `compact` (`live=`, `width=`,
-`cap=`), `expand` and `unsort`.
+(with the count its test read, `live=`, the state's `width=` and
+`graphed=`, 1 where a CUDA graph ran it; holding the bounce's
+`intersect`, which appears only on eager and captured bodies),
+`compact` (`live=`, `width=`, `cap=`), `expand` and `unsort`.
+
+CUDA graphs (`graphs`, a render/body_graphs.py BodyGraphs that the
+Renderer owns): on the card, a while-loop body whose intersectors
+declare `graph_safe` is captured at the second sighting of its lane
+width and replayed from then on; the replay launches the same kernels on
+the same data, so the outputs are the eager loop's bit for bit.
 
 Wavefront sort (`TraceOptions.sort_rays`; the renderer turns it on for
 scenes of >= 50,000 quads, as the JAX package does): camera rays, and
@@ -107,6 +114,7 @@ from julia_raytracer_tpu_torch.ops.traversal import Hit, intersect_bruteforce
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
+from julia_raytracer_tpu_torch.render.body_graphs import Kept
 from julia_raytracer_tpu_torch.render.scene_device import DeviceScene, SceneConfig
 from julia_raytracer_tpu_torch.utils import kernel_select
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
@@ -689,7 +697,7 @@ def _take(xs, perm):
 
 def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
                     options: TraceOptions, ro, rd, rng_state, intersect=None,
-                    intersect_primary=None):
+                    intersect_primary=None, graphs=None):
     """Trace a batch of rays to completion.
 
     Returns (radiance [N,3], hit [N] bool, albedo [N,3], normal [N,3],
@@ -701,20 +709,26 @@ def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
     when given (the regroup intersector's `.primary`: the worklist
     kernel, as the JAX package routes them), else through `intersect`.
     With `options.fixed_iterations` the loop is the fixed-trip,
-    differentiable one (module docstring)."""
+    differentiable one (module docstring). `graphs`: the caller's
+    BodyGraphs, which replays the while loop's bodies from CUDA graphs
+    where render/body_graphs.py allows it; without it every body is
+    issued eagerly."""
     with span("wavefront"):
         return _trace(dscene, config, options, ro, rd, rng_state, intersect,
-                      intersect_primary)
+                      intersect_primary, graphs)
 
 
 def _trace(dscene, config, options, ro, rd, rng_state, intersect,
-           intersect_primary):
+           intersect_primary, graphs):
     fixed = options.fixed_iterations
     n = ro.shape[0]
     dev = ro.device
     if intersect is None:
         intersect = build_intersector(dscene, config)
     intersect_primary = intersect_primary or intersect
+    if graphs is not None:
+        graphs = graphs.for_trace(dev, fixed, dscene, config, options,
+                                  intersect, intersect_primary)
     if fixed:
         intersect = _diff_intersect(intersect, dscene, config)
         intersect_primary = _diff_intersect(intersect_primary, dscene, config)
@@ -1132,14 +1146,26 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
 
     def body(s: TraceVars, live: int | None = None) -> TraceVars:
         """One bounce in a `body` span; `live`: the live lanes the loop
-        test read before it (none in the fixed-trip loop)."""
-        counts = {} if live is None else {"live": live,
-                                          "width": s.alive.shape[0]}
-        with span("body", **counts):
-            return bounce_step(s)
+        test read before it (none in the fixed-trip loop, which `graphs`
+        never replays)."""
+        if live is None:
+            with span("body"):
+                return bounce_step(s)
+        with span("body", live=live, width=s.alive.shape[0],
+                  graphed=0) as sp:
+            if graphs is None:
+                return bounce_step(s)
+            s, graphed = graphs.run(bounce_step, s)
+            sp.counts["graphed"] = int(graphed)
+            return s
 
     def outputs(s: TraceVars):
         return [s.radiance, s.hit_flag, s.hit_albedo, s.hit_normal, s.rng]
+
+    # states that outlive later bodies, and the trace's outputs, leave
+    # the graphs' buffers
+    keep = Kept if graphs is None else graphs.keep
+    finish = tuple if graphs is None else graphs.release
 
     def run(s: TraceVars) -> TraceVars:
         while live := _live_lanes(s.alive):
@@ -1165,7 +1191,7 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
 
     def unsort(outs, idx):
         if not do_sort:
-            return tuple(outs)
+            return finish(outs)
         with span("unsort"):
             lane = idx.long()
             res = []
@@ -1199,12 +1225,13 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
                 break
             s_d, live = drain(cur, c)
             s_a = body(s_d, live)
-            snaps.append(s_a)
+            snaps.append(keep(s_a))
             with span("compact", live=live, width=width, cap=c):
                 cur, width = TraceVars(*(x[:c] for x in s_a)), c
         final = run(cur)
         outs, idx = outputs(final), final.idx
-        for s_a in reversed(snaps):
+        for kept in reversed(snaps):
+            s_a = kept.state
             with span("expand"):
                 # contiguous update of the prefix the narrow loop replaced
                 full_outs = outputs(s_a)
@@ -1229,17 +1256,18 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
             s_n = s_n._replace(
                 alive=s_n.alive & (torch.arange(c, device=dev) < live)
             )
-        snaps.append(s_a)
+        snaps.append(keep(s_a))
         cur, width = s_n, c
     outs = outputs(run(cur))
-    for s_a in reversed(snaps):
+    for kept in reversed(snaps):
+        s_a = kept.state
         with span("expand"):
             narrow, specs = lane_compact.leaves_to_planes(outs)
             fallback, _ = lane_compact.leaves_to_planes(outputs(s_a))
             outs = lane_compact.planes_to_leaves(
                 lane_compact.expand_planes(narrow, s_a.alive, fallback), specs
             )
-    return tuple(outs)
+    return finish(outs)
 
 
 trace_wavefront.host_syncs = 0

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops.camera import CameraArrays, sample_camera
+from julia_raytracer_tpu_torch.render.body_graphs import BodyGraphs
 from julia_raytracer_tpu_torch.render.integrator import (
     REGROUP_MIN_PRIMS, TraceOptions, build_intersector, trace_wavefront,
 )
@@ -308,7 +309,8 @@ def light_pdf_steps(params: Params, config) -> int:
 
 
 class Renderer:
-    """Owns the device scene, the intersector and the per-sample step.
+    """Owns the device scene, the intersector, the loop bodies' CUDA
+    graphs (render/body_graphs.py) and the per-sample step.
     `device=None` means the card; pass device="cpu" for the CPU."""
 
     def __init__(self, scene_data, params: Params, device=None):
@@ -346,6 +348,8 @@ class Renderer:
         self.intersect = build_intersector(
             self.dscene, self.config, regroup=params.regroup,
             regroup_min_prims=params.regroup_min_prims)
+        # the loop bodies' CUDA graphs, by lane width
+        self.body_graphs = BodyGraphs()
 
     def _trace_lanes(self, state: TraceState, ids, sample_ids):
         """Trace one camera path a lane, pixel ids (clamped to the image),
@@ -363,6 +367,7 @@ class Renderer:
             self.dscene, self.config, self.options, ro, rd, rng,
             intersect=self.intersect,
             intersect_primary=getattr(self.intersect, "primary", None),
+            graphs=self.body_graphs,
         )
         return radiance, hit, albedo_s, normal_s, rd
 

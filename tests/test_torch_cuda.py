@@ -753,3 +753,154 @@ def test_kernel_cost_reports_on_card_equal_cpu(dev):
     for on_card, on_cpu in zip(calls(dev), calls("cpu"), strict=True):
         card, cpu = _kernel_reports(on_card), _kernel_reports(on_cpu)
         assert card and card == cpu
+
+
+def _cornell_frames(r, st, frames):
+    """`frames` frames of `r`: the state's image, AOVs and hits, and per
+    frame the dense kernel's launches and the loop tests."""
+    counts = []
+    for _ in range(frames):
+        di.dense_intersect.launches = tint.trace_wavefront.host_syncs = 0
+        r.trace_samples(st)
+        torch.cuda.synchronize()
+        body = timing.units()[-1]["table"]["frame/chunk/wavefront/body"]
+        counts.append((di.dense_intersect.launches,
+                       tint.trace_wavefront.host_syncs, body["n"],
+                       body["graphed"]))
+    return [x.clone() for x in (st.image, st.albedo, st.normal, st.hits)], counts
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_replayed_frames_equal_eager_on_card(dev, sort):
+    """The Cornell box at 1280², 8 bounces, path sampler: 2 chunks of
+    1,048,576 lanes with compaction (4 widths unsorted, 6 sorted). Frames
+    whose bodies replay CUDA graphs equal eager frames bit for bit over 3
+    frames (image, albedo, normal, hits), with the same dense launches,
+    loop tests and bodies a frame; the first frame's first chunk sights
+    every width, its second captures them, and the third frame only
+    replays."""
+    scene = cornell_scene()
+    params = Params(resolution=1280, samples=1 << 20, batch=1, bounces=8,
+                    seed=5, sort_rays=sort)
+    runs = []
+    for graphed in (True, False):
+        r = Renderer(scene, params, device=dev)
+        if not graphed:
+            r.body_graphs = None
+        st = make_trace_state(scene, params, device=dev)
+        runs.append(_cornell_frames(r, st, 3))
+        if graphed:
+            graphs = r.body_graphs
+            assert graphs.captures == len(graphs.graphs) >= 4
+            assert not graphs.failed
+    (got, got_counts), (want, want_counts) = runs
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert [c[:3] for c in got_counts] == [c[:3] for c in want_counts]
+    assert want_counts[0][0] > 0 and all(c[3] == 0 for c in want_counts)
+    assert got_counts[2][3] == got_counts[2][2]  # every body a replay
+
+
+def test_two_renderers_render_in_turn(dev):
+    """Two Renderers on one scene, each with its own graphs and buffers,
+    rendering frames in turn: each equals a Renderer that renders alone."""
+    scene = cornell_scene()
+    params = Params(resolution=256, samples=1 << 20, batch=1, bounces=8,
+                    seed=2)
+    pair = [Renderer(scene, params, device=dev) for _ in range(2)]
+    states = [make_trace_state(scene, params, device=dev) for _ in range(2)]
+    states[1].samples = 7  # another sample sequence
+    for _ in range(3):
+        for r, st in zip(pair, states):
+            r.trace_samples(st)
+    bufs = [{b for g in r.body_graphs.graphs.values() for b in g.buffers}
+            for r in pair]
+    assert bufs[0] and bufs[1] and not bufs[0] & bufs[1]
+    for r, st in zip(pair, states):
+        alone = Renderer(scene, params, device=dev)
+        alone.body_graphs = None
+        st_a = make_trace_state(scene, params, device=dev)
+        st_a.samples = st.samples - 3
+        for _ in range(3):
+            alone.trace_samples(st_a)
+        for a, b in zip((st.image, st.albedo, st.normal, st.hits),
+                        (st_a.image, st_a.albedo, st_a.normal, st_a.hits)):
+            assert torch.equal(a, b)
+
+
+def test_sample_kernel_cost_same_after_capture_on_card(dev):
+    """sample_kernel_cost runs eagerly under its TorchDispatchMode: the
+    same counts before and after the graphs are captured, and no replay
+    inside it. The kernels' flops are left out: the dense kernel's count
+    its pre-test's passes over every lane, and the compaction kernel
+    leaves the slack lanes' bits unspecified, so they differ between any
+    two calls."""
+    scene = cornell_scene()
+    params = Params(resolution=256, samples=1 << 20, batch=1, bounces=8,
+                    seed=2)
+    r = Renderer(scene, params, device=dev)
+    st = make_trace_state(scene, params, device=dev)
+    before = r.sample_kernel_cost(st)
+    work = make_trace_state(scene, params, device=dev)
+    for _ in range(2):
+        r.trace_samples(work)
+    assert r.body_graphs.captures > 0
+    replays = r.body_graphs.replays
+    after = r.sample_kernel_cost(st)
+    assert r.body_graphs.replays == replays
+    assert before["ops"] == after["ops"]
+
+    def calls_and_bytes(cost):
+        return {k: (v[0], v[2]) for k, v in cost["kernels"].items()}
+
+    assert calls_and_bytes(before) == calls_and_bytes(after)
+
+
+def test_worklist_scene_makes_no_capture(dev):
+    """The sphere grid (1,030 quads) takes the worklist kernel, which
+    reads the host: its bodies stay eager."""
+    scene = sphere_grid_scene(2, 16)
+    params = Params(resolution=64, samples=1 << 20, batch=1, bounces=4,
+                    seed=1)
+    r = Renderer(scene, params, device=dev)
+    st = make_trace_state(scene, params, device=dev)
+    for _ in range(3):
+        r.trace_samples(st)
+    graphs = r.body_graphs
+    assert not getattr(r.intersect, "graph_safe", False)
+    assert graphs.captures == graphs.replays == 0 and not graphs.seen
+
+
+def test_refused_capture_leaves_the_width_eager_on_card(dev):
+    """A body that copies from host memory cannot be captured: its width
+    stays eager, the card works on, and another width still captures."""
+    from typing import NamedTuple
+
+    from julia_raytracer_tpu_torch.render.body_graphs import BodyGraphs
+
+    class S(NamedTuple):
+        alive: torch.Tensor
+        x: torch.Tensor
+
+    def host_copy(s):
+        return S(s.alive, s.x + torch.tensor([1.0, 2.0, 3.0], device=dev))
+
+    def plain(s):
+        return S(s.alive, s.x * 2.0 + 1.0)
+
+    graphs = BodyGraphs()
+    s = S(torch.ones(1024, dtype=torch.bool, device=dev),
+          torch.zeros((1024, 3), device=dev))
+    for _ in range(3):
+        s, graphed = graphs.run(host_copy, s)
+        assert not graphed
+    assert graphs.failed == {1024}
+    assert torch.equal(s.x[0].cpu(), torch.tensor([3.0, 6.0, 9.0]))
+    t = S(torch.ones(2048, dtype=torch.bool, device=dev),
+          torch.zeros((2048, 3), device=dev))
+    flags = []
+    for _ in range(4):
+        t, graphed = graphs.run(plain, t)
+        flags.append(graphed)
+    assert flags == [False, True, True, True]
+    assert torch.equal(t.x, torch.full((2048, 3), 15.0, device=dev))
