@@ -31,7 +31,9 @@ _make_kernel_instanced and its fused-jnp candidate cull beam_precull
 
 `instanced_intersect` runs the precull and then the plain versions for
 CPU tensors or the kernels (one launch each for all rays) for CUDA
-tensors, and normalises the rotated normals.
+tensors, and normalises the rotated normals. The precull and the walk
+are timed by the spans `precull` and `inst_walk` (utils/timing.py
+device_span: device time by CUDA events, the cull's candidate count).
 `candidate_keys_kernel.launches` and `instanced_intersect_kernel.launches`
 count the kernels' launches.
 
@@ -58,7 +60,7 @@ from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import TRIS
 from julia_raytracer_tpu_torch.ops.traversal import Hit
-from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 WARP = wl.WARP  # rays of a walking warp
 # rays per candidate list (the JAX package's: 1,024): of 32-256, the sum
@@ -182,16 +184,23 @@ def precull(ro, rd, tmin, tmax, wi_bbox, group: int = GROUP_RAYS):
     """Candidate items of each group of `group` rays, front to back:
     (order [ng, items] i32, tlow [ng, items] f32 sorted, cnt [ng] i32):
     the cull's plain version for CPU tensors, its kernel for CUDA
-    tensors."""
-    with roofline.kernel_region() as counter:
-        keys = (candidate_keys_plain if ro.device.type == "cpu"
-                else candidate_keys_kernel)(ro, rd, tmin, tmax, wi_bbox, group)
-        if counter is not None:
-            counter.add_kernel("candidate_cull", kf.candidate_cull_cost(
-                ro.shape[0], wi_bbox.shape[0], keys.shape[0], group))
-    order = torch.argsort(keys, dim=1, stable=True)
-    tlow = keys.gather(1, order)
-    cnt = torch.isfinite(keys).sum(dim=1, dtype=torch.int32)
+    tensors. A `precull` span (utils/timing.py device_span) covers the
+    keys and the sort: `groups`, `items`, `keys` (their product) and
+    `candidates` (the sum of cnt, a tensor read when the units are)."""
+    ng, items = max(1, -(-ro.shape[0] // group)), wi_bbox.shape[0]
+    with timing.device_span("precull", ro.device, groups=ng, items=items,
+                            keys=ng * items) as sp:
+        with roofline.kernel_region() as counter:
+            keys = (candidate_keys_plain if ro.device.type == "cpu"
+                    else candidate_keys_kernel)(ro, rd, tmin, tmax, wi_bbox,
+                                                group)
+            if counter is not None:
+                counter.add_kernel("candidate_cull", kf.candidate_cull_cost(
+                    ro.shape[0], items, keys.shape[0], group))
+        order = torch.argsort(keys, dim=1, stable=True)
+        tlow = keys.gather(1, order)
+        cnt = torch.isfinite(keys).sum(dim=1, dtype=torch.int32)
+        sp.add(candidates=cnt.sum(dtype=torch.int64))
     return order.to(torch.int32), tlow, cnt
 
 
@@ -489,11 +498,13 @@ def instanced_intersect(tables: InstancedDeviceTables, ro, rd, tmin,
                    z, z, tmax, ro + tmax[:, None] * rd, torch.zeros_like(ro), zi)
     lists = precull(ro, rd, tmin, tmax, tables.wi_bbox)
     with roofline.kernel_region() as counter:
-        if ro.device.type == "cpu":
-            hit = instanced_intersect_plain(tables, ro, rd, tmin, tmax,
-                                            *lists)[0]
-        else:
-            hit = instanced_intersect_kernel(tables, ro, rd, tmin, tmax, *lists)
+        with timing.device_span("inst_walk", ro.device):
+            if ro.device.type == "cpu":
+                hit = instanced_intersect_plain(tables, ro, rd, tmin, tmax,
+                                                *lists)[0]
+            else:
+                hit = instanced_intersect_kernel(tables, ro, rd, tmin, tmax,
+                                                 *lists)
         if counter is not None:
             counter.add_kernel("instanced_intersect", call_cost(
                 tables, ro, rd, tmin, hit.t, lists[0], lists[2]))

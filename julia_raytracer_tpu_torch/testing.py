@@ -9,7 +9,9 @@ the same room holding a grid of UV spheres, 102,406 quads at the default
 size (classroom scale), which takes the worklist cluster intersector.
 `instanced_scene()` and `hybrid_scene()` are the instanced paths': shared
 sphere meshes instanced thousands of times, which take the two-level
-build (pure, and hybrid with a flattened soup). `hairball_scene()` puts
+build (pure, and hybrid with a flattened soup); `sphereflake_scene()`
+is the benchmark's SPD sphereflake (7,381 instances of one sphere mesh,
+a hybrid of 22,143 work items at full size). `hairball_scene()` puts
 line and point primitives in the Cornell box; `many_lights_scene()`
 lights the room with more emissive quads than the exact light pdf takes,
 so its pdf marches; `write_cube_cage()` and `write_yocto_scene` give a
@@ -740,7 +742,123 @@ def hybrid_scene(small_grid: int = 32, small_segments: int = 32,
                      materials=_sphere_materials())
 
 
-_MATERIAL_NAMES = {int(t): name for name, t in MATERIAL_TYPES.items()
+# the full-size sphereflake's counts and hybrid build: spheres, instances
+# (spheres, ground, three lights), work items and the flattened soup
+SPHEREFLAKE_COUNTS = dict(spheres=7_381, instances=7_385, items=22_143,
+                          soup=4, sphere_quads=6_144)
+
+
+def _axis_rotation(axis, angle: float) -> np.ndarray:
+    """Right-handed rotation by `angle` about `axis` (column vectors)."""
+    x, y, z = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    c, s = math.cos(angle), math.sin(angle)
+    t = 1.0 - c
+    return np.array([[t * x * x + c, t * x * y - s * z, t * x * z + s * y],
+                     [t * x * y + s * z, t * y * y + c, t * y * z - s * x],
+                     [t * x * z - s * y, t * y * z + s * x, t * z * z + c]])
+
+
+def sphereflake_spheres(size_factor: int = 4):
+    """The SPD sphereflake (Haines 1987, balls.c): (centres [S, 3], radii
+    [S], depths [S]) float64, depth first. Root at the origin, radius
+    0.5; each sphere's nine children of a third its radius are tangent to
+    it along balls.c's create_objset directions (a trio turned about
+    (1, -1, 0) by asin(2 / sqrt 6), copied at 0, 120, 240 degrees about
+    +z), a child's set turned by the least rotation taking +z to it."""
+    d = 1.0 / math.sqrt(2.0)
+    trio = np.array([[d, d, 0.0], [d, 0.0, -d], [0.0, d, -d]]) @ _axis_rotation(
+        (1.0, -1.0, 0.0), math.asin(2.0 / math.sqrt(6.0))).T
+    dirs = np.concatenate([trio @ _axis_rotation((0.0, 0.0, 1.0),
+                                                 k * 2.0 * math.pi / 3.0).T
+                           for k in range(3)])
+    out = ([], [], [])
+
+    def grow(centre, radius, rot, depth):
+        for lst, v in zip(out, (centre, radius, depth)):
+            lst.append(v)
+        if depth == size_factor:
+            return
+        for u in dirs @ rot.T:
+            axis = np.cross((0.0, 0.0, 1.0), u)
+            s = np.linalg.norm(axis)
+            if s < 1e-12:  # straight up or down
+                turn = np.diag([1.0, 1.0, 1.0] if u[2] > 0 else [1.0, -1.0, -1.0])
+            else:
+                turn = _axis_rotation(axis / s, math.atan2(s, u[2]))
+            grow(centre + (radius + radius / 3.0) * u, radius / 3.0, turn,
+                 depth + 1)
+
+    grow(np.zeros(3), 0.5, np.eye(3), 0)
+    return tuple(np.array(x) for x in out)
+
+
+def cube_sphere(steps: int = 32) -> ShapeData:
+    """Yocto/GL's make_sphere(steps): 6 x steps x steps quads of a cube
+    with its positions normalised (radius 1), wound outward."""
+    g = np.linspace(-1.0, 1.0, steps + 1)
+    u, v = np.meshgrid(g, g, indexing="ij")
+    one = np.ones_like(u)
+    faces = [(one, u, v), (-one, v, u), (v, one, u), (u, -one, v),
+             (u, v, one), (v, u, -one)]
+    pos = np.concatenate([np.stack(f, -1).reshape(-1, 3) for f in faces])
+    pos /= np.linalg.norm(pos, axis=-1, keepdims=True)
+    i = np.arange(steps)
+    a = (i[:, None] * (steps + 1) + i[None, :]).reshape(-1)
+    quad = np.stack([a, a + steps + 1, a + steps + 2, a + 1], -1)
+    quads = np.concatenate([quad + k * (steps + 1) ** 2 for k in range(6)])
+    return ShapeData(quads=quads.astype(np.int32), positions=_f32(pos))
+
+
+def sphereflake_scene(size_factor: int = 4, sphere_steps: int = 32) -> SceneData:
+    """The SPD sphereflake as a Yocto/GL scene (Z-up): one
+    cube_sphere(sphere_steps) instanced once a sphere (a uniform scale by
+    its radius and a translation), a matte ground quad at z = -0.5 of
+    corners (+-12, +-12), the SPD's three point lights as 0.5 x 0.5
+    emissive quads (40) facing the origin, glossy spheres (1.0, 0.75,
+    0.33; roughness 0.1), the SPD view (from (2.1, 1.3, 1.7) at the
+    origin, 45 degrees). Defaults: SPHEREFLAKE_COUNTS, 45,348,864 sphere
+    quads in the world, which the automatic rule builds as a hybrid that
+    flattens the ground and lights and keeps the spheres as work items."""
+    centres, radii, _ = sphereflake_spheres(size_factor)
+    shapes = [cube_sphere(sphere_steps),
+              _quads([[[-12, -12, -0.5], [12, -12, -0.5], [12, 12, -0.5],
+                       [-12, 12, -0.5]]])]
+    for p in ((4.0, 3.0, 2.0), (1.0, -4.0, 4.0), (-3.0, 1.0, 5.0)):
+        c = np.asarray(p)
+        z = -c / np.linalg.norm(c)
+        x = np.cross((0.0, 0.0, 1.0), z)
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        shapes.append(_quads([[c + 0.25 * (sx * x + sy * y) for sx, sy in
+                               ((-1, -1), (1, -1), (1, 1), (-1, 1))]]))
+    instances = []
+    for c, r in zip(centres, radii):
+        frame = np.zeros((4, 3), np.float32)
+        frame[:3] = np.eye(3) * r
+        frame[3] = c
+        instances.append(InstanceData(frame=frame, shape=0, material=0))
+    instances += [InstanceData(shape=1, material=1)]
+    instances += [InstanceData(shape=2 + k, material=2) for k in range(3)]
+    materials = [
+        MaterialData(type=MaterialType.GLOSSY, color=_f32((1.0, 0.75, 0.33)),
+                     roughness=0.1, ior=1.5),
+        MaterialData(color=_f32((0.8, 0.8, 0.8)), ior=1.5),
+        MaterialData(emission=_f32((40.0, 40.0, 40.0)), ior=1.5),
+    ]
+    eye = np.asarray((2.1, 1.3, 1.7))
+    focus = float(np.linalg.norm(eye))
+    z = eye / focus
+    x = np.cross((0.0, 0.0, 1.0), z)
+    x /= np.linalg.norm(x)
+    camera = CameraData(frame=_f32([x, np.cross(z, x), z, eye]),
+                        lens=0.024 / (2.0 * math.tan(math.radians(22.5))),
+                        film=0.024, aspect=1.0, focus=focus, aperture=0.0,
+                        name="camera")
+    return SceneData(cameras=[camera], instances=instances, shapes=shapes,
+                     materials=materials)
+
+
+_MATERIAL_NAMES ={int(t): name for name, t in MATERIAL_TYPES.items()
                    if name != "volume"}
 
 

@@ -16,6 +16,12 @@ stack while a unit is open (autograd's backward thread on the card)
 takes the unit thread's innermost open span as its parent, so the
 checkpoint's recomputed bodies land under `train_step/backward`.
 
+`with device_span(name, device, **counts) as sp:` is a span that also
+counts `device_ns`, the device time of the work issued inside it (CUDA
+events at its ends on the card), and takes counts that are tensors on
+the device (`sp.add(...)`); both are read back when `units()` is read,
+so the span adds no host sync where it opens.
+
 Units: a span named in UNITS that opens while no unit is open (the
 renderer's `frame`, the train step's `train_step`) starts a table of
 its own; `units()` holds the last MAX_UNITS closed units, each with its
@@ -125,10 +131,10 @@ class _State:
 _state = _State()
 
 
-def _add(table, key, n, dur, self_ns, counts):
+def _add(table, key, n, dur, self_ns, counts, deferred=()):
     row = table.get(key)
     if row is None:
-        row = table[key] = [0, 0, 0, {}]
+        row = table[key] = [0, 0, 0, {}, []]
     row[0] += n
     row[1] += dur
     row[2] += self_ns
@@ -136,9 +142,35 @@ def _add(table, key, n, dur, self_ns, counts):
         c = row[3]
         for k, v in counts.items():
             c[k] = c.get(k, 0) + v
+    row[4].extend(deferred)
+
+
+def _resolve(rows) -> None:
+    """Add the rows' deferred counts (device_span's) to their counts:
+    tensors read back in one batch a device, CUDA event pairs as the ns
+    between them. Runs where units are read, never inside a frame."""
+    tensors = [(r, k, v) for r in rows for k, v in r[4]
+               if isinstance(v, torch.Tensor)]
+    by_device = collections.defaultdict(list)
+    for item in tensors:
+        by_device[item[2].device].append(item)
+    for items in by_device.values():
+        values = torch.stack([v.reshape(()).to(torch.int64)
+                              for _, _, v in items]).tolist()
+        for (r, k, _), val in zip(items, values):
+            r[3][k] = r[3].get(k, 0) + val
+    for r in rows:
+        for k, v in r[4]:
+            if isinstance(v, tuple):  # (start, end) CUDA events
+                v[1].synchronize()
+                r[3][k] = r[3].get(k, 0) + int(v[0].elapsed_time(v[1]) * 1e6)
+        r[4] = []
 
 
 def _rows(table) -> dict:
+    pending = [r for r in table.values() if r[4]]
+    if pending:
+        _resolve(pending)
     return {k: {"n": r[0], "ns": r[1], "self_ns": r[2], **r[3]}
             for k, r in table.items()}
 
@@ -227,7 +259,7 @@ class span:
         if table is not None:  # _add, inlined: this runs every span
             row = table.get(self.path)
             if row is None:
-                row = table[self.path] = [0, 0, 0, {}]
+                row = table[self.path] = [0, 0, 0, {}, []]
             row[0] += 1
             row[1] += dur
             row[2] += dur - self.child_ns
@@ -259,6 +291,52 @@ class span:
                 st.units.append({"name": unit.name, "start_ns": unit.start_ns,
                                  "wall_ns": dur, "profiled": unit.profiled,
                                  "table": unit.table})
+
+
+class device_span(span):
+    """A span that also times the device work issued inside it, as the
+    count `device_ns`: on a CUDA device the ns between two CUDA events
+    recorded on the current stream at its ends (while the device is the
+    bottleneck, the device time of that work), on the CPU, whose ops run
+    as they are issued, the block's own ns. Counts may be integers or
+    tensors on the device (`add` them inside the block); events and
+    tensors are read when `units()` is, never inside the block, so the
+    span adds no host sync."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, name: str, device, **counts):
+        super().__init__(name, **counts)
+        self.events = None
+        if torch.device(device).type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+
+    def add(self, **counts) -> None:
+        """Set counts (integers or tensors) of the span, as the keywords
+        of the constructor do."""
+        self.counts.update(counts)
+
+    def __enter__(self):
+        super().__enter__()
+        if self.events is not None:
+            self.events[0].record()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        deferred = [(k, v) for k, v in self.counts.items()
+                    if isinstance(v, torch.Tensor)]
+        if self.events is not None:
+            self.events[1].record()
+            deferred.append(("device_ns", self.events))
+        else:
+            self.counts["device_ns"] = _now() - self.t0
+        for k, _ in deferred:
+            self.counts.pop(k, None)
+        super().__exit__(exc_type, exc, tb)
+        if deferred and self.table is not None:
+            self.table[self.path][4].extend(deferred)
+        return False
 
 
 def units() -> list[dict]:

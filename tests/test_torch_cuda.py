@@ -33,7 +33,8 @@ from julia_raytracer_tpu_torch.testing import (
     adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
     cornell_scene, dense_soup, grads_close, hairball_scene, hybrid_scene,
     image_close, instanced_scene, many_lights_scene, param_grads,
-    regroup_bits, render_instanced, sphere_grid_scene, vertex_grads,
+    regroup_bits, render_instanced, sphere_grid_scene, sphereflake_scene,
+    vertex_grads,
 )
 from julia_raytracer_tpu_torch.utils import timing
 
@@ -519,6 +520,53 @@ def test_instanced_render_on_card_matches_cpu(dev, hybrid):
     assert ii.instanced_intersect_kernel.launches > 0
     assert (wl.worklist_intersect_kernel.launches > 0) == hybrid
     image_close(got, render_instanced(scene, 32, 2, 4, budget, "cpu", seed=1))
+
+
+def test_instanced_spans_time_by_events_on_card(dev, monkeypatch):
+    """The sphereflake at size factor 2 through the full cell's route on
+    the card: `precull` and `inst_walk` hold CUDA event pairs and the
+    candidate count as a tensor until units() reads them, then carry
+    device_ns; a frame with plain spans in their place makes the same
+    host syncs and the same image."""
+    from julia_raytracer_tpu_torch.render import scene_device
+
+    monkeypatch.setattr(scene_device, "_should_instance", lambda s: True)
+    scene = sphereflake_scene(2, 4)
+    params = Params(resolution=256, samples=2, batch=1, bounces=8,
+                    hybrid_budget=8)
+
+    def frame():
+        r = Renderer(scene, params, device=dev)
+        st = make_trace_state(scene, params, device=dev)
+        syncs = tint.trace_wavefront.host_syncs
+        r.trace_samples(st)
+        torch.cuda.synchronize()
+        return r.get_image(st), tint.trace_wavefront.host_syncs - syncs
+
+    timing.reset()
+    image, syncs = frame()
+    raw = timing._state.units[-1]["table"]
+    pending = [v for path, row in raw.items() if path.endswith("/precull")
+               for _, v in row[4]]
+    assert any(isinstance(v, tuple) for v in pending)
+    assert any(isinstance(v, torch.Tensor) and v.is_cuda for v in pending)
+    table = timing.units()[-1]["table"]
+    rows = [row for path, row in table.items()
+            if path.endswith(("/precull", "/inst_walk"))]
+    assert len(rows) >= 4 and all(row["device_ns"] > 0 for row in rows)
+    assert sum(row.get("candidates", 0) for row in rows) > 0
+
+    class Plain(timing.span):
+        __slots__ = ()
+
+        def add(self, **counts):
+            pass
+
+    monkeypatch.setattr(timing, "device_span",
+                        lambda name, device, **counts: Plain(name))
+    plain_image, plain_syncs = frame()
+    assert plain_syncs == syncs
+    np.testing.assert_array_equal(image, plain_image)
 
 
 @pytest.mark.parametrize("scene", ["cornell", "spheres"])

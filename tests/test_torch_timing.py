@@ -299,3 +299,91 @@ def test_train_step_bodies_forward_and_backward():
     assert {"train_step/forward", "train_step/backward",
             "train_step/update"} <= set(t)
     assert t["train_step"]["self_ns"] <= 0.1 * unit["wall_ns"]
+
+
+def test_device_span_defers_tensor_counts_to_units():
+    """A device_span's tensor counts stay tensors until units() reads
+    them; on the CPU its device_ns is the block's own time."""
+    with span("frame"):
+        with span("body"):
+            with timing.device_span("precull", "cpu", groups=2) as sp:
+                sp.add(candidates=torch.tensor(5))
+            with timing.device_span("precull", "cpu", groups=3) as sp:
+                sp.add(candidates=torch.tensor(7, dtype=torch.int32))
+    raw = timing._state.units[-1]["table"]["frame/body/precull"]
+    assert [k for k, _ in raw[4]] == ["candidates", "candidates"]
+    (unit,) = timing.units()
+    row = unit["table"]["frame/body/precull"]
+    assert _counts(row)["groups"] == 5 and row["candidates"] == 12
+    assert 0 < row["device_ns"] <= row["ns"]
+    assert timing._state.units[-1]["table"]["frame/body/precull"][4] == []
+    assert timing.units()[0]["table"]["frame/body/precull"]["candidates"] == 12
+
+
+def _flake_renderer(monkeypatch, res=16):
+    """The sphereflake at size factor 2, forced through the full cell's
+    route (two levels, ground and lights in the soup, spheres as work
+    items)."""
+    from julia_raytracer_tpu_torch.render import scene_device
+    from julia_raytracer_tpu_torch.testing import sphereflake_scene
+
+    monkeypatch.setattr(scene_device, "_should_instance", lambda s: True)
+    scene = sphereflake_scene(2, 4)
+    params = Params(resolution=res, samples=4, batch=1, bounces=8,
+                    hybrid_budget=8)
+    r = Renderer(scene, params, device="cpu")
+    assert len(r.config.inst_tables.wi_sup) == 91
+    return r, make_trace_state(scene, params, device="cpu")
+
+
+def test_instanced_spans_count_the_precull(monkeypatch):
+    """`precull` and `inst_walk` sit under each body's `intersect`; the
+    spans' `candidates` are the plain cull's finite keys, `groups` x
+    `items` the keys' shape; their counts are read after the frame, and
+    the loop's host syncs are those of a frame without the spans."""
+    from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
+
+    calls = []
+    real = ii.precull
+
+    def recording_precull(ro, rd, tmin, tmax, wi_bbox, group=ii.GROUP_RAYS):
+        keys = ii.candidate_keys_plain(ro, rd, tmin, tmax, wi_bbox, group)
+        calls.append((keys.shape, int(torch.isfinite(keys).sum())))
+        return real(ro, rd, tmin, tmax, wi_bbox, group)
+
+    monkeypatch.setattr(ii, "precull", recording_precull)
+    r, st = _flake_renderer(monkeypatch)
+    syncs = tint.trace_wavefront.host_syncs
+    r.trace_samples(st)
+    syncs = tint.trace_wavefront.host_syncs - syncs
+    raw = timing._state.units[-1]["table"]
+    assert any(row[4] for path, row in raw.items()
+               if path.endswith("/precull"))  # not read inside the frame
+    (unit,) = timing.units()
+    t = unit["table"]
+    body = "frame/chunk/wavefront/body/intersect/"
+    assert {body + "precull", body + "inst_walk"} <= set(t)
+    pre = _rows(t, "precull")
+    walk = _rows(t, "inst_walk")
+    assert sum(row["n"] for row in pre) == sum(row["n"] for row in walk) == len(calls)
+    assert sum(row["candidates"] for row in pre) == sum(c for _, c in calls)
+    assert sum(row["groups"] for row in pre) == sum(s[0] for s, _ in calls)
+    assert sum(row["keys"] for row in pre) == sum(s[0] * s[1] for s, _ in calls)
+    assert all(row["items"] == 91 * row["n"] for row in pre)
+    assert all(0 < row["device_ns"] <= row["ns"] for row in pre + walk)
+
+    # the same frame with plain spans in their place: the same host syncs
+    monkeypatch.setattr(timing, "device_span",
+                        lambda name, device, **counts: _PlainSpan(name))
+    r2, st2 = _flake_renderer(monkeypatch)
+    plain = tint.trace_wavefront.host_syncs
+    r2.trace_samples(st2)
+    assert tint.trace_wavefront.host_syncs - plain == syncs
+    np.testing.assert_array_equal(r.get_image(st), r2.get_image(st2))
+
+
+class _PlainSpan(span):
+    __slots__ = ()
+
+    def add(self, **counts):
+        pass
