@@ -178,8 +178,8 @@ from julia_raytracer_tpu_torch.testing import (
     GRAD_TOL, HYBRID_COUNTS, INSTANCED_COUNTS, check_hits, check_vs_flat,
     cornell_scene, grads_close, hairball_scene, heavy_scene, hybrid_scene,
     image_close, instanced_scene, many_lights_scene, param_grads,
-    render_instanced, require, sphere_grid_scene, subdiv_cube_scene,
-    vertex_grads, write_cube_cage, write_yocto_scene,
+    render_instanced, require, same_lists, sphere_grid_scene,
+    subdiv_cube_scene, vertex_grads, write_cube_cage, write_yocto_scene,
 )
 from julia_raytracer_tpu_torch.utils import diskcache, kernel_flops as kf
 from julia_raytracer_tpu_torch.utils import kernel_select as ks
@@ -1080,7 +1080,7 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
     hit = renderer.intersect(*primary)
     bounce = _sorted(_bounce_rays(hit, primary[1], dev), renderer)
     cull = phase_cull(tables, bounce)
-    lists = ii.precull(*bounce, tables.wi_bbox)
+    lists = ii.precull(*bounce, tables.clusters)
     got = ii.instanced_intersect_kernel(tables, *bounce, *lists)
     plain_ms, (want, work) = event_ms(
         lambda: ii.instanced_intersect_plain(tables, *bounce, *lists))
@@ -1090,7 +1090,7 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
     t = kernel_ms(lambda: ii.instanced_intersect_kernel(tables, *bounce, *lists),
                   CLUSTER_REPS)
     ms = t["ms"]
-    precull_ms = median_ms(lambda: ii.precull(*bounce, tables.wi_bbox),
+    precull_ms = median_ms(lambda: ii.precull(*bounce, tables.clusters),
                            CLUSTER_REPS)
     n = bounce[0].shape[0]
     out = dict(max_abs_err=err, **t, plain_ms=plain_ms, library_ms=None,
@@ -1107,7 +1107,7 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
         f"{float(lists[2].float().mean()):.1f} ({out['candidates']} in all), "
         f"{_walk_counters(out)}, clusters {work['clusters']}, bit-equal to "
         f"its plain version, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"precull (cull kernel, sort, count) {precull_ms:.4f} ms, bound "
+        f"precull (the cull kernel) {precull_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
     out["group_sweep"] = _item_group_sweep(
         "instanced", tables, (("camera", primary), ("bounce", bounce)))
@@ -1159,21 +1159,21 @@ def phase_instanced(dev, renderer, scene) -> tuple[dict, dict]:
 def _item_group_sweep(label, tables, named_rays) -> dict:
     """The work-item intersector's precull and kernel per candidate-list
     size of GROUP_SWEEP on each (name, rays), with the device memory of
-    the lists at that size: the keys (f32), argsort's int64 indices,
-    order (i32) and t_low (f32), each [groups, items]."""
+    the lists at that size: order (i32) and t_low (f32), each [groups,
+    items]."""
     sweep = {}
     items = tables.wi_sup.shape[0]
     for g in GROUP_SWEEP:
         row = {}
         for name, rays in named_rays:
-            lg = ii.precull(*rays, tables.wi_bbox, g)
+            lg = ii.precull(*rays, tables.clusters, g)
             row[name] = dict(
                 precull_ms=median_ms(
-                    lambda: ii.precull(*rays, tables.wi_bbox, g), 5),
+                    lambda: ii.precull(*rays, tables.clusters, g), 5),
                 kernel_ms=median_ms(lambda: ii.instanced_intersect_kernel(
                     tables, *rays, *lg, group=g), 5),
                 mean_list=float(lg[2].float().mean()),
-                list_bytes=lg[0].shape[0] * items * (4 + 8 + 4 + 4))
+                list_bytes=lg[0].shape[0] * items * (4 + 4))
             row[name]["sum_ms"] = row[name]["precull_ms"] + row[name]["kernel_ms"]
             del lg
         sweep[g] = row
@@ -1214,35 +1214,49 @@ def phase_hybrid_sweep(dev, renderer) -> dict:
 
 
 def phase_cull(tables, rays) -> dict:
-    """The candidate cull (ops/instanced_intersect.py candidate_keys_*) on
-    the instanced scene's sorted bounce rays against its work items' world
-    boxes: kernel against plain version on the card, bit for bit. Bound:
-    rays x items x kf.CULL_OPS_PER_TEST operations against the rays, the boxes
-    and the keys. No single PyTorch call computes it (library_ms null)."""
-    boxes = tables.wi_bbox
-    got = ii.candidate_keys_kernel(*rays, boxes)
-    want = ii.candidate_keys_plain(*rays, boxes)
-    require(torch.equal(got, want), "candidate_cull kernel and plain differ")
-    t = kernel_ms(lambda: ii.candidate_keys_kernel(*rays, boxes))
+    """The candidate cull (ops/instanced_intersect.py
+    candidate_lists_kernel) on the instanced scene's sorted bounce rays
+    against its work items: the kernel's lists against the plain lists
+    (candidate_lists_plain: the plain keys and a stable argsort) on the
+    card, bit for bit where they are read, its counters against
+    cluster_pass_plain's. Bound: the slab tests it makes
+    (kf.candidate_cull_cost over its counters) against the rays, the
+    boxes and the lists. No single PyTorch call computes it (library_ms
+    null)."""
+    cl = tables.clusters
+    *got, counts = ii.candidate_lists_kernel(*rays, cl)
+    want = ii.candidate_lists_plain(*rays, cl.boxes)
+    require(same_lists(got, want), "candidate_cull kernel and plain differ")
+    _, plain = ii.cluster_pass_plain(*rays, cl)
+    require(all(int(counts[k]) == int(plain[k]) for k in plain),
+            "candidate_cull counters and cluster_pass_plain differ")
+    t = kernel_ms(lambda: ii.candidate_lists_kernel(*rays, cl))
     ms = t["ms"]
-    plain_ms = median_ms(lambda: ii.candidate_keys_plain(*rays, boxes),
+    plain_ms = median_ms(lambda: ii.candidate_lists_plain(*rays, cl.boxes),
                          PLAIN_REPS)
-    ng, items = got.shape
+    ng, items = got[0].shape
+    counts = {k: int(v) for k, v in counts.items()}
     out = dict(max_abs_err=0.0, **t, plain_ms=plain_ms, library_ms=None,
-               finite_keys=int(torch.isfinite(got).sum()),
-               **cost_bound(kf.candidate_cull_cost(rays[0].shape[0], items, ng,
-                                                   ii.GROUP_RAYS)))
+               candidates=int(got[2].sum()), **counts,
+               **cost_bound(kf.candidate_cull_cost(
+                   rays[0].shape[0], ng, ii.GROUP_RAYS, items,
+                   cl.cluster_boxes.shape[0], counts["cluster_tests"],
+                   counts["item_tests"], int(got[2].sum()))))
     log(f"candidate_cull: {rays[0].shape[0]} sorted bounce rays in {ng} "
-        f"groups of {ii.GROUP_RAYS} x {items} items, keys bit-equal to the "
-        f"plain version ({out['finite_keys']} finite), kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"groups of {ii.GROUP_RAYS} x {items} items "
+        f"({cl.cluster_boxes.shape[0]} clusters), lists bit-equal to the "
+        f"plain lists ({out['candidates']} candidates), tested "
+        f"{counts['tested']} of {ng * items} (group, item) pairs, "
+        f"{counts['cluster_tests']} cluster and {counts['item_tests']} item "
+        f"tests, {counts['spills']} spills, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']}), library call: none")
     return out
 
 
 def cull_per_sample(renderer, scene, dev) -> dict:
     """One sample of an instanced main path with the work-item precull
-    (the plain PyTorch candidate cull) bracketed by CUDA events: its device
+    (the cull kernel) bracketed by CUDA events: its device
     ms per sample and its calls. Events only; no host sync is added."""
     spans = []
     precull = ii.precull
@@ -1298,7 +1312,7 @@ def _zero_counts() -> None:
     rg.regroup_tritest.launches = 0
     rg.regroup_unpack.launches = 0
     ii.instanced_intersect_kernel.launches = 0
-    ii.candidate_keys_kernel.launches = 0
+    ii.candidate_lists_kernel.launches = 0
     ci.cluster_intersect_kernel.launches = 0
     ci.cluster_intersect_streamed_kernel.launches = 0
 
@@ -1313,7 +1327,7 @@ def _read_counts() -> dict:
         "regroup_tritest": rg.regroup_tritest.launches,
         "regroup_unpack": rg.regroup_unpack.launches,
         "instanced_intersect": ii.instanced_intersect_kernel.launches,
-        "candidate_cull": ii.candidate_keys_kernel.launches,
+        "candidate_cull": ii.candidate_lists_kernel.launches,
         "cluster_intersect": ci.cluster_intersect_kernel.launches,
         "cluster_intersect_streamed": ci.cluster_intersect_streamed_kernel.launches,
     }
@@ -2970,7 +2984,8 @@ def main() -> int:
                       "sorted_rays_ms", "passes", "group_passes",
                       "clusters", "pairs", "bound_pairs", "bound_clusters", "loads", "warps",
                       "groups", "steps", "votes", "warp_pairs", "tri_slots",
-                      "precull_ms", "candidates", "finite_keys",
+                      "precull_ms", "candidates", "tested", "spills",
+                      "cluster_tests", "item_tests",
                       "group_sweep", "hybrid_group_sweep"):
             if extra in p:
                 entry[extra] = p[extra]

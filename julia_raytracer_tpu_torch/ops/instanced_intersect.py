@@ -7,17 +7,29 @@ _make_kernel_instanced and its fused-jnp candidate cull beam_precull
 (julia_raytracer_tpu/ops/pallas_cluster.py).
 
   upload: the InstancedTables of scene/instanced.py on the device, tab as
-    [total_sup*sup, 16, 128] and bbox as [total_sup*sup, 8].
-  candidate_keys_kernel / candidate_keys_plain: per group of `group` rays
-    (GROUP_RAYS = 256 by default; the JAX package's 1,024 in the tests) and
-    per work item, the nearest entry of any of the group's rays into the
-    item's world box (an exact slab test of every ray against every item,
-    the JAX `beam_precull`), +inf where none enters. The kernel writes
-    only the [groups, items] keys; the plain version computes [rays,
-    items] temporaries in chunks of groups. They agree bit for bit.
-  precull: the keys, each group's items ordered by them (a stable sort,
-    torch.argsort), the sorted keys (t_low) and the count of finite keys;
-    on the rays' device, nothing read back.
+    [total_sup*sup, 16, 128] and bbox as [total_sup*sup, 8], with the
+    work items' clusters (item_clusters).
+  item_clusters: the work items in Morton order of their box centres, cut
+    into clusters of CLUSTER_ITEMS consecutive items, each with the union
+    of its items' boxes (exact float32 min/max), and the root box over
+    all. A ray's slab interval for a cluster's box holds its interval for
+    every item in it (the slab arithmetic is monotone in the corners), so
+    a group that enters no cluster enters none of its items, bit for bit.
+  candidate_keys_plain: per group of `group` rays (GROUP_RAYS = 256 by
+    default; the JAX package's 1,024 in the tests) and per work item, the
+    nearest entry of any of the group's rays into the item's world box (an
+    exact slab test of every ray against every item, the JAX
+    `beam_precull`), +inf where none enters, computed from [rays, items]
+    temporaries in chunks of groups. cluster_pass_plain: which clusters
+    each group may enter and what the kernel tests.
+  precull: each group's candidate items ordered by key, then item (what a
+    stable sort of the keys gives), the sorted keys (t_low) and their
+    count; on the rays' device, nothing read back. For CPU tensors the
+    plain keys and a stable torch.argsort; for CUDA tensors
+    candidate_lists_kernel, one launch that culls by cluster, then by
+    item, and sorts each group's candidates on chip. The two agree bit
+    for bit on order[:, :cnt], tlow[:, :cnt] and cnt; entries past cnt
+    are unspecified and never read.
   instanced_intersect_kernel / instanced_intersect_plain: each warp of 32
     rays walks its group's candidates in order and stops once none of its
     rays' best t exceeds the next item's t_low; a ray enters an item if it
@@ -33,8 +45,8 @@ _make_kernel_instanced and its fused-jnp candidate cull beam_precull
 CPU tensors or the kernels (one launch each for all rays) for CUDA
 tensors, and normalises the rotated normals. The precull and the walk
 are timed by the spans `precull` and `inst_walk` (utils/timing.py
-device_span: device time by CUDA events, the cull's candidate count).
-`candidate_keys_kernel.launches` and `instanced_intersect_kernel.launches`
+device_span: device time by CUDA events, the cull's counts).
+`candidate_lists_kernel.launches` and `instanced_intersect_kernel.launches`
 count the kernels' launches.
 
 Differences from the JAX function, none of which changes a closest hit:
@@ -63,16 +75,31 @@ from julia_raytracer_tpu_torch.ops.traversal import Hit
 from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 WARP = wl.WARP  # rays of a walking warp
-# rays per candidate list (the JAX package's: 1,024): of 32-256, the sum
-# of the precull and the kernel on an H100 is least at 256 on the hybrid
-# scene's work-item rays and the instanced scene's camera rays, and ties
-# 128 on its bounce rays (chip_smoke.py's group sweep, PERF.md section 6)
+# rays per candidate list (the JAX package's: 1,024). With the cull in two
+# levels the sum of the precull and the kernel on an H100 is least at 32
+# on bounce rays (chip_smoke.py's group sweep, PERF.md section 6), but
+# order and tlow are [groups, items]: 256 keeps them to 0.73 GB for a
+# 1M-lane body of the 22,143-item sphereflake
 GROUP_RAYS = 256
 SLACK = wl.SLACK
 # [rays, items] float temporaries of the plain cull above this many bytes
 # are cut into chunks of groups (six of them are live at once)
 PRECULL_BYTES = 1.5e9
 FLAGS = ("-fmad=false",)
+# work items a cluster of the cull: one a lane of a warp (kClusterItems
+# in csrc/candidate_cull.cu)
+CLUSTER_ITEMS = 32
+# candidates a group sorts in shared memory; a group with more spills to
+# its rows of order and tlow and is sorted there (kListCap)
+LIST_CAP = 2048
+
+
+class ItemClusters(NamedTuple):
+    boxes: torch.Tensor  # f32 [items, 6] world boxes, in item order
+    slot_item: torch.Tensor  # i32 [items] the item in each slot
+    slot_boxes: torch.Tensor  # f32 [items, 6] boxes[slot_item]
+    cluster_boxes: torch.Tensor  # f32 [clusters, 6] union of its slots' boxes
+    root: torch.Tensor  # f32 [6] union of every box
 
 
 class InstancedDeviceTables(NamedTuple):
@@ -84,24 +111,80 @@ class InstancedDeviceTables(NamedTuple):
     wi_bbox: torch.Tensor  # f32 [items, 6] world boxes
     n_prims: int  # padded shape-space prim count
     sup: int
+    clusters: ItemClusters  # the work items' clusters, for the cull
+
+
+def _morton(q):
+    """int64 [n, 3] coordinates in [0, 1024) -> 30-bit Morton codes."""
+    code = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    for b in range(10):
+        for a in range(3):
+            code |= ((q[:, a] >> b) & 1) << (3 * b + a)
+    return code
+
+
+def item_clusters(boxes) -> ItemClusters:
+    """World boxes [items, >= 6] -> their clusters (module docstring), on
+    the boxes' device. Slots follow the Morton order of the box centres
+    (ties by item); slot s is in cluster s // CLUSTER_ITEMS. A cluster's
+    box is the union of its items' boxes taken per axis as [min(lo, hi),
+    max(lo, hi)], the interval a slab test of a box sees; a NaN corner
+    makes the union NaN, which the cull lets pass."""
+    boxes = boxes[:, :6].to(torch.float32).contiguous()
+    items, dev = boxes.shape[0], boxes.device
+    lo = torch.minimum(boxes[:, :3], boxes[:, 3:])
+    hi = torch.maximum(boxes[:, :3], boxes[:, 3:])
+    centre = torch.nan_to_num((lo.double() + hi.double()) * 0.5, nan=0.0,
+                              posinf=0.0, neginf=0.0)
+    if items:
+        c0 = centre.amin(dim=0)
+        extent = (centre.amax(dim=0) - c0).clamp_min(1e-30)
+        q = ((centre - c0) / extent * 1023).round().long().clamp_(0, 1023)
+        slot_item = torch.argsort(_morton(q), stable=True)
+    else:
+        slot_item = torch.zeros(0, dtype=torch.int64, device=dev)
+    nc = -(-items // CLUSTER_ITEMS)
+    pad = nc * CLUSTER_ITEMS - items
+    inf = float("inf")
+    s_lo = torch.cat([lo[slot_item], torch.full((pad, 3), inf, device=dev)])
+    s_hi = torch.cat([hi[slot_item], torch.full((pad, 3), -inf, device=dev)])
+    c_lo = s_lo.view(nc, CLUSTER_ITEMS, 3).amin(dim=1)
+    c_hi = s_hi.view(nc, CLUSTER_ITEMS, 3).amax(dim=1)
+    root = (torch.cat([c_lo.amin(dim=0), c_hi.amax(dim=0)]) if nc
+            else torch.tensor([inf] * 3 + [-inf] * 3, device=dev))
+    return ItemClusters(
+        boxes=boxes, slot_item=slot_item.to(torch.int32),
+        slot_boxes=boxes[slot_item].contiguous(),
+        cluster_boxes=torch.cat([c_lo, c_hi], dim=1).contiguous(),
+        root=root.contiguous())
+
+
+def as_clusters(items) -> ItemClusters:
+    """An ItemClusters as it is; world boxes [items, >= 6] clustered."""
+    return items if isinstance(items, ItemClusters) else item_clusters(items)
 
 
 def upload(tables, device) -> InstancedDeviceTables:
-    """scene/instanced.py InstancedTables -> tensors on `device`."""
+    """scene/instanced.py InstancedTables -> tensors on `device`, the work
+    items clustered on the host."""
     sup = tables.sup
 
     def put(a, dtype):
         return torch.as_tensor(a, dtype=dtype).contiguous().to(device)
 
+    wi_bbox = put(tables.wi_bbox.reshape(-1, 6), torch.float32)
+    cl = item_clusters(torch.as_tensor(tables.wi_bbox.reshape(-1, 6),
+                                       dtype=torch.float32))
     return InstancedDeviceTables(
         tab=put(tables.tab.reshape(-1, wl.ROWS, TRIS), torch.float32),
         bbox=put(tables.bbox.reshape(-1, 8), torch.float32),
         inst_rows=put(tables.inst_rows, torch.float32),
         wi_sup=put(tables.wi_sup, torch.int32),
         wi_inst=put(tables.wi_inst, torch.int32),
-        wi_bbox=put(tables.wi_bbox.reshape(-1, 6), torch.float32),
+        wi_bbox=wi_bbox,
         n_prims=int(tables.n_prims),
         sup=sup,
+        clusters=ItemClusters(wi_bbox, *(x.to(device) for x in cl[1:])),
     )
 
 
@@ -132,9 +215,9 @@ def _group_keys(ro, rd, tmin, tmax, boxes, group):
 
 def candidate_keys_plain(ro, rd, tmin, tmax, boxes,
                          group: int = GROUP_RAYS):
-    """Plain PyTorch version of the cull kernel: rays ro/rd [N, 3],
-    tmin/tmax [N], boxes [items, >= 6] (min xyz, max xyz) -> keys
-    [ceil(N / group), items] f32."""
+    """The cull's keys in plain PyTorch: rays ro/rd [N, 3], tmin/tmax
+    [N], boxes [items, >= 6] (min xyz, max xyz) -> keys [ceil(N / group),
+    items] f32."""
     wl.check_group(group)
     ro, rd, tmin, tmax = wl.pad_rays(ro, rd, tmin, tmax, group)
     ng, items = ro.shape[0] // group, boxes.shape[0]
@@ -147,61 +230,147 @@ def candidate_keys_plain(ro, rd, tmin, tmax, boxes,
     ])
 
 
-def candidate_keys_kernel(ro, rd, tmin, tmax, boxes,
+def candidate_lists_plain(ro, rd, tmin, tmax, boxes,
                           group: int = GROUP_RAYS):
-    """Launch csrc/candidate_cull.cu on CUDA tensors (raises otherwise):
-    the keys of candidate_keys_plain, with nothing of size [rays, items]
-    in device memory."""
-    if ro.device.type != "cuda":
-        raise ValueError(f"candidate_keys_kernel: {ro.device} is not a CUDA "
-                         "device")
+    """precull's lists from candidate_keys_plain and a stable
+    torch.argsort, on the rays' device -> (order [ng, items] i32, tlow
+    [ng, items] f32, cnt [ng] i32), every entry defined (past cnt: the
+    items of +inf keys in item order)."""
+    keys = candidate_keys_plain(ro, rd, tmin, tmax, boxes, group)
+    order = torch.argsort(keys, dim=1, stable=True)
+    return (order.to(torch.int32), keys.gather(1, order),
+            torch.isfinite(keys).sum(dim=1, dtype=torch.int32))
+
+
+def _may_enter(o, inv, tmin, tlim, boxes):
+    """[r] rays against every box of [k, 6] -> [r, k]: whether a ray may
+    enter a box, the slab test of slab_enter_exit with its compare negated
+    so that a NaN passes (may_enter in csrc/candidate_cull.cu)."""
+    t0 = (boxes[None, :, 0:3] - o[:, None]) * inv[:, None]
+    t1 = (boxes[None, :, 3:6] - o[:, None]) * inv[:, None]
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    enter = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    exit_ = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    enter = torch.maximum(enter, tmin[:, None])
+    exit_ = torch.minimum(exit_, tlim[:, None])
+    return ~(enter > exit_ * SLACK)
+
+
+def cluster_pass_plain(ro, rd, tmin, tmax, items, group: int = GROUP_RAYS):
+    """The kernel's first level in plain PyTorch, over groups of `group`
+    rays padded as candidate_keys_plain pads them; items: an ItemClusters
+    or world boxes. -> (entered [groups, clusters] bool: some ray of the
+    group that may enter the root box may enter the cluster's box;
+    counts): the kernel's counters as int64 tensors: `tested` the (group,
+    item) pairs it slab-tests (the items of entered clusters),
+    `cluster_tests` its (ray, cluster) tests (the rays that may enter the
+    root box, against every cluster), `item_tests` its (ray, item) tests
+    (the rays that may enter a cluster, against its items)."""
     wl.check_group(group)
-    n, dev, f32 = ro.shape[0], ro.device, torch.float32
-    items = boxes.shape[0]
+    cl = as_clusters(items)
+    ro, rd, tmin, tmax = wl.pad_rays(ro, rd, tmin, tmax, group)
+    ng, nc = ro.shape[0] // group, cl.cluster_boxes.shape[0]
+    per = (cl.slot_item.shape[0]
+           - torch.arange(nc, device=ro.device) * CLUSTER_ITEMS).clamp(
+               max=CLUSTER_ITEMS)  # items in each cluster
+    inv = wl._inverse_dir(rd)
+    live = _may_enter(ro, inv, tmin, tmax, cl.root[None])[:, 0]
+    chunk = max(1, int(PRECULL_BYTES // (6 * group * max(nc, 1) * 4)))
+    entered, rays_in = [], []
+    for g0 in range(0, ng, chunk):
+        s = slice(g0 * group, (g0 + chunk) * group)
+        m = (_may_enter(ro[s], inv[s], tmin[s], tmax[s], cl.cluster_boxes)
+             & live[s, None]).view(-1, group, nc)
+        entered.append(m.any(dim=1))
+        rays_in.append(m.sum(dim=1))
+    entered = torch.cat(entered)
+    return entered, dict(tested=(entered * per).sum(),
+                         cluster_tests=live.sum() * nc,
+                         item_tests=(torch.cat(rays_in) * per).sum())
+
+
+COUNTERS = ("tested", "spills", "cluster_tests", "item_tests")
+
+
+def candidate_lists_kernel(ro, rd, tmin, tmax, clusters: ItemClusters,
+                           group: int = GROUP_RAYS):
+    """Launch csrc/candidate_cull.cu on CUDA tensors (raises otherwise):
+    precull's lists (order, tlow, cnt) from one launch of a CTA a group,
+    nothing read back and every shape fixed by the inputs', and counts,
+    the kernel's COUNTERS as 0-d int64 tensors on the device (those of
+    cluster_pass_plain, and `spills`, the groups with more than LIST_CAP
+    candidates)."""
+    if ro.device.type != "cuda":
+        raise ValueError(f"candidate_lists_kernel: {ro.device} is not a "
+                         "CUDA device")
+    wl.check_group(group)
+    n, dev, f32, i32 = ro.shape[0], ro.device, torch.float32, torch.int32
+    items, nc = clusters.slot_item.shape[0], clusters.cluster_boxes.shape[0]
     wl._check(ro, f32, (n, 3), dev, "ro")
     wl._check(rd, f32, (n, 3), dev, "rd")
     wl._check(tmin, f32, (n,), dev, "tmin")
     wl._check(tmax, f32, (n,), dev, "tmax")
-    if boxes.dim() != 2 or boxes.shape[1] < 6:
-        raise ValueError(f"boxes: expected [items, >= 6], got {tuple(boxes.shape)}")
-    wl._check(boxes, f32, tuple(boxes.shape), dev, "boxes")
+    wl._check(clusters.slot_item, i32, (items,), dev, "slot_item")
+    wl._check(clusters.slot_boxes, f32, (items, 6), dev, "slot_boxes")
+    wl._check(clusters.cluster_boxes, f32, (nc, 6), dev, "cluster_boxes")
+    wl._check(clusters.root, f32, (6,), dev, "root")
     ng = max(1, -(-n // group))
-    keys = torch.empty((ng, items), dtype=f32, device=dev)
+    order = torch.empty((ng, items), dtype=i32, device=dev)
+    tlow = torch.empty((ng, items), dtype=f32, device=dev)
+    cnt = torch.empty(ng, dtype=i32, device=dev)
+    counters = torch.zeros(len(COUNTERS), dtype=torch.int64, device=dev)
     err = _cull_lib().candidate_cull_launch(
         ro.data_ptr(), rd.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), n,
-        boxes.data_ptr(), boxes.shape[1], items, group, keys.data_ptr(),
-        cuda_build.stream_handle(dev))
+        clusters.root.data_ptr(), clusters.cluster_boxes.data_ptr(), nc,
+        clusters.slot_boxes.data_ptr(), clusters.slot_item.data_ptr(), items,
+        group, order.data_ptr(), tlow.data_ptr(), cnt.data_ptr(),
+        counters.data_ptr(), cuda_build.stream_handle(dev))
     cuda_build.check(err, "candidate_cull")
     if n and items:  # the launcher launches nothing for no rays or items
-        candidate_keys_kernel.launches += 1
-    return keys
+        candidate_lists_kernel.launches += 1
+    else:
+        cnt.zero_()
+    return order, tlow, cnt, dict(zip(COUNTERS, counters.unbind()))
 
 
-candidate_keys_kernel.launches = 0
+candidate_lists_kernel.launches = 0
 
 
-def precull(ro, rd, tmin, tmax, wi_bbox, group: int = GROUP_RAYS):
+def precull(ro, rd, tmin, tmax, items, group: int = GROUP_RAYS):
     """Candidate items of each group of `group` rays, front to back:
-    (order [ng, items] i32, tlow [ng, items] f32 sorted, cnt [ng] i32):
-    the cull's plain version for CPU tensors, its kernel for CUDA
-    tensors. A `precull` span (utils/timing.py device_span) covers the
-    keys and the sort: `groups`, `items`, `keys` (their product) and
-    `candidates` (the sum of cnt, a tensor read when the units are)."""
-    ng, items = max(1, -(-ro.shape[0] // group)), wi_bbox.shape[0]
-    with timing.device_span("precull", ro.device, groups=ng, items=items,
-                            keys=ng * items) as sp:
+    (order [ng, items] i32, tlow [ng, items] f32, cnt [ng] i32), of which
+    order[:, :cnt] and tlow[:, :cnt] hold the items with a finite key in
+    the order of (key, item), which a stable sort of the keys gives, and
+    their keys. items: the work items' ItemClusters, or their world boxes
+    [items, >= 6] (clustered here). candidate_lists_plain for CPU tensors,
+    candidate_lists_kernel for CUDA tensors. A `precull` span
+    (utils/timing.py device_span) covers it: `groups`, `items`, `keys`
+    (their product), and tensors read when the units are: `candidates`
+    (the sum of cnt), `tested` and `spills` (the kernel's counters; on
+    the CPU cluster_pass_plain's `tested` and the groups past
+    LIST_CAP)."""
+    cl = as_clusters(items)
+    ng, n_items = max(1, -(-ro.shape[0] // group)), cl.boxes.shape[0]
+    with timing.device_span("precull", ro.device, groups=ng, items=n_items,
+                            keys=ng * n_items) as sp:
         with roofline.kernel_region() as counter:
-            keys = (candidate_keys_plain if ro.device.type == "cpu"
-                    else candidate_keys_kernel)(ro, rd, tmin, tmax, wi_bbox,
-                                                group)
+            if ro.device.type == "cpu":
+                order, tlow, cnt = candidate_lists_plain(ro, rd, tmin, tmax,
+                                                         cl.boxes, group)
+                counts = cluster_pass_plain(ro, rd, tmin, tmax, cl, group)[1]
+                counts["spills"] = (cnt > LIST_CAP).sum()
+            else:
+                order, tlow, cnt, counts = candidate_lists_kernel(
+                    ro, rd, tmin, tmax, cl, group)
             if counter is not None:
                 counter.add_kernel("candidate_cull", kf.candidate_cull_cost(
-                    ro.shape[0], items, keys.shape[0], group))
-        order = torch.argsort(keys, dim=1, stable=True)
-        tlow = keys.gather(1, order)
-        cnt = torch.isfinite(keys).sum(dim=1, dtype=torch.int32)
-        sp.add(candidates=cnt.sum(dtype=torch.int64))
-    return order.to(torch.int32), tlow, cnt
+                    ro.shape[0], ng, group, n_items,
+                    cl.cluster_boxes.shape[0], int(counts["cluster_tests"]),
+                    int(counts["item_tests"]), int(cnt.sum())))
+        sp.add(candidates=cnt.sum(dtype=torch.int64), tested=counts["tested"],
+               spills=counts["spills"])
+    return order, tlow, cnt
 
 
 def _to_shape_space(ro, rd, xf):
@@ -406,7 +575,7 @@ def _cull_lib():
     fn = lib.candidate_cull_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, p, i, i, i, p, p]
+        fn.argtypes = [p, p, p, p, i, p, p, i, p, p, i, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -496,7 +665,7 @@ def instanced_intersect(tables: InstancedDeviceTables, ro, rd, tmin,
         zi = torch.zeros(n, dtype=torch.int32, device=ro.device)
         return Hit(torch.zeros(n, dtype=torch.bool, device=ro.device), zi - 1,
                    z, z, tmax, ro + tmax[:, None] * rd, torch.zeros_like(ro), zi)
-    lists = precull(ro, rd, tmin, tmax, tables.wi_bbox)
+    lists = precull(ro, rd, tmin, tmax, tables.clusters)
     with roofline.kernel_region() as counter:
         with timing.device_span("inst_walk", ro.device):
             if ro.device.type == "cpu":

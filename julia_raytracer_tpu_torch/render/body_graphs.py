@@ -65,7 +65,7 @@ def counters():
             (ci.cluster_intersect_kernel, "launches"),
             (ci.cluster_intersect_streamed_kernel, "launches"),
             (ii.instanced_intersect_kernel, "launches"),
-            (ii.candidate_keys_kernel, "launches"),
+            (ii.candidate_lists_kernel, "launches"),
             (rg.regroup_pack, "launches"), (rg.regroup_tritest, "launches"),
             (rg.regroup_unpack, "launches"),
             (rg.regroup_intersect, "host_syncs"),

@@ -167,6 +167,69 @@ def adversarial_rays(verts: np.ndarray, g: np.random.Generator):
     return o.astype(np.float32), d.astype(np.float32)
 
 
+def cull_boxes(n: int, seed: int = 0) -> torch.Tensor:
+    """n world boxes [n, 6] f32 for the candidate cull: sizes over four
+    orders of magnitude in [-1, 1]^3, some flat in one axis, a few with a
+    corner pair swapped (min > max)."""
+    g = np.random.default_rng(seed)
+    c = g.uniform(-1.0, 1.0, (n, 3))
+    h = np.exp(g.uniform(np.log(1e-4), np.log(0.5), (n, 1))) * g.uniform(
+        0.2, 1.0, (n, 3))
+    h[::7, 1] = 0.0
+    box = np.concatenate([c - h, c + h], axis=1)
+    box[::31] = box[::31][:, [3, 4, 5, 0, 1, 2]]
+    return torch.tensor(box, dtype=torch.float32)
+
+
+def cull_rays(lo, hi, n: int, seed: int = 0, device="cpu"):
+    """n rays (ro, rd, tmin, tmax) for the candidate cull over a world of
+    bounds lo, hi, in runs of 32 with nearby origins: a third from one eye
+    outside the world towards nearby points in it (camera-like), a third
+    from points in it towards nearby points (coherent bounces), a third
+    in random directions; with zero, -0.0 and subnormal direction
+    components (an infinite 1 / d), a NaN origin and direction; 10% dead
+    (tmax -1), a fifth short, a few +inf."""
+    g = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    span = hi - lo
+    runs = -(-n // 32)
+
+    def near(points):
+        return (np.repeat(points, 32, axis=0)[:n]
+                + g.normal(size=(n, 3)) * span * 0.01)
+
+    ro = near(g.uniform(lo, hi, (runs, 3)))
+    rd = near(g.uniform(lo, hi, (runs, 3))) - ro
+    cam, rnd = n // 3, 2 * n // 3
+    ro[:cam] = hi + span * 0.8
+    rd[:cam] = near(g.uniform(lo, hi, (runs, 3)))[:cam] - ro[:cam]
+    rd[rnd:] = g.normal(size=(n - rnd, 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rd[cam::9, 0] = 0.0
+    rd[cam + 1::9, 1] = -0.0
+    rd[cam + 2::37, 2] = 1e-41
+    ro[5::101, 0] = np.nan
+    rd[7::103, 2] = np.nan
+    tmax = np.where(g.random(n) < 0.1, -1.0, 3.4e38)
+    tmax[::5] = g.uniform(0.05, 1.0, len(tmax[::5])) * np.linalg.norm(span)
+    tmax[3::211] = np.inf
+    return [torch.tensor(x, dtype=torch.float32, device=device)
+            for x in (ro, rd, np.full(n, 1e-4), tmax)]
+
+
+def same_lists(got, want) -> bool:
+    """Two precull results (order, tlow, cnt) agree where they are read:
+    cnt, and order[g, :cnt[g]] and tlow[g, :cnt[g]] bit for bit."""
+    order, tlow, cnt = got
+    if not torch.equal(cnt, want[2]):
+        return False
+    read = (torch.arange(order.shape[1], device=cnt.device)[None]
+            < cnt[:, None].long())
+    return (torch.equal(order[read], want[0][read])
+            and torch.equal(tlow[read].view(torch.int32),
+                            want[1][read].view(torch.int32)))
+
+
 def regroup_bits(n_super: int, tiles: int = 4, padding: bool = True,
                  seed: int = 0) -> torch.Tensor:
     """Hand-built regroup bits [tiles, n_super, 1024] (bool) for the pack

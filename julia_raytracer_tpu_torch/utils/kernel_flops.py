@@ -52,8 +52,12 @@ DENSE_OPS_PER_TRI_TEST = 52
 # warp_walk.cuh / worklist_intersect.cu (18 for o', 15 for d', negate and
 # divide for t, 4 for u and v, 1 for u + v)
 OPS_PER_TRI_TEST = 40
-# fp32 operations of one (ray, box) slab test, counted in candidate_cull.cu
+# fp32 operations of one (ray, item) slab test of the cull, counted in
+# candidate_cull.cu: 6 subtracts, 6 multiplies, 6 min/max, 4 for the entry
+# and exit, 2 clips, the slack, the compare, the clamp and the group min
 CULL_OPS_PER_TEST = 28
+# the same test of a ray against the root or a cluster box: no clamp, no min
+MAY_ENTER_OPS = 26
 # fp32 operations of the regroup merge a ray (regroup_intersect.merge):
 # the triangle test's arithmetic on the winner, the odd-triangle flip (2)
 # and the position (6)
@@ -119,13 +123,19 @@ def instanced_intersect_cost(n_rays: int, n_groups: int, steps: int,
                  pairs * TRIS * OPS_PER_TRI_TEST)
 
 
-def candidate_cull_cost(n_rays: int, items: int, n_groups: int,
-                        group: int) -> dict:
-    """The candidate cull (not a pallas_call): the rays and the items'
-    world boxes in, the [groups, items] keys out; one slab test of every
-    ray of a group against every item."""
-    return _cost(n_rays * RAY_IN_BYTES + items * 24 + n_groups * items * 4,
-                 n_groups * group * items * CULL_OPS_PER_TEST)
+def candidate_cull_cost(n_rays: int, n_groups: int, group: int, items: int,
+                        clusters: int, cluster_tests: int, item_tests: int,
+                        candidates: int) -> dict:
+    """The candidate cull (not a pallas_call): the rays, the items' slots
+    (box and item) and the cluster and root boxes in, each group's sorted
+    candidates (key and item) and count out; a test of every ray of a group
+    against the root box, of each ray that may enter it against every
+    cluster box (cluster_tests), and of each ray that may enter a cluster
+    against the cluster's items (item_tests)."""
+    return _cost(n_rays * RAY_IN_BYTES + (items + clusters + 1) * 24
+                 + items * 4 + candidates * 8 + n_groups * 4,
+                 (n_groups * group + cluster_tests) * MAY_ENTER_OPS
+                 + item_tests * CULL_OPS_PER_TEST)
 
 
 def regroup_plan_bytes(tile_super_pairs: int, live_pairs: int) -> int:

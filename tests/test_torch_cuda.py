@@ -23,18 +23,19 @@ from julia_raytracer_tpu_torch.ops import row_gather as rgat
 from julia_raytracer_tpu_torch.ops.diff_hit import (
     make_diff_intersect, make_diff_intersect_instanced,
 )
+from julia_raytracer_tpu_torch.ops.camera import sample_camera
 from julia_raytracer_tpu_torch.render import diff as tdiff
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render.renderer import (
-    Params, Renderer, make_trace_state,
+    Params, Renderer, camera_arrays, make_trace_state,
 )
 from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
 from julia_raytracer_tpu_torch.testing import (
     adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
-    cornell_scene, dense_soup, grads_close, hairball_scene, hybrid_scene,
-    image_close, instanced_scene, many_lights_scene, param_grads,
-    regroup_bits, render_instanced, sphere_grid_scene, sphereflake_scene,
-    vertex_grads,
+    cornell_scene, cull_boxes, cull_rays, dense_soup, grads_close,
+    hairball_scene, hybrid_scene, image_close, instanced_scene,
+    many_lights_scene, param_grads, regroup_bits, render_instanced,
+    same_lists, sphere_grid_scene, sphereflake_scene, vertex_grads,
 )
 from julia_raytracer_tpu_torch.utils import timing
 
@@ -455,28 +456,115 @@ def test_cluster_walks_equal_plain_at_edges(dev, n):
         assert float(got.hit[:1024].float().mean()) > 0.5
 
 
+def _lists_on_card(dev, rays, cl, group):
+    """The cull kernel's lists and counters with no host read, against
+    the plain lists on the card and cluster_pass_plain's counts."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        *got, counts = ii.candidate_lists_kernel(*rays, cl, group)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = ii.candidate_lists_plain(*rays, cl.boxes, group)
+    torch.cuda.synchronize()
+    ng, items = -(-rays[0].shape[0] // group), cl.slot_item.shape[0]
+    assert got[0].shape == got[1].shape == (ng, items)
+    assert same_lists(got, want)
+    _, plain = ii.cluster_pass_plain(*rays, cl, group)
+    for k in ("tested", "cluster_tests", "item_tests"):
+        assert int(counts[k]) == int(plain[k]), k
+    assert int(counts["spills"]) == int((want[2] > ii.LIST_CAP).sum())
+    return got, counts
+
+
 @pytest.mark.parametrize("group", [32, 256, 1024])
 def test_candidate_cull_kernel_equals_plain(dev, group):
-    """The candidate cull's keys bit-equal to its plain version at n =
-    5,000 rays (a ragged last group) over the work items of a reduced
-    instanced scene, with dead lanes and rays from inside the room; and
-    the precull's lists on the card equal those of the plain keys."""
+    """The cull kernel's lists (order[:, :cnt], tlow[:, :cnt], cnt) bit-equal
+    to the plain lists (the plain keys, a stable argsort) at n = 5,000
+    rays (a ragged last group) over the work items of a reduced instanced
+    scene, with dead lanes and rays from inside the room, and over 1,500
+    random boxes (47 clusters) against testing.cull_rays (NaN and
+    infinite 1 / d); its counters equal cluster_pass_plain's; no host
+    read."""
     _, cfg = build_device_scene(instanced_scene(3, (8, 6)), instancing=True,
                                 hybrid_budget=0, device="cpu")
     tables = ii.upload(cfg.inst_tables, dev)
     rays = _room_rays(dev, 5000, 6)
-    got = ii.candidate_keys_kernel(*rays, tables.wi_bbox, group)
-    want = ii.candidate_keys_plain(*rays, tables.wi_bbox, group)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (-(-5000 // group), len(tables.wi_sup))
-    assert torch.equal(got, want)
-    finite = torch.isfinite(want)
-    assert bool(finite.any()) and not bool(finite.all())  # padding, dead rays
-    order, tlow, cnt = ii.precull(*rays, tables.wi_bbox, group)
-    assert torch.equal(cnt, finite.sum(dim=1, dtype=torch.int32))
-    assert torch.equal(tlow, want.gather(1, order.long()))
+    (order, tlow, cnt), counts = _lists_on_card(dev, rays, tables.clusters,
+                                                group)
+    assert 0 < int(cnt.sum()) < cnt.numel() * len(tables.wi_sup)
+    assert int(counts["spills"]) == 0
+    cl = ii.item_clusters(cull_boxes(1500, seed=group).to(dev))
+    lo, hi = cl.root[:3].tolist(), cl.root[3:].tolist()
+    (_, _, cnt), counts = _lists_on_card(
+        dev, cull_rays(lo, hi, 5000, seed=group, device=dev), cl, group)
+    assert int(cnt.sum()) > 0 and int(counts["tested"]) > 0
     with pytest.raises(ValueError):
-        ii.candidate_keys_kernel(*rays, tables.wi_bbox, 48)
+        ii.candidate_lists_kernel(*rays, tables.clusters, 48)
+
+
+@pytest.mark.parametrize("group", [256, 1024])
+@pytest.mark.parametrize("case", ["every_item", "mixed"])
+def test_candidate_cull_kernel_spills(dev, case, group):
+    """Groups past the shared list (LIST_CAP candidates) sort in their rows
+    of order and tlow: every one of 3,000 boxes about the origin entered
+    by every ray from it (cnt = every item, keys all +0: order by item);
+    or 2,500 boxes about (5, 5, 5) entered by the groups from there (some
+    with keys all +0 at a short tmax) beside 2,500 small random boxes that
+    coherent groups enter a few of. Bit-equal to the plain lists, the
+    spills counted."""
+    g = np.random.default_rng(group)
+    n = 8 * group + 77
+    if case == "every_item":
+        half = g.uniform(0.5, 1.0, (3000, 3))
+        boxes = np.concatenate([-half, half], axis=1)
+        ro = g.uniform(-0.1, 0.1, (n, 3))
+        rd = g.normal(size=(n, 3))
+        tmax = np.full(n, 3.4e38)
+    else:
+        c = np.concatenate([g.uniform(4.9, 5.1, (2500, 3)),
+                            g.uniform(-1, 1, (2500, 3))])
+        h = np.concatenate([g.uniform(0.3, 0.6, (2500, 3)),
+                            g.uniform(0.001, 0.05, (2500, 3))])
+        boxes = np.concatenate([c - h, c + h], axis=1)
+        ro = np.repeat(g.uniform(-1, 1, (-(-n // 32), 3)), 32, axis=0)[:n]
+        rd = np.repeat(g.normal(size=(-(-n // 32), 3)), 32, axis=0)[:n]
+        rd += g.normal(size=(n, 3)) * 0.01
+        spill = (np.arange(n) // group) % 3 == 0
+        ro[spill] = 5.0 + g.normal(size=(int(spill.sum()), 3)) * 0.01
+        rd[spill] = g.normal(size=(int(spill.sum()), 3))
+        tmax = np.where((np.arange(n) // group) % 6 == 3, 1e-3, 3.4e38)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rays = [torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (ro, rd, np.full(n, 1e-4), tmax)]
+    cl = ii.item_clusters(torch.tensor(boxes, dtype=torch.float32, device=dev))
+    (_, _, cnt), counts = _lists_on_card(dev, rays, cl, group)
+    assert int(counts["spills"]) > 0
+    if case == "every_item":
+        assert bool((cnt == 3000).all())
+    else:
+        assert int(cnt.min()) < ii.LIST_CAP < int(cnt.max())
+
+
+def test_candidate_cull_flake_camera_body(dev):
+    """A full-size 1,048,576-lane camera body of the sphereflake cell (the
+    first 1,048,576 pixels of 1280 x 1280, 22,143 work items, 692
+    clusters) through the cull kernel: lists bit-equal to the plain lists
+    on the card, counters equal to cluster_pass_plain's."""
+    scene = sphereflake_scene()
+    _, cfg = build_device_scene(scene, device="cpu")
+    cl = ii.upload(cfg.inst_tables, dev).clusters
+    res, n = 1280, 1 << 20
+    pix = torch.arange(n, device=dev)
+    ij = torch.stack([pix % res, pix // res], dim=-1)
+    half = torch.full((n, 2), 0.5, device=dev)
+    ro, rd = sample_camera(camera_arrays(scene.cameras[0], dev), ij,
+                           (res, res), half, half, False)
+    rays = (ro.contiguous(), rd.contiguous(), torch.full((n,), 1e-4, device=dev),
+            torch.full((n,), 3.4e38, device=dev))
+    (_, _, cnt), counts = _lists_on_card(dev, rays, cl, ii.GROUP_RAYS)
+    assert cl.cluster_boxes.shape[0] == 692 and int(cnt.sum()) > 0
+    assert int(counts["tested"]) < cnt.numel() * 22_143
 
 
 @pytest.mark.parametrize("group", [32, 128, 256])
@@ -650,10 +738,10 @@ def test_diff_hit_instanced_forward_equals_the_kernels(dev, hybrid):
         rows = torch.as_tensor(cfg.inst_tables.inst_rows, device=dev)
         wrapped = make_diff_intersect_instanced(isect, pv, rows)
     ii.instanced_intersect_kernel.launches = 0
-    ii.candidate_keys_kernel.launches = 0
+    ii.candidate_lists_kernel.launches = 0
     got = wrapped(ro, rd, tmin, tmax)
     assert ii.instanced_intersect_kernel.launches == 1
-    assert ii.candidate_keys_kernel.launches == 1
+    assert ii.candidate_lists_kernel.launches == 1
     want = isect(ro, rd.detach(), tmin, tmax)
     assert got.u.requires_grad and int(want.hit.sum()) > 500
     assert _same_bits(tuple(x.detach() for x in got), want)
@@ -667,12 +755,12 @@ def test_instanced_diff_grads_on_card_match_cpu(dev, hybrid):
     the soup's worklist kernel) launched."""
     scene, budget = _instanced_case(hybrid)
     ii.instanced_intersect_kernel.launches = 0
-    ii.candidate_keys_kernel.launches = 0
+    ii.candidate_lists_kernel.launches = 0
     wl.worklist_intersect_kernel.launches = 0
     card = param_grads(scene, 32, dev, bounces=4, hybrid_budget=budget)
     card_v = vertex_grads(scene, 32, dev, budget, bounces=4)
     assert ii.instanced_intersect_kernel.launches > 0
-    assert ii.candidate_keys_kernel.launches > 0
+    assert ii.candidate_lists_kernel.launches > 0
     assert (wl.worklist_intersect_kernel.launches > 0) == hybrid
     cpu = param_grads(scene, 32, "cpu", bounces=4, hybrid_budget=budget)
     cpu_v = vertex_grads(scene, 32, "cpu", budget, bounces=4)

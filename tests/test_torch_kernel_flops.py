@@ -217,9 +217,14 @@ def test_instanced_and_cull_report_their_models():
     assert set(counter.kernels) == {"candidate_cull", "instanced_intersect"}
     order, tlow, cnt = ii.precull(*rays, tables.wi_bbox)
     items = tables.wi_bbox.shape[0]
+    _, tests = ii.cluster_pass_plain(*rays, tables.clusters)
+    assert 0 < tests["item_tests"] <= 700 * items
     assert counter.kernels["candidate_cull"][1:] == list(
-        kf.candidate_cull_cost(700, items, cnt.shape[0],
-                               ii.GROUP_RAYS).values())
+        kf.candidate_cull_cost(700, cnt.shape[0], ii.GROUP_RAYS, items,
+                               tables.clusters.cluster_boxes.shape[0],
+                               int(tests["cluster_tests"]),
+                               int(tests["item_tests"]),
+                               int(cnt.sum())).values())
     _, work = ii.instanced_intersect_plain(tables, *rays, order, tlow, cnt)
     need = ii.needed_work(tables, rays[0], rays[1], rays[2], hit.t, order, cnt)
     assert 0 < need["pairs"] <= work["pairs"]

@@ -346,10 +346,10 @@ def test_instanced_spans_count_the_precull(monkeypatch):
     calls = []
     real = ii.precull
 
-    def recording_precull(ro, rd, tmin, tmax, wi_bbox, group=ii.GROUP_RAYS):
-        keys = ii.candidate_keys_plain(ro, rd, tmin, tmax, wi_bbox, group)
+    def recording_precull(ro, rd, tmin, tmax, items, group=ii.GROUP_RAYS):
+        keys = ii.candidate_keys_plain(ro, rd, tmin, tmax, items.boxes, group)
         calls.append((keys.shape, int(torch.isfinite(keys).sum())))
-        return real(ro, rd, tmin, tmax, wi_bbox, group)
+        return real(ro, rd, tmin, tmax, items, group)
 
     monkeypatch.setattr(ii, "precull", recording_precull)
     r, st = _flake_renderer(monkeypatch)
