@@ -151,6 +151,7 @@ from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import row_gather as rgat
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
+from julia_raytracer_tpu_torch.ops.traversal import Intersector
 from julia_raytracer_tpu_torch.render.integrator import (
     _host_prims, _sort_key, merge_curves, sort_bounds, trace_wavefront,
 )
@@ -1905,10 +1906,10 @@ def phase_diff(dev, cornell) -> tuple[dict, dict]:
     _zero_counts()
     with torch.no_grad():
         rad_w = render_radiance(r.dscene, r.config, r.options, *args,
-                                intersect=r.intersect)
+                                intersector=r.intersect)
         loop = _read_counts()
         rad_f = render_radiance(r.dscene, r.config, opts, *args,
-                                intersect=r.intersect)
+                                intersector=r.intersect)
     differ = (rad_w != rad_f).any(dim=-1)
     rel = ((rad_w - rad_f).abs()
            / torch.clamp(rad_w.abs(), min=1e-30)).max()
@@ -1942,7 +1943,7 @@ def phase_diff(dev, cornell) -> tuple[dict, dict]:
     mats = r.dscene.materials
     with torch.no_grad():
         target = render_radiance(r.dscene, r.config, opts, *args,
-                                 intersect=step.intersect)
+                                 intersector=step.intersect)
     color = _perturbed(mats, dev)
     err0 = float((color - mats.color).abs().mean())
     _zero_counts()
@@ -2060,11 +2061,11 @@ def phase_diff_instanced(dev, inst) -> tuple[dict, dict]:
         with torch.no_grad():
             rad_w = render_radiance(r.dscene, r.config,
                                     r.options._replace(sort_rays=False), *args,
-                                    intersect=r.intersect)
+                                    intersector=r.intersect)
             rad_f = render_radiance(r.dscene, r.config, opts, *args,
-                                    intersect=r.intersect)
+                                    intersector=r.intersect)
             rad_s = render_radiance(r.dscene, r.config, r.options, *args,
-                                    intersect=r.intersect)
+                                    intersector=r.intersect)
         add(_read_counts())
         out[f"{name}_forward"] = dict(
             fixed_iterations=opts.fixed_iterations,
@@ -2101,7 +2102,7 @@ def phase_diff_instanced(dev, inst) -> tuple[dict, dict]:
     with torch.no_grad():
         target = render_radiance(r.dscene, r.config, diff_options(
             r.options, r.config), r.cam_arrays, MAIN_RES, MAIN_RES, pix, 0,
-            DIFF_SEED, intersect=step.intersect)
+            DIFF_SEED, intersector=step.intersect)
     color = _perturbed(mats, dev)
     err0 = float((color - mats.color).abs().mean())
     _zero_counts()
@@ -2140,7 +2141,7 @@ def phase_diff_instanced(dev, inst) -> tuple[dict, dict]:
     with torch.no_grad():
         target = render_radiance(r.dscene, r.config, diff_options(
             r.options, r.config), r.cam_arrays, MAIN_RES, MAIN_RES, pix, 0,
-            DIFF_SEED, intersect=step.intersect)
+            DIFF_SEED, intersector=step.intersect)
     _zero_counts()
     color = _perturbed(r.dscene.materials, dev)
     hsteps, _, _ = _train_steps(
@@ -2233,21 +2234,21 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
     require((cfg.n_prims, cfg.n_lines, cfg.n_points)
             == (CORNELL_QUADS, HAIR_HAIRS * HAIR_SEGMENTS, HAIR_POINTS),
             f"hairball counts {cfg.n_prims}, {cfg.n_lines}, {cfg.n_points}")
-    require(hasattr(getattr(r.intersect, "inner", None), "table"),
+    require(isinstance(r.intersect.tables, di.DenseTable),
             "the hairball's quads do not take the dense kernel under curve_wrap")
     stats, ln = main_path(r, scene, dev)
     for name in ("dense_intersect", "lane_compact", "lane_expand"):
         require(ln[name] > 0, f"the hairball path never launched {name}")
     add(ln)
     stats["device_ms_per_sample"] = _sample_device_ms(r, scene, dev)
-    calls, inner, wrapped = [], r.intersect.inner, r.intersect
+    calls, wrapped = [], r.intersect
 
     def recording(ro, rd, tmin, tmax):
-        h = inner(ro, rd, tmin, tmax)
+        h = di.dense_intersect(wrapped.tables, ro, rd, tmin, tmax)
         calls.append((h, ro, rd, tmin, tmax))
         return merge_curves(r.dscene, cfg, h, ro, rd, tmin, tmax)
 
-    r.intersect = recording
+    r.intersect = Intersector(recording)
     try:
         r.trace_samples(make_trace_state(scene, r.params, device=dev))
     finally:
@@ -2285,7 +2286,8 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
             f"{counts.total_inst_elems} emissive elements: the pdf does not march")
     require(steps == auto_light_pdf_steps(counts.total, False),
             f"the renderer chose {steps} march steps")
-    require(not r.options.sort_rays and hasattr(r.intersect, "tables"),
+    require(not r.options.sort_rays and r.intersect.livegate is None
+            and isinstance(r.intersect.tables, wl.WorklistTables),
             "the many-lights scene does not take the unsorted worklist path")
     t0_ns = time.perf_counter_ns()
     stats, ln = main_path(r, scene, dev)
@@ -2479,8 +2481,8 @@ def phase_host_build(dev, hybrid) -> tuple[dict, Renderer, object, dict]:
                 os.path.getsize(os.path.join(dirpath, f))
                 for dirpath, _, files in os.walk(os.environ["JRT_CACHE_DIR"])
                 for f in files) / 2**20
-            out["warm_intersector"] = ("worklist" if getattr(
-                warm.intersect, "livegate", None) is None else "regroup")
+            out["warm_intersector"] = ("worklist" if warm.intersect.livegate
+                                       is None else "regroup")
             del cold, cold_scene
 
             pv = np.asarray(warm.config.host_prim_verts, np.float64)
@@ -2795,7 +2797,7 @@ def main() -> int:
         wl.worklist_intersect(spheres.intersect.tables, *sp_primary),
         sp_primary[1], dev)
     phases = {
-        "dense_intersect": phase_intersect(dev, cornell.intersect.table,
+        "dense_intersect": phase_intersect(dev, cornell.intersect.tables,
                                            turn_inputs),
         "lane_compact": phase_compact(dev),
         "lane_expand": phase_expand(dev),
@@ -2855,7 +2857,7 @@ def main() -> int:
         resolution=MAIN_RES, samples=HEAVY_WARM_SPP + HEAVY_TIMED_SPP,
         batch=HEAVY_WARM_SPP, bounces=MAIN_BOUNCES, sampler="path"),
         device=dev)
-    livegate = getattr(heavy.intersect, "livegate", None)
+    livegate = heavy.intersect.livegate
     log(f"heavy scene, regroup='auto': bounce rays through "
         f"{'the worklist' if livegate is None else f'regroup, livegate {livegate}'}")
     a_stats, a_launch = main_path(heavy, heavy_data, dev)

@@ -50,8 +50,8 @@ import torch
 from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER, TRIS
-from julia_raytracer_tpu_torch.ops.traversal import Hit
-from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
+from julia_raytracer_tpu_torch.ops.traversal import Hit, Intersector
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 SUPER = 64  # clusters per supercluster of the streamed kernel
 FLAGS = ("-fmad=false",)
@@ -198,8 +198,8 @@ def cluster_intersect_streamed_kernel(tables: wl.WorklistTables, ro, rd, tmin,
     return hit
 
 
-cluster_intersect_kernel.launches = 0
-cluster_intersect_streamed_kernel.launches = 0
+timing.counter(cluster_intersect_kernel, "launches")
+timing.counter(cluster_intersect_streamed_kernel, "launches")
 
 
 def _lib():
@@ -272,24 +272,22 @@ def cluster_intersect_streamed(tables, ro, rd, tmin, tmax) -> Hit:
 
 
 def make_cluster_intersect(prim_verts: np.ndarray, prim_instance, device):
-    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup on
-    `device`, by the cluster sweep (JAX make_cluster_intersect)."""
+    """The Intersector over a fixed quad soup on `device`, by the cluster
+    sweep (JAX make_cluster_intersect)."""
     tables = pack_tables(prim_verts, prim_instance, device)
 
     def intersect(ro, rd, tmin, tmax):
         return cluster_intersect(tables, ro, rd, tmin, tmax)
 
-    intersect.tables = tables
-    return intersect
+    return Intersector(intersect, tables=tables)
 
 
 def make_cluster_intersect_hbm(prim_verts: np.ndarray, prim_instance, device):
-    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup on
-    `device`, by the supercluster walk (JAX make_cluster_intersect_hbm)."""
+    """The Intersector over a fixed quad soup on `device`, by the
+    supercluster walk (JAX make_cluster_intersect_hbm)."""
     tables = pack_tables(prim_verts, prim_instance, device)
 
     def intersect(ro, rd, tmin, tmax):
         return cluster_intersect_streamed(tables, ro, rd, tmin, tmax)
 
-    intersect.tables = tables
-    return intersect
+    return Intersector(intersect, tables=tables)

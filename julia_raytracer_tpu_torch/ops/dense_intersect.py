@@ -23,7 +23,7 @@ selects.
 
 For CPU tensors the wrapper runs the plain version; for CUDA tensors it
 launches the kernel (or raises). `dense_intersect.launches` counts the
-kernel's launches.
+kernel's launches (a utils/timing.py counter).
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ import numpy as np
 import torch
 
 from julia_raytracer_tpu_torch.ops import cuda_build
-from julia_raytracer_tpu_torch.ops.traversal import Hit
-from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
+from julia_raytracer_tpu_torch.ops.traversal import Hit, Intersector
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 MAX_PRIMS = 112
 STRIDE = 16
@@ -289,7 +289,7 @@ def _dense_intersect(table: DenseTable, ro, rd, tmin, tmax) -> Hit:
     return Hit(prim >= 0, prim, u, v, t, pos, nrm, inst)
 
 
-dense_intersect.launches = 0
+timing.counter(dense_intersect, "launches")
 
 
 FLAGS = ("-fmad=false",)
@@ -306,8 +306,8 @@ def _lib():
 
 
 def make_dense_intersect(prim_verts: np.ndarray, prim_instance, device):
-    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup. It
-    declares `graph_safe`: a call reads nothing back from the device and
+    """The Intersector over a fixed quad soup (`tables`: its DenseTable).
+    It is `graph_safe`: a call reads nothing back from the device and
     sizes its outputs by its inputs' shapes alone, and the kernel's launch
     goes onto PyTorch's current stream, so a CUDA graph can capture it
     (render/body_graphs.py)."""
@@ -316,6 +316,4 @@ def make_dense_intersect(prim_verts: np.ndarray, prim_instance, device):
     def intersect(ro, rd, tmin, tmax):
         return dense_intersect(table, ro, rd, tmin, tmax)
 
-    intersect.table = table
-    intersect.graph_safe = True
-    return intersect
+    return Intersector(intersect, graph_safe=True, tables=table)

@@ -33,9 +33,10 @@ the taken triangle is re-tested there, and the hit returns what the JAX
 package's make_intersect_instanced_ref returns: t (the same in both
 spaces, the shape-space direction is not normalised), the world
 position ro + rd t, and the world element normal
-normalize(quad_normal(verts) Fw). A hybrid scene's soup branch takes
+normalize(quad_normal(verts) Fw); `instanced_diff` is a work-item
+route's `Intersector.diff`. A hybrid scene's soup branch takes
 make_diff_intersect over the world-space soup (render/integrator.py
-`_diff_intersect` wraps the two branches before they are composed)."""
+make_intersect_hybrid wraps the two branches before it composes them)."""
 
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import torch
 
 from julia_raytracer_tpu_torch.ops.geometry import intersect_triangle, quad_normal
 from julia_raytracer_tpu_torch.ops.instanced_intersect import _to_shape_space
-from julia_raytracer_tpu_torch.ops.traversal import hit_surface
+from julia_raytracer_tpu_torch.ops.traversal import Intersector, hit_surface
 
 
 # the miss lanes' re-test: a ray straight down onto the unit quad
@@ -168,3 +169,11 @@ def make_diff_intersect_instanced(intersect, prim_verts, inst_rows):
         )
 
     return diff_intersect
+
+
+def instanced_diff(intersect, inst_rows):
+    """The `Intersector.diff` of the work-item route `intersect` (one
+    query for all rays): make_diff_intersect_instanced over the call's
+    dscene.prim_verts."""
+    return lambda dscene: Intersector(make_diff_intersect_instanced(
+        intersect, dscene.prim_verts, inst_rows))

@@ -71,7 +71,7 @@ import torch
 from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import TRIS
-from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.ops.traversal import Hit, Intersector
 from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 WARP = wl.WARP  # rays of a walking warp
@@ -334,7 +334,7 @@ def candidate_lists_kernel(ro, rd, tmin, tmax, clusters: ItemClusters,
     return order, tlow, cnt, dict(zip(COUNTERS, counters.unbind()))
 
 
-candidate_lists_kernel.launches = 0
+timing.counter(candidate_lists_kernel, "launches")
 
 
 def precull(ro, rd, tmin, tmax, items, group: int = GROUP_RAYS):
@@ -567,7 +567,7 @@ def instanced_intersect_kernel(tables: InstancedDeviceTables, ro, rd, tmin,
     return Hit(prim >= 0, prim, u, v, t, pos, nrm, inst)
 
 
-instanced_intersect_kernel.launches = 0
+timing.counter(instanced_intersect_kernel, "launches")
 
 
 def _cull_lib():
@@ -680,13 +680,14 @@ def instanced_intersect(tables: InstancedDeviceTables, ro, rd, tmin,
     return normalize_normal(hit)
 
 
-def make_instanced_intersect(tables, device):
-    """intersect(ro, rd, tmin, tmax) -> Hit over the work items of a
-    scene/instanced.py InstancedTables, on `device`."""
+def make_instanced_intersect(tables, device, diff) -> Intersector:
+    """The Intersector over the work items of a scene/instanced.py
+    InstancedTables, on `device`; `diff(intersect, inst_rows)` makes its
+    fixed-trip form, which re-tests a hit in its instance's shape space
+    (ops/diff_hit.py instanced_diff, which imports this module)."""
     dt = upload(tables, device)
 
     def intersect(ro, rd, tmin, tmax):
         return instanced_intersect(dt, ro, rd, tmin, tmax)
 
-    intersect.tables = dt
-    return intersect
+    return Intersector(intersect, tables=dt, diff=diff(intersect, dt.inst_rows))

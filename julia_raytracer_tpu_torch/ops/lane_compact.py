@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from julia_raytracer_tpu_torch.ops import cuda_build
-from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 TILE = 1024
 
@@ -132,7 +132,7 @@ def _compact_planes(vals, alive, cap: int):
     return out
 
 
-compact_planes.launches = 0
+timing.counter(compact_planes, "launches")
 
 
 def expand_planes(narrow, alive, fallback):
@@ -174,7 +174,7 @@ def _expand_planes(narrow, alive, fallback):
     return out
 
 
-expand_planes.launches = 0
+timing.counter(expand_planes, "launches")
 
 
 FLAGS = ()

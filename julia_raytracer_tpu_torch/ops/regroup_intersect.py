@@ -60,9 +60,9 @@ import torch
 from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.cluster_tables import TRIS
-from julia_raytracer_tpu_torch.ops.traversal import Hit
+from julia_raytracer_tpu_torch.ops.traversal import Hit, Intersector
 from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
-from julia_raytracer_tpu_torch.utils.timing import span
+from julia_raytracer_tpu_torch.utils.timing import counter, span
 
 TILE = 1024  # rays per tile = slots per tri-test group
 LANES = 128
@@ -430,9 +430,9 @@ def _regroup_unpack(plan: Plan, trires):
     return out
 
 
-regroup_pack.launches = 0
-regroup_tritest.launches = 0
-regroup_unpack.launches = 0
+counter(regroup_pack, "launches")
+counter(regroup_tritest, "launches")
+counter(regroup_unpack, "launches")
 
 FLAGS = ("-fmad=false",)
 
@@ -548,20 +548,19 @@ def regroup_intersect(tables: wl.WorklistTables, ro, rd, tmin, tmax,
     return Hit(*(torch.cat(f)[:n] for f in zip(*parts)))
 
 
-regroup_intersect.host_syncs = 0
-regroup_intersect.fallbacks = 0
+counter(regroup_intersect, "host_syncs")
+counter(regroup_intersect, "fallbacks")
 
 
 def make_regroup_intersect(prim_verts: np.ndarray, prim_instance, device,
                            blk_cap: int = DEF_BLK_CAP,
                            chunk_blocks: int = DEF_CHUNK_BLOCKS,
                            livegate: float | None = None,
-                           cache_key: str = ""):
-    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup, on
-    `device`, by regrouping; `.primary` is the worklist intersector over
-    the same tables, for coherent camera rays (JAX :1036-1042). `livegate`
-    None means DEF_LIVEGATE; the cluster tables go through the disk cache
-    under `cache_key`."""
+                           cache_key: str = "") -> Intersector:
+    """The Intersector over a fixed quad soup, on `device`: `hit` by
+    regrouping, `primary` the worklist over the same tables, for coherent
+    camera rays (JAX :1036-1042). `livegate` None means DEF_LIVEGATE; the
+    cluster tables go through the disk cache under `cache_key`."""
     tables = wl.pack_tables(prim_verts, prim_instance, wl.WL_SUPER, device,
                             cache_key)
     gate = DEF_LIVEGATE if livegate is None else livegate
@@ -573,7 +572,4 @@ def make_regroup_intersect(prim_verts: np.ndarray, prim_instance, device,
     def primary(ro, rd, tmin, tmax):
         return wl.worklist_intersect(tables, ro, rd, tmin, tmax)
 
-    intersect.tables = primary.tables = tables
-    intersect.livegate = gate
-    intersect.primary = primary
-    return intersect
+    return Intersector(intersect, primary, tables=tables, livegate=gate)

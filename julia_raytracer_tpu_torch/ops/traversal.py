@@ -1,6 +1,6 @@
-"""Closest-hit record and the dense reference intersector (port of the
-`Hit`, `hit_surface` and `intersect_bruteforce` parts of
-julia_raytracer_tpu/ops/traversal.py).
+"""Closest-hit record, the route type every intersector is built as, and
+the dense reference intersector (port of the `Hit`, `hit_surface` and
+`intersect_bruteforce` parts of julia_raytracer_tpu/ops/traversal.py).
 
 `intersect_bruteforce` is the reference the dense kernel
 (ops/dense_intersect.py) is held against. On a miss it returns prim 0
@@ -11,7 +11,8 @@ the JAX package's lock-step walk of the packed BVH, a plain reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -35,6 +36,53 @@ class Hit(NamedTuple):
     position: torch.Tensor  # f32 [N, 3]
     gnormal: torch.Tensor  # f32 [N, 3]
     instance: torch.Tensor  # i32 [N] owning instance
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Intersector:
+    """A scene's closest-hit route, built once (render/integrator.py
+    build_intersector), whose fields the wavefront loop, its CUDA graphs,
+    the renderer and the train step read: `hit(ro, rd, tmin, tmax) -> Hit`
+    (also `self(...)`) for bounce rays; `primary` for camera rays and the
+    light pdf's march, `hit` unless the route has a coherent-ray kernel
+    (regroup's worklist over the same tables); `graph_safe`: no query
+    reads the device back or sizes an allocation on the host, so a CUDA
+    graph can capture them (render/body_graphs.py); `diff(dscene)`: the
+    fixed-trip loop's Intersector, whose hits carry gradients to the
+    call's scene (None: a flat route's, make_diff_intersect over
+    dscene.prim_verts); `tables`, a diagnostic only tests and chip_smoke.py
+    read: the route's kernel tables, the hybrid's (soup's, work items');
+    `livegate`, regroup's liveness gate."""
+
+    hit: Callable[..., Hit]
+    primary: Callable[..., Hit] | None = None
+    graph_safe: bool = False
+    diff: Callable[[Any], Intersector] | None = None
+    tables: Any = None
+    livegate: float | None = None
+
+    def __post_init__(self):
+        if self.primary is None:
+            object.__setattr__(self, "primary", self.hit)
+
+    def __call__(self, ro, rd, tmin, tmax) -> Hit:
+        return self.hit(ro, rd, tmin, tmax)
+
+    def each(self, wrap) -> tuple:
+        """(wrap(hit), wrap(primary)); primary is wrapped apart only where
+        it is not hit."""
+        hit = wrap(self.hit)
+        return hit, hit if self.primary is self.hit else wrap(self.primary)
+
+    def differentiable(self, dscene) -> Intersector:
+        """The fixed-trip loop's form of this route against `dscene`."""
+        if self.diff is not None:
+            return self.diff(dscene)
+        # ops/diff_hit.py imports this module
+        from julia_raytracer_tpu_torch.ops.diff_hit import make_diff_intersect
+
+        return Intersector(*self.each(
+            lambda f: make_diff_intersect(f, dscene.prim_verts)))
 
 
 def hit_surface(prim_verts, prim, u, v):

@@ -52,8 +52,8 @@ from julia_raytracer_tpu_torch.ops import cuda_build
 from julia_raytracer_tpu_torch.ops.cluster_tables import (
     TRIS, WL_SUPER, _wl_super_bbox, load_cluster_tables,
 )
-from julia_raytracer_tpu_torch.ops.traversal import Hit
-from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline
+from julia_raytracer_tpu_torch.ops.traversal import Hit, Intersector
+from julia_raytracer_tpu_torch.utils import kernel_flops as kf, roofline, timing
 
 WARP = 32  # rays of a walking warp
 GROUP_RAYS = 32  # rays per work list (the JAX package's: 1,024)
@@ -371,7 +371,7 @@ def worklist_intersect_kernel(tables: WorklistTables, ro, rd, tmin, tmax,
     return Hit(prim >= 0, prim, u, v, t, pos, nrm, inst)
 
 
-worklist_intersect_kernel.launches = 0
+timing.counter(worklist_intersect_kernel, "launches")
 
 FLAGS = ("-fmad=false",)
 
@@ -469,13 +469,11 @@ def worklist_intersect(tables: WorklistTables, ro, rd, tmin, tmax) -> Hit:
 
 def make_worklist_intersect(prim_verts: np.ndarray, prim_instance, device,
                             sup: int = WL_SUPER, cache_key: str = ""):
-    """intersect(ro, rd, tmin, tmax) -> Hit over a fixed quad soup, on
-    `device` (the cluster tables through the disk cache under
-    `cache_key`)."""
+    """The Intersector over a fixed quad soup, on `device` (the cluster
+    tables, `tables`, through the disk cache under `cache_key`)."""
     tables = pack_tables(prim_verts, prim_instance, sup, device, cache_key)
 
     def intersect(ro, rd, tmin, tmax):
         return worklist_intersect(tables, ro, rd, tmin, tmax)
 
-    intersect.tables = tables
-    return intersect
+    return Intersector(intersect, tables=tables)

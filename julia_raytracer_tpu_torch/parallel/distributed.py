@@ -106,8 +106,8 @@ def distributed_render_fn(mesh, dscene, config, options):
 
     def render(dscene_, ro, rd, rng_state):
         radiance, hit, albedo, normal, _ = trace_wavefront(
-            dscene_, config, options, ro, rd, rng_state, intersect=intersect,
-            intersect_primary=getattr(intersect, "primary", None))
+            dscene_, config, options, ro, rd, rng_state,
+            intersector=intersect)
         return radiance, hit, albedo, normal
 
     return render

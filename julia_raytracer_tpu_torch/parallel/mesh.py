@@ -105,7 +105,7 @@ def shard_train_step(mesh: Mesh, dscene, config, options, cam, width, height,
                 img = render_radiance_mean(
                     dscene._replace(materials=mats), config, d_opts, cam,
                     width, height, pixel_ids[lanes], n_samples, seed,
-                    intersect=intersect)
+                    intersector=intersect)
                 err = torch.where(real[:, None], (img - target[lanes]) ** 2,
                                   0.0)
                 loss = err.sum() / (3 * n)

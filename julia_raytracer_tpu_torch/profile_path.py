@@ -118,7 +118,7 @@ def profile(scene_name: str, samples: int, res: int = 512, bounces: int = 8,
     return dict(
         scene=scene_name, quads=renderer.config.n_prims, resolution=res,
         bounces=bounces, sorted=renderer.options.sort_rays, regroup=regroup,
-        livegate=getattr(renderer.intersect, "livegate", None), samples=samples,
+        livegate=renderer.intersect.livegate, samples=samples,
         wall_ms_per_sample=wall_ms, regroup_fallbacks_per_sample=fallbacks,
         device_ms_per_sample=device_ms,
         idle_share=1.0 - device_ms / wall_ms,

@@ -7,9 +7,9 @@ fixed program:
   - every shape is a function of the width;
   - the loop test that reads the device sits outside the body;
   - the random numbers come from the lanes' PCG streams, not the host;
-  - an intersector that declares `graph_safe` issues no host read and
-    decides no allocation on the host (the dense kernel's ctypes launch
-    goes onto PyTorch's current stream).
+  - an Intersector that is `graph_safe` (ops/traversal.py) issues no
+    host read and decides no allocation on the host (the dense kernel's
+    ctypes launch goes onto PyTorch's current stream).
 So it can be captured once into a CUDA graph and replayed. `bounce_step`
 stays the one definition of a bounce: the eager path and the capture both
 run it.
@@ -21,10 +21,10 @@ None, so the trace runs eager bodies, unless all of these hold:
   - the loop is the while loop, not the fixed-trip one;
   - no TorchDispatchMode is active, so `Renderer.sample_kernel_cost`
     and `utils/roofline.count_cost` still see every op;
-  - the intersector and the primary intersector declare `graph_safe`.
+  - the trace's Intersector is `graph_safe`.
 
 Graphs are keyed by the lane width within what a body reads by address:
-the scene's tensors, its config, the options and the intersectors. A
+the scene's tensors, its config, the options and the Intersector. A
 trace that reads other ones drops every graph. A width's first body runs
 eagerly, which also serves as the graph's warm-up. Its second is
 captured and replayed, and every later body at that width is a replay.
@@ -38,9 +38,10 @@ must outlive a later replay at its width is `keep`-ed: it is copied
 before that graph writes its buffers again. `release` copies the trace's
 outputs out of the buffers.
 
-The program's counters that a body ticks from Python (`counters()`) tick
-once, at the capture. The change they made there is added again at
-every later replay, so they read what eager bodies would.
+The program's counters that a body ticks from Python (utils/timing.py
+`counters()`, every one registered) tick once, at the capture. The
+change they made there is added again at every later replay, so they
+read what eager bodies would.
 """
 
 from __future__ import annotations
@@ -50,32 +51,7 @@ import weakref
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-
-def counters():
-    """(holder, attribute) of each program counter a body may tick."""
-    from julia_raytracer_tpu_torch.ops import (
-        cluster_intersect as ci, dense_intersect as di,
-        instanced_intersect as ii, lane_compact as lc,
-        regroup_intersect as rg, worklist_intersect as wl,
-    )
-    from julia_raytracer_tpu_torch.render import integrator
-
-    return ((di.dense_intersect, "launches"),
-            (wl.worklist_intersect_kernel, "launches"),
-            (ci.cluster_intersect_kernel, "launches"),
-            (ci.cluster_intersect_streamed_kernel, "launches"),
-            (ii.instanced_intersect_kernel, "launches"),
-            (ii.candidate_lists_kernel, "launches"),
-            (rg.regroup_pack, "launches"), (rg.regroup_tritest, "launches"),
-            (rg.regroup_unpack, "launches"),
-            (rg.regroup_intersect, "host_syncs"),
-            (rg.regroup_intersect, "fallbacks"),
-            (lc.compact_planes, "launches"), (lc.expand_planes, "launches"),
-            (integrator.trace_wavefront, "host_syncs"))
-
-
-def read_counters(pairs) -> list[int]:
-    return [getattr(holder, name) for holder, name in pairs]
+from julia_raytracer_tpu_torch.utils import timing
 
 
 def _buffer(x) -> int:
@@ -167,22 +143,21 @@ class BodyGraphs:
         self.replays = 0
 
     def for_trace(self, device, fixed: bool, dscene, config, options,
-                  intersect, intersect_primary):
+                  intersector):
         """This cache bound to one trace's scene, config, options and
-        intersectors, or None where bodies must run eagerly (module
+        Intersector, or None where bodies must run eagerly (module
         docstring)."""
         if (device.type != self.capture.device_type or fixed
                 or _get_current_dispatch_mode() is not None
-                or not getattr(intersect, "graph_safe", False)
-                or not getattr(intersect_primary, "graph_safe", False)):
+                or not intersector.graph_safe):
             return None
         base = (tuple(map(id, _tensors(dscene))), id(config), options,
-                id(intersect), id(intersect_primary))
+                id(intersector))
         if base != self.base:
             self.clear()
             self.base = base
             # the ids in the key stay unique while their objects live
-            self.pins = (dscene, config, intersect, intersect_primary)
+            self.pins = (dscene, config, intersector)
         return self
 
     def clear(self):
@@ -228,21 +203,19 @@ class BodyGraphs:
                 if o is not d:
                     d.copy_(o)
 
-        pairs = counters()
-        before = read_counters(pairs)
+        before = timing.counters()
         try:
             g.replay = self.capture(run, list(state))
         except RuntimeError:
             # an op the capture refuses (a host read, a copy from host
             # memory): this width stays eager
-            for (holder, name), v in zip(pairs, before):
+            for holder, name, v in before:
                 setattr(holder, name, v)
             self.failed.add(width)
             self.capture.reset()
             return None
-        after = read_counters(pairs)
-        g.deltas = [(holder, name, b - a) for (holder, name), a, b
-                    in zip(pairs, before, after) if b != a]
+        g.deltas = [(holder, name, b - a) for (holder, name, a), (*_, b)
+                    in zip(before, timing.counters()) if b != a]
         self.graphs[width] = g
         self.captures += 1
         return g

@@ -49,11 +49,11 @@ def diff_options(options: TraceOptions, config=None,
 
 def render_radiance(dscene, config, options: TraceOptions, cam, width: int,
                     height: int, pixel_ids, sample_id, seed: int = 0,
-                    tentfilter: bool = False, intersect=None):
+                    tentfilter: bool = False, intersector=None):
     """One radiance sample [N, 3] per pixel lane (pixel_ids i32 [N]),
     differentiable with respect to every float tensor of `dscene` and
-    `cam`; non-finite lanes are zeroed. `intersect`: a prebuilt
-    intersector (default build_intersector's on the scene's device)."""
+    `cam`; non-finite lanes are zeroed. `intersector`: a prebuilt
+    Intersector (default build_intersector's on the scene's device)."""
     with span("camera"):
         rng = rng_mod.seed_state(pixel_ids, sample_id, seed)
         puv, rng = rng_mod.rand2f(rng)
@@ -61,20 +61,20 @@ def render_radiance(dscene, config, options: TraceOptions, cam, width: int,
         ij = torch.stack([pixel_ids % width, pixel_ids // width], dim=-1)
         ro, rd = sample_camera(cam, ij, (width, height), puv, luv, tentfilter)
     radiance = trace_wavefront(dscene, config, options, ro, rd, rng,
-                               intersect=intersect)[0]
+                               intersector=intersector)[0]
     finite = torch.isfinite(radiance).all(dim=-1)
     return torch.where(finite[..., None], radiance, 0.0)
 
 
 def render_radiance_mean(dscene, config, options, cam, width, height,
                          pixel_ids, n_samples: int, seed: int = 0,
-                         tentfilter: bool = False, intersect=None):
+                         tentfilter: bool = False, intersector=None):
     """Mean of `n_samples` radiance samples (sample ids 0 .. n - 1)."""
     total = torch.zeros(pixel_ids.shape + (3,), device=pixel_ids.device)
     for sample_id in range(n_samples):
         total = total + render_radiance(
             dscene, config, options, cam, width, height, pixel_ids,
-            sample_id, seed, tentfilter, intersect)
+            sample_id, seed, tentfilter, intersector)
     return total / n_samples
 
 
@@ -90,7 +90,7 @@ def make_param_loss(dscene, config, options, cam, width, height):
         mats = dscene.materials._replace(color=mat_color, emission=mat_emission)
         img = render_radiance_mean(
             dscene._replace(materials=mats), config, d_opts, cam, width,
-            height, pixel_ids, n_samples, seed, intersect=intersect)
+            height, pixel_ids, n_samples, seed, intersector=intersect)
         return torch.mean((img - target) ** 2)
 
     return loss

@@ -15,9 +15,9 @@ around the call, holding `primary_hit`, `loop_test` (each read), `body`
 `compact` (`live=`, `width=`, `cap=`), `expand` and `unsort`.
 
 CUDA graphs (`graphs`, a render/body_graphs.py BodyGraphs that the
-Renderer owns): on the card, a while-loop body whose intersectors
-declare `graph_safe` is captured at the second sighting of its lane
-width and replayed from then on; the replay launches the same kernels on
+Renderer owns): on the card, a while-loop body whose Intersector is
+`graph_safe` is captured at the second sighting of its lane width and
+replayed from then on; the replay launches the same kernels on
 the same data, so the outputs are the eager loop's bit for bit.
 
 Wavefront sort (`TraceOptions.sort_rays`; the renderer turns it on for
@@ -51,22 +51,14 @@ bypass MIS; volume push/pop on transmission; in-volume scattering with
 the same MIS; weight zero/non-finite break; Russian roulette after
 bounce 3.
 
-Intersectors (build_intersector): the dense kernel
-(ops/dense_intersect.py) for scenes of <= 112 quads, the worklist cluster
-kernel (ops/worklist_intersect.py) above that, and at >= 150,000 quads
-the regroup intersector (ops/regroup_intersect.py) for bounce rays when
-utils/kernel_select.py predicts a decisive win (or when asked).
-Instanced scenes take the work-item kernel (ops/instanced_intersect.py)
-or, when the build flattened a world-space soup, the hybrid: the soup
-through the flat intersectors above, the remaining work items after it.
-Line and point primitives are merged into a flat intersector's closest
-hit by `curve_wrap`, a plain PyTorch sweep of every element.
-
-Light pdf: scenes of more than lights.EXACT_ELEMS emissive elements march
-it through `intersect_primary` (`TraceOptions.light_pdf_extra_steps`
-closest-hit queries a body after the bounce's own hit); under regroup
-that is the worklist kernel, since the march's rays converge on the
-lights, as camera rays leave one point.
+Intersectors: build_intersector routes a scene to an ops/traversal.py
+Intersector (the dense, worklist, regroup, work-item or hybrid route;
+lines and points merged by `curve_wrap`). Camera rays, and the light
+pdf's march in scenes of more than lights.EXACT_ELEMS emissive elements
+(`TraceOptions.light_pdf_extra_steps` closest-hit queries a body after
+the bounce's own hit), go through its `primary`; under regroup that is
+the worklist kernel, since the march's rays converge on the lights, as
+camera rays leave one point.
 
 Fixed-trip loop (`TraceOptions.fixed_iterations` > 0; render/diff.py
 sets it): `body` runs exactly that many times, with no host-side liveness
@@ -75,9 +67,9 @@ test, no sort and no compaction, each step under
 `lax.scan`), so the backward pass recomputes one bounce at a time, the
 intersect kernel included. Sampled directions, pdfs and the Russian
 roulette probability are detached, as the JAX package stops their
-gradients (detached sampling), and the intersector is wrapped by
-ops/diff_hit.py, whose hits carry the gradients of the JAX package's
-argmin-selected hit (with curves, the quad intersector inside
+gradients (detached sampling), and the Intersector takes its
+differentiable form (ops/diff_hit.py), whose hits carry the gradients of
+the JAX package's argmin-selected hit (with curves, the quad route inside
 `curve_wrap` is wrapped, and the line/point sweep differentiates as it
 is; on instanced scenes the work-item hits are re-tested under their
 instance's transform, and a hybrid's soup and work-item branches are
@@ -99,9 +91,7 @@ from julia_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from julia_raytracer_tpu_torch.ops import eval as eval_ops
 from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
-from julia_raytracer_tpu_torch.ops.diff_hit import (
-    make_diff_intersect, make_diff_intersect_instanced,
-)
+from julia_raytracer_tpu_torch.ops.diff_hit import instanced_diff
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
 from julia_raytracer_tpu_torch.ops.geometry import (
     F32_MAX, RAY_EPS, intersect_line, intersect_point, intersect_quad,
@@ -110,7 +100,9 @@ from julia_raytracer_tpu_torch.ops.geometry import (
 from julia_raytracer_tpu_torch.ops.instanced_intersect import (
     make_instanced_intersect,
 )
-from julia_raytracer_tpu_torch.ops.traversal import Hit, intersect_bruteforce
+from julia_raytracer_tpu_torch.ops.traversal import (
+    Hit, Intersector, intersect_bruteforce,
+)
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import dispatch, lights as lights_mod
@@ -118,7 +110,7 @@ from julia_raytracer_tpu_torch.render.body_graphs import Kept
 from julia_raytracer_tpu_torch.render.scene_device import DeviceScene, SceneConfig
 from julia_raytracer_tpu_torch.utils import kernel_select
 from julia_raytracer_tpu_torch.utils import rng as rng_mod
-from julia_raytracer_tpu_torch.utils.timing import span
+from julia_raytracer_tpu_torch.utils.timing import counter, span
 from julia_raytracer_tpu_torch.utils.vecmath import dot, normalize, orthonormalize
 
 # dense-kernel cutoff: scenes with more quads go to the worklist
@@ -278,42 +270,47 @@ def merge_curves(dscene: DeviceScene, config: SceneConfig, best: Hit, ro, rd,
     return best
 
 
-def curve_wrap(intersect, dscene: DeviceScene, config: SceneConfig):
-    """Merge line and point (capsule) primitives into the closest hit of
-    the quad intersector `intersect` (a pass-through for scenes without
-    them). Curve hits are prim ids >= Q: Q..Q+L-1 lines, then points.
-    Their `position` is the point on the line's axis, or the point's
-    centre; `gnormal` carries the interpolated tangent of a line, or
+def curve_wrap(quads: Intersector | None, dscene: DeviceScene,
+               config: SceneConfig) -> Intersector | None:
+    """Merge line and point (capsule) primitives into the closest hits of
+    the quad route `quads` (returned as it is for scenes without them).
+    Curve hits are prim ids >= Q: Q..Q+L-1 lines, then points. Their
+    `position` is the point on the line's axis, or the point's centre;
+    `gnormal` carries the interpolated tangent of a line, or
     -normalize(rd) for a point, for the shading-normal rules. Lines and
     points are a plain PyTorch sweep of every element (merge_curves),
     chunked by `_sweep_closest`, on the scene's device; their tmax is the
-    quad hit's t. With Q == 0 (`intersect` None) no quad intersector is
-    called.
-
-    The wrapper keeps the attributes of `intersect` (`.tables`,
-    `.livegate`, ...), wraps its `.primary` apart, and holds it as
-    `.inner` (the fixed-trip loop differentiates the quad hit there)."""
+    quad hit's t. With Q == 0 (`quads` None) no quad intersector is
+    called. The merge keeps the quad route's tables, livegate and
+    graph_safe (the sweep reads nothing back), merges into its `primary`
+    apart, and its differentiable form into the quad route's (a curve
+    hit's prim id >= Q names no quad to re-test)."""
     if config.n_lines == 0 and config.n_points == 0:
+        return quads
+
+    def merged(quad_fn):
+        def intersect(ro, rd, tmin, tmax):
+            if quad_fn is not None:
+                best = quad_fn(ro, rd, tmin, tmax)
+            else:
+                n, dev = ro.shape[0], ro.device
+                z = torch.zeros(n, device=dev)
+                best = Hit(torch.zeros(n, dtype=torch.bool, device=dev),
+                           torch.full((n,), -1, dtype=torch.int32, device=dev),
+                           z, z, tmax, torch.zeros_like(ro),
+                           torch.zeros_like(ro),
+                           torch.zeros(n, dtype=torch.int32, device=dev))
+            return merge_curves(dscene, config, best, ro, rd, tmin, tmax)
+
         return intersect
 
-    def wrapped(ro, rd, tmin, tmax):
-        if intersect is not None:
-            best = intersect(ro, rd, tmin, tmax)
-        else:
-            n, dev = ro.shape[0], ro.device
-            z = torch.zeros(n, device=dev)
-            best = Hit(torch.zeros(n, dtype=torch.bool, device=dev),
-                       torch.full((n,), -1, dtype=torch.int32, device=dev),
-                       z, z, tmax, torch.zeros_like(ro), torch.zeros_like(ro),
-                       torch.zeros(n, dtype=torch.int32, device=dev))
-        return merge_curves(dscene, config, best, ro, rd, tmin, tmax)
-
-    if intersect is not None:
-        wrapped.__dict__.update(intersect.__dict__)
-    wrapped.inner = intersect
-    if hasattr(intersect, "primary"):
-        wrapped.primary = curve_wrap(intersect.primary, dscene, config)
-    return wrapped
+    if quads is None:
+        return Intersector(merged(None),
+                           diff=lambda d: curve_wrap(None, d, config))
+    return Intersector(
+        *quads.each(merged), graph_safe=quads.graph_safe,
+        diff=lambda d: curve_wrap(quads.differentiable(d), d, config),
+        tables=quads.tables, livegate=quads.livegate)
 
 
 def _host_prims(dscene: DeviceScene, config: SceneConfig):
@@ -390,7 +387,7 @@ def make_intersect_instanced_ref(dscene: DeviceScene, config: SceneConfig):
             )
         return best
 
-    return intersect
+    return Intersector(intersect, diff=instanced_diff(intersect, rows))
 
 
 def _check_regroup(regroup: str) -> None:
@@ -399,7 +396,7 @@ def _check_regroup(regroup: str) -> None:
 
 
 def _flat_intersector(verts, inst, device, n_prims, leaf, regroup,
-                      regroup_min_prims, label, cache_key=""):
+                      regroup_min_prims, label, cache_key="") -> Intersector:
     """The intersector of a flat quad soup, routed as the JAX package
     routes one (integrator.py:471-538, and :199-248 for a hybrid soup):
     dense, regroup (by kernel_select under "auto", whose decision line is
@@ -456,15 +453,10 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
     package composes off the TPU); otherwise the soup is routed by
     `_flat_intersector` (`regroup`, `regroup_min_prims` as in
     build_intersector) and the work items take
-    ops/instanced_intersect.py, on the scene's device. `.primary` is
-    composed from the flat part's when it has one.
-
-    Each returned function exposes its branches, `.flat_part` (prim ids
-    index the soup) and `.inst_part` (None without work items), and
-    `.compose(flat_fn, inst_fn)`, which composes two such branches (the
-    fixed-trip loop's wrapped ones) with the same arithmetic;
-    `.world_verts()` is the soup as a tensor on the scene's device, made
-    on first use."""
+    ops/instanced_intersect.py, on the scene's device. `tables` is (the
+    soup's, the work items'); `livegate` the soup's. The differentiable
+    form composes the soup's over the world soup (a constant, as in the
+    JAX package) with the work items' under their instance rows."""
     device = dscene.prim_verts.device
     wpv = np.asarray(config.hyb_world_verts)
     winst = np.asarray(config.hyb_world_inst)
@@ -473,20 +465,18 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
     world_verts = functools.cache(lambda: torch.as_tensor(wpv, device=device))
     if reference:
         winst_d = torch.as_tensor(winst, device=device)
-
-        def flat_part(ro, rd, tmin, tmax):
-            return intersect_bruteforce(world_verts(), ro, rd, tmin, tmax,
-                                        prim_instance=winst_d)
-
-        inst_part = (make_intersect_instanced_ref(dscene, config)
-                     if has_items else None)
+        soup = Intersector(lambda ro, rd, tmin, tmax: intersect_bruteforce(
+            world_verts(), ro, rd, tmin, tmax, prim_instance=winst_d))
+        items = (make_intersect_instanced_ref(dscene, config)
+                 if has_items else None)
     else:
-        flat_part = _flat_intersector(wpv, winst, device, len(wpv), False,
-                                      regroup, regroup_min_prims,
-                                      "hybrid flat kernel",
-                                      soup_cache_key(config.cache_key, wpv))
-        inst_part = (make_instanced_intersect(config.inst_tables, device)
-                     if has_items else None)
+        soup = _flat_intersector(wpv, winst, device, len(wpv), False,
+                                 regroup, regroup_min_prims,
+                                 "hybrid flat kernel",
+                                 soup_cache_key(config.cache_key, wpv))
+        items = (make_instanced_intersect(config.inst_tables, device,
+                                          instanced_diff)
+                 if has_items else None)
 
     def compose(flat_fn, inst_fn):
         def intersect(ro, rd, tmin, tmax):
@@ -511,19 +501,23 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
                 instance=sel(h2.instance, h1.instance),
             )
 
-        intersect.flat_part, intersect.inst_part = flat_fn, inst_fn
-        intersect.compose, intersect.world_verts = compose, world_verts
         return intersect
 
-    intersect = compose(flat_part, inst_part)
-    if hasattr(flat_part, "primary"):
-        intersect.primary = compose(flat_part.primary, inst_part)
-    # the soup's regroup gate, for reports (None: no regroup)
-    intersect.livegate = getattr(flat_part, "livegate", None)
-    return intersect
+    def diff(d):
+        flat = soup.differentiable(d._replace(prim_verts=world_verts()))
+        inst = items.differentiable(d).hit if items else None
+        return Intersector(*flat.each(lambda f: compose(f, inst)))
+
+    # not graphed, with or without work items: the work items'
+    # device_spans record CUDA events, which a capture cannot hold
+    return Intersector(
+        *soup.each(lambda f: compose(f, items.hit if items else None)),
+        graph_safe=False, diff=diff,
+        tables=(soup.tables, items.tables if items else None),
+        livegate=soup.livegate)
 
 
-def make_intersect(dscene: DeviceScene, config: SceneConfig):
+def make_intersect(dscene: DeviceScene, config: SceneConfig) -> Intersector:
     """Closest-hit query of the plain versions, the reference the tests
     hold the intersectors to, for a scene on the CPU: the dense reference
     intersector (ops/traversal.py intersect_bruteforce) for <= 112 quads,
@@ -555,41 +549,13 @@ def make_intersect(dscene: DeviceScene, config: SceneConfig):
             order, cnt = wl.precull(ro, rd, tmin, tmax, tables.sbbox)
             return wl.worklist_intersect_plain(tables, ro, rd, tmin, tmax,
                                                order, cnt)[0]
-    return curve_wrap(intersect, dscene, config)
-
-
-def _diff_intersect(intersect, dscene: DeviceScene, config: SceneConfig):
-    """The fixed-trip loop's intersector: ops/diff_hit.py around the quad
-    intersector, inside curve_wrap when the scene has lines or points (a
-    curve hit's prim id >= Q names no quad to re-test). Instanced scenes:
-    the instanced re-test over the shape-space dscene.prim_verts; a
-    hybrid's branches are wrapped apart and composed again (the composed
-    prim is remapped into shape space, so the soup is re-tested before,
-    over the world soup, a constant, as in the JAX package)."""
-    if config.inst_tables is not None:
-        rows = torch.as_tensor(config.inst_tables.inst_rows,
-                               dtype=torch.float32,
-                               device=dscene.prim_verts.device)
-        if not hasattr(intersect, "compose"):
-            return make_diff_intersect_instanced(intersect, dscene.prim_verts,
-                                                 rows)
-        inst = intersect.inst_part
-        return intersect.compose(
-            make_diff_intersect(intersect.flat_part, intersect.world_verts()),
-            inst and make_diff_intersect_instanced(inst, dscene.prim_verts,
-                                                   rows))
-    inner = getattr(intersect, "inner", None)
-    if inner is None and not (config.n_lines or config.n_points):
-        return make_diff_intersect(intersect, dscene.prim_verts)
-    if inner is not None:
-        inner = make_diff_intersect(inner, dscene.prim_verts)
-    return curve_wrap(inner, dscene, config)
+    return curve_wrap(Intersector(intersect), dscene, config)
 
 
 def build_intersector(dscene: DeviceScene, config: SceneConfig,
                       regroup: str = "auto",
                       regroup_min_prims: int = REGROUP_MIN_PRIMS):
-    """The scene's intersector, on the device the scene lives on (the
+    """The scene's Intersector, on the device the scene lives on (the
     kernels for a scene on the card, their plain versions for one on the
     CPU), routed as the JAX package routes a scene (integrator.py:443-538):
       - instanced scenes: the hybrid (make_intersect_hybrid) when the build
@@ -599,7 +565,7 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
         (ops/dense_intersect.py);
       - >= `regroup_min_prims` quads (150,000; was JRT_REGROUP_MIN) and
         `regroup` (was JRT_REGROUP) "on": the regroup intersector
-        (ops/regroup_intersect.py) for bounce rays, its `.primary` (the
+        (ops/regroup_intersect.py) for bounce rays, its `primary` (the
         worklist kernel over the same tables) for camera rays; "auto"
         takes it only when utils/kernel_select.py predicts a decisive win
         (and then, below a predicted ratio of 0.25, with the lower
@@ -615,7 +581,8 @@ def build_intersector(dscene: DeviceScene, config: SceneConfig,
         if config.hyb_world_verts is not None:
             return make_intersect_hybrid(dscene, config, regroup=regroup,
                                          regroup_min_prims=regroup_min_prims)
-        return make_instanced_intersect(config.inst_tables, device)
+        return make_instanced_intersect(config.inst_tables, device,
+                                        instanced_diff)
     if config.n_prims == 0:
         # only lines and points: curve_wrap never calls the quad intersector
         return curve_wrap(None, dscene, config)
@@ -696,42 +663,35 @@ def _take(xs, perm):
 
 
 def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
-                    options: TraceOptions, ro, rd, rng_state, intersect=None,
-                    intersect_primary=None, graphs=None):
+                    options: TraceOptions, ro, rd, rng_state,
+                    intersector: Intersector | None = None, graphs=None):
     """Trace a batch of rays to completion.
 
     Returns (radiance [N,3], hit [N] bool, albedo [N,3], normal [N,3],
-    rng_state [N] int32). `intersect` may be a prebuilt intersector; by
-    default build_intersector's, on the scene's device (the kernels for a
-    scene on the card, their plain versions for one on the CPU). Camera
-    rays, and the light pdf's march steps when the scene has more than
-    lights.EXACT_ELEMS emissive elements, go through `intersect_primary`
-    when given (the regroup intersector's `.primary`: the worklist
-    kernel, as the JAX package routes them), else through `intersect`.
-    With `options.fixed_iterations` the loop is the fixed-trip,
-    differentiable one (module docstring). `graphs`: the caller's
-    BodyGraphs, which replays the while loop's bodies from CUDA graphs
-    where render/body_graphs.py allows it; without it every body is
-    issued eagerly."""
+    rng_state [N] int32). `intersector` may be prebuilt; by default
+    build_intersector's, on the scene's device (the kernels for a scene on
+    the card, their plain versions for one on the CPU). With
+    `options.fixed_iterations` the loop is the fixed-trip, differentiable
+    one (module docstring), over the Intersector's differentiable form.
+    `graphs`: the caller's BodyGraphs, which replays the while loop's
+    bodies from CUDA graphs where render/body_graphs.py allows it; without
+    it every body is issued eagerly."""
     with span("wavefront"):
-        return _trace(dscene, config, options, ro, rd, rng_state, intersect,
-                      intersect_primary, graphs)
+        return _trace(dscene, config, options, ro, rd, rng_state, intersector,
+                      graphs)
 
 
-def _trace(dscene, config, options, ro, rd, rng_state, intersect,
-           intersect_primary, graphs):
+def _trace(dscene, config, options, ro, rd, rng_state, intersector, graphs):
     fixed = options.fixed_iterations
     n = ro.shape[0]
     dev = ro.device
-    if intersect is None:
-        intersect = build_intersector(dscene, config)
-    intersect_primary = intersect_primary or intersect
+    if intersector is None:
+        intersector = build_intersector(dscene, config)
     if graphs is not None:
         graphs = graphs.for_trace(dev, fixed, dscene, config, options,
-                                  intersect, intersect_primary)
+                                  intersector)
     if fixed:
-        intersect = _diff_intersect(intersect, dscene, config)
-        intersect_primary = _diff_intersect(intersect_primary, dscene, config)
+        intersector = intersector.differentiable(dscene)
     do_sort = options.sort_rays and not fixed
     is_path = options.sampler == "path"
     counts = config.light_counts
@@ -752,8 +712,8 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
                                   stable=True)
             ro, rd, rng_state, idx0 = (x[perm0]
                                        for x in (ro, rd, rng_state, idx0))
-        h0 = intersect_primary(ro, rd, full((n,), RAY_EPS),
-                               full((n,), F32_MAX))
+        h0 = intersector.primary(ro, rd, full((n,), RAY_EPS),
+                                 full((n,), F32_MAX))
     zeros3 = full((n, 3), 0.0)
     state = TraceVars(
         ro=ro, rd=rd,
@@ -1021,7 +981,7 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
         # tmax = -1 so every test against them fails.
         tmax = torch.where(alive, F32_MAX, -1.0)
         with span("intersect"):
-            nxt = intersect(new_ro, new_rd, full((n,), RAY_EPS), tmax)
+            nxt = intersector.hit(new_ro, new_rd, full((n,), RAY_EPS), tmax)
 
         # ---- weight updates
         if is_path:
@@ -1031,7 +991,7 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
             lights_pdf = (
                 lights_mod.sample_lights_pdf(
                     dscene, dscene.lights, counts, new_ro, new_rd,
-                    intersect_fn=intersect_primary, first_hit=nxt,
+                    intersect_fn=intersector.primary, first_hit=nxt,
                     extra_steps=options.light_pdf_extra_steps,
                 )
                 if has_lights
@@ -1270,4 +1230,4 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersect,
     return finish(outs)
 
 
-trace_wavefront.host_syncs = 0
+counter(trace_wavefront, "host_syncs")

@@ -365,9 +365,7 @@ class Renderer:
                 params.tentfilter)
         radiance, hit, albedo_s, normal_s, _ = trace_wavefront(
             self.dscene, self.config, self.options, ro, rd, rng,
-            intersect=self.intersect,
-            intersect_primary=getattr(self.intersect, "primary", None),
-            graphs=self.body_graphs,
+            intersector=self.intersect, graphs=self.body_graphs,
         )
         return radiance, hit, albedo_s, normal_s, rd
 

@@ -371,7 +371,7 @@ def vertex_grads(scene, res: int, device, hybrid_budget: int | None = None,
                           diff_options(opts, cfg), cam, res, res,
                           torch.arange(res * res, dtype=torch.int32,
                                        device=device), 0, seed,
-                          intersect=build_intersector(d, cfg))
+                          intersector=build_intersector(d, cfg))
     value = torch.mean(rad * rad)
     value.backward()
     return float(value.detach()), pv.grad.cpu()
@@ -399,8 +399,7 @@ def render_instanced(scene, res: int, spp: int, bounces: int,
         ro, rd = sample_camera(cam, ij, (res, res), puv, luv, False)
         rad = trace_wavefront(
             d, cfg, TraceOptions(sampler="path", bounces=bounces), ro, rd,
-            rng, intersect=intersect,
-            intersect_primary=getattr(intersect, "primary", None))[0]
+            rng, intersector=intersect)[0]
         total += torch.where(torch.isfinite(rad), rad, 0.0)
     return total / spp
 

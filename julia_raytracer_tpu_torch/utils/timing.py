@@ -41,6 +41,11 @@ Off by default: in a profiler session that another caller owns a
 span's range would reach the device trace as a user-annotation event
 that reads as device work. `idle_by_span` puts the gaps between device
 work down to the recorded spans.
+
+Counters: `counter(holder, name)` registers `holder.<name>` at 0, an int
+the program ticks from Python (a kernel wrapper's `launches`), where its
+module defines it. `counters()` reads all of them; render/body_graphs.py
+adds back at each replay what a captured body ticked.
 """
 
 from __future__ import annotations
@@ -94,6 +99,22 @@ def format_seconds(seconds: float) -> str:
     m = (total_s // 60) % 60
     h = total_s // 3600
     return f"{h}:{m:02d}:{s:02d}.{ms:03d}"
+
+
+# ---- counters ---------------------------------------------------------------
+
+_COUNTERS: list[tuple[object, str]] = []
+
+
+def counter(holder, name: str) -> None:
+    """Register the counter `holder.<name>` at 0 (module docstring)."""
+    setattr(holder, name, 0)
+    _COUNTERS.append((holder, name))
+
+
+def counters() -> list[tuple[object, str, int]]:
+    """(holder, name, value) of every registered counter."""
+    return [(holder, name, getattr(holder, name)) for holder, name in _COUNTERS]
 
 
 # ---- spans ------------------------------------------------------------------

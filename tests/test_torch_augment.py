@@ -96,7 +96,7 @@ def _radiance(scene):
     rngs = rng_mod.seed_state(torch.arange(n, dtype=torch.int32), 0, 0)
     rad = trace_wavefront(dsc, cfg, TraceOptions(sampler="path", bounces=3),
                           ro, torch.from_numpy(rd), rngs,
-                          intersect=build_intersector(dsc, cfg))[0]
+                          intersector=build_intersector(dsc, cfg))[0]
     return cfg, rad.numpy()
 
 

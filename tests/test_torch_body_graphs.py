@@ -1,10 +1,12 @@
-"""The bookkeeping of render/body_graphs.py on the CPU: eligibility, the
+"""The bookkeeping of render/body_graphs.py on the CPU: eligibility (and
+the `graph_safe` and `primary` of each route's Intersector), the
 sightings of a lane width, the cache key, states kept out of a graph's
 buffers and the counters a replay adds. `StandIn` takes the place of the
 CUDA capture, as a capture behaves: the body's Python runs once at the
 capture and leaves the buffers as they were, and each replay does the
 body's tensor work while the program's counters stay as they were."""
 
+import types
 from typing import NamedTuple
 
 import pytest
@@ -12,13 +14,26 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
+from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
+from julia_raytracer_tpu_torch.ops.traversal import Intersector
 from julia_raytracer_tpu_torch.render import body_graphs as bg
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, make_trace_state,
 )
-from julia_raytracer_tpu_torch.testing import cornell_scene
+from julia_raytracer_tpu_torch.render.scene_device import build_device_scene
+from julia_raytracer_tpu_torch.scene.types import InstanceData
+from julia_raytracer_tpu_torch.testing import (
+    cornell_scene, hairball_scene, hybrid_scene, instanced_scene,
+    sphere_grid_scene,
+)
 from julia_raytracer_tpu_torch.utils import timing
+
+# a module of kernel wrappers that no list in render/body_graphs.py names:
+# its counter is known to the registry alone
+STAND_IN = types.ModuleType("stand_in_kernels")
+timing.counter(STAND_IN, "launches")
 
 
 class StandIn:
@@ -37,12 +52,10 @@ class StandIn:
                                "capturing")
         for b, v in zip(buffers, saved):
             b.copy_(v)
-        pairs = bg.counters()
-
         def replay():
-            before = bg.read_counters(pairs)
+            before = timing.counters()
             run()
-            for (holder, name), v in zip(pairs, before):
+            for holder, name, v in before:
                 setattr(holder, name, v)
 
         return replay
@@ -61,11 +74,11 @@ def _state(width, value=0.0):
              torch.full((width, 3), value))
 
 
-def _step(calls):
-    """A body that adds 1 to x and ticks dense_intersect.launches."""
+def _step(calls, holder=di.dense_intersect):
+    """A body that adds 1 to x and ticks holder.launches."""
     def step(s):
         calls.append(s.alive.shape[0])
-        di.dense_intersect.launches += 1
+        holder.launches += 1
         return S(s.alive, s.x + 1.0)
 
     return step
@@ -123,14 +136,13 @@ class _PassThrough(TorchDispatchMode):
 def test_ineligible_traces_run_eager(case):
     """Bodies run eagerly, and nothing is sighted, where the state is not
     on the capture's device, in the fixed-trip loop, under an active
-    TorchDispatchMode, and with an intersector that does not declare
-    graph_safe."""
+    TorchDispatchMode, and with an Intersector that is not graph_safe."""
     r, st = _renderer(32)
     if case == "cpu_capture":
         r.body_graphs = bg.BodyGraphs()  # the CUDA capture
     if case == "undeclared":
         inner = r.intersect
-        r.intersect = lambda *a: inner(*a)
+        r.intersect = Intersector(lambda *a: inner(*a))
     if case == "fixed":
         graphs = r.body_graphs
         ro = torch.zeros((64, 3))
@@ -139,7 +151,7 @@ def test_ineligible_traces_run_eager(case):
         with torch.no_grad():
             tint.trace_wavefront(r.dscene, r.config, opts, ro, rd,
                                  torch.zeros(64, dtype=torch.int32),
-                                 intersect=r.intersect, graphs=graphs)
+                                 intersector=r.intersect, graphs=graphs)
     elif case == "dispatch_mode":
         with _PassThrough():
             graphed, graphs = _bodies_graphed(r, st)
@@ -149,6 +161,55 @@ def test_ineligible_traces_run_eager(case):
         assert graphed == 0
     assert graphs.captures == graphs.replays == 0
     assert not graphs.seen and not graphs.graphs
+
+
+def _curves_only():
+    s = hairball_scene(60, 2, 12)
+    s.shapes = s.shapes[-2:]
+    s.instances = [InstanceData(shape=0, material=4),
+                   InstanceData(shape=1, material=5)]
+    return s
+
+
+def _tables(*kinds):
+    return lambda t: (isinstance(t, kinds[0]) if len(kinds) == 1 else
+                      all(map(isinstance, t, kinds)))
+
+
+# name: (scene, build_device_scene fields, build_intersector fields, a test
+# of its tables, graph_safe)
+ROUTES = {
+    "dense": (cornell_scene, {}, {}, _tables(di.DenseTable), True),
+    "curves_over_dense": (lambda: hairball_scene(60, 2, 12), {}, {},
+                          _tables(di.DenseTable), True),
+    "curves_only": (_curves_only, {}, {}, lambda t: t is None, False),
+    "worklist": (lambda: sphere_grid_scene(2, 8), {}, {},
+                 _tables(wl.WorklistTables), False),
+    "regroup": (lambda: sphere_grid_scene(2, 8), {},
+                dict(regroup="on", regroup_min_prims=0),
+                _tables(wl.WorklistTables), False),
+    "instanced": (lambda: instanced_scene(3, (8, 6)),
+                  dict(instancing=True, hybrid_budget=0), {},
+                  _tables(ii.InstancedDeviceTables), False),
+    "hybrid": (lambda: hybrid_scene(4, 4, 3, 12),
+               dict(instancing=True, hybrid_budget=300), {},
+               _tables(wl.WorklistTables, ii.InstancedDeviceTables), False),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_route_fields(route):
+    """build_intersector's Intersector on each route that CPU scenes
+    reach: only the dense kernel, and curves merged over it, are
+    graph_safe; `primary` is `hit` except on regroup (the worklist over
+    the same tables); only regroup has a livegate."""
+    scene, build, fields, tables, safe = ROUTES[route]
+    d, cfg = build_device_scene(scene(), device="cpu", **build)
+    isect = tint.build_intersector(d, cfg, **fields)
+    assert tables(isect.tables)
+    assert isect.graph_safe is safe
+    assert (isect.primary is isect.hit) == (route != "regroup")
+    assert (isect.livegate is None) == (route != "regroup")
 
 
 def test_first_sighting_eager_second_captures_then_replays():
@@ -173,11 +234,11 @@ def test_first_sighting_eager_second_captures_then_replays():
 
 def test_cache_key_follows_scene_intersector_and_options():
     """for_trace keeps the graphs for the same scene tables, config,
-    options and intersectors, and drops them when any of them changes."""
+    options and Intersector, and drops them when any of them changes."""
     r, _ = _renderer(32)
     graphs = r.body_graphs
     cpu = torch.device("cpu")
-    args = [r.dscene, r.config, r.options, r.intersect, r.intersect]
+    args = [r.dscene, r.config, r.options, r.intersect]
 
     def bind(*a):
         assert graphs.for_trace(cpu, 0, *a) is graphs
@@ -188,18 +249,13 @@ def test_cache_key_follows_scene_intersector_and_options():
     assert bind(*args) == {8}
     assert bind(*args) == {8}  # the same trace keeps its graph
 
-    def intersect(*a):
-        return r.intersect(*a)
-
-    intersect.graph_safe = True
     colors = r.dscene.materials.color.clone()
     changed = [
         (0, r.dscene._replace(materials=r.dscene.materials._replace(
             color=colors))),
         (1, r.config._replace()),
         (2, r.options._replace(bounces=4)),
-        (3, intersect),
-        (4, intersect),
+        (3, Intersector(r.intersect.hit, graph_safe=True)),
     ]
     for i, value in changed:
         a = list(args)
@@ -231,21 +287,28 @@ def test_kept_state_is_copied_before_a_later_replay():
     assert out[2] is not other.alive
 
 
-def test_replays_add_the_counters_of_the_capture():
-    """A body ticks dense_intersect.launches once; over 5 bodies at one
-    width (eager, capture and replay, 3 replays) it reads 5."""
+@pytest.mark.parametrize("holder", [di.dense_intersect, STAND_IN],
+                         ids=["dense_intersect", "registered"])
+def test_replays_add_the_counters_of_the_capture(holder):
+    """A body ticks holder.launches once (the dense kernel's counter, or
+    the one STAND_IN registered with utils/timing.py); over 5 bodies at
+    one width (eager, capture and replay, 3 replays) it reads 5, as over
+    5 eager bodies."""
     graphs = bg.BodyGraphs(StandIn())
     calls = []
-    step = _step(calls)
-    di.dense_intersect.launches = 0
-    s = _state(16)
-    for _ in range(5):
-        s = graphs.run(step, s)[0]
-    assert di.dense_intersect.launches == 5
-    assert graphs.graphs[16].deltas == [(di.dense_intersect, "launches", 1)]
+    step = _step(calls, holder)
+    counts = []
+    for run in (lambda s: graphs.run(step, s)[0], step):
+        holder.launches = 0
+        s = _state(16)
+        for _ in range(5):
+            s = run(s)
+        counts.append(holder.launches)
+    assert counts == [5, 5]
+    assert graphs.graphs[16].deltas == [(holder, "launches", 1)]
     # the stand-in runs the body's Python at the capture and at each of
     # the 4 replays too; the counters do not see the replays
-    assert len(calls) == 1 + 1 + 4
+    assert len(calls) == 1 + 1 + 4 + 5
 
 
 def test_renderer_counters_equal_eager():
@@ -261,8 +324,7 @@ def test_renderer_counters_equal_eager():
             di.dense_intersect.launches += 1
             return inner(*a)
 
-        intersect.graph_safe = True
-        r.intersect = intersect
+        r.intersect = Intersector(intersect, graph_safe=True)
         di.dense_intersect.launches = tint.trace_wavefront.host_syncs = 0
         _, rows = _frames(r, st, 3)
         counts.append((di.dense_intersect.launches,

@@ -140,7 +140,7 @@ def cornell_rays():
                            False)
     plain = trace_wavefront(r.dscene, r.config,
                             r.options._replace(compact=False), ro, rd, rng,
-                            intersect=r.intersect)
+                            intersector=r.intersect)
     return r, ro, rd, rng, plain
 
 
@@ -156,7 +156,7 @@ def test_wavefront_compaction_bit_identical(cornell_rays, levels):
                               compact_levels=levels)
     syncs = trace_wavefront.host_syncs
     got = trace_wavefront(r.dscene, r.config, opts, ro, rd, rng,
-                          intersect=r.intersect)
+                          intersector=r.intersect)
     assert trace_wavefront.host_syncs > syncs
     for a, b in zip(got[:4], plain[:4]):
         np.testing.assert_array_equal(_bits(a), _bits(b))

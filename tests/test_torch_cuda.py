@@ -692,7 +692,7 @@ def test_dense_kernel_runs_in_the_backward_recompute(dev):
     rad = tdiff.render_radiance(d, r.config, opts, r.cam_arrays, 32, 32,
                                 torch.arange(1024, dtype=torch.int32,
                                              device=dev), 0,
-                                intersect=r.intersect)
+                                intersector=r.intersect)
     assert di.dense_intersect.launches == 1 + opts.fixed_iterations
     rad.sum().backward()
     assert di.dense_intersect.launches == 1 + 2 * opts.fixed_iterations
@@ -733,7 +733,7 @@ def test_diff_hit_instanced_forward_equals_the_kernels(dev, hybrid):
     rd = rd.clone().requires_grad_()
     pv = d.prim_verts.clone().requires_grad_()
     if hybrid:
-        wrapped = tint._diff_intersect(isect, d._replace(prim_verts=pv), cfg)
+        wrapped = isect.differentiable(d._replace(prim_verts=pv))
     else:
         rows = torch.as_tensor(cfg.inst_tables.inst_rows, device=dev)
         wrapped = make_diff_intersect_instanced(isect, pv, rows)
@@ -1003,7 +1003,7 @@ def test_worklist_scene_makes_no_capture(dev):
     for _ in range(3):
         r.trace_samples(st)
     graphs = r.body_graphs
-    assert not getattr(r.intersect, "graph_safe", False)
+    assert not r.intersect.graph_safe
     assert graphs.captures == graphs.replays == 0 and not graphs.seen
 
 

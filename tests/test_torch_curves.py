@@ -13,7 +13,7 @@ hair), each with radius-points.
   - a 32 x 32, 3-bounce render against the JAX trace_wavefront
     (testing.image_close: mean within 1e-3 relative, >= 99% of pixels
     within 1e-3);
-  - the regroup intersector keeps its `.primary` (the worklist) under
+  - the regroup intersector keeps its `primary` (the worklist) under
     the wrap;
   - the fixed-trip loop over curves: its render equals the while loop's
     bit for bit, and its colour gradient meets jax.grad of the JAX
@@ -36,6 +36,8 @@ from julia_raytracer_tpu.render.scene_device import (
 )
 from julia_raytracer_tpu.scene.flatten import flatten_scene as jax_flatten
 from julia_raytracer_tpu.utils import rng as jrng
+from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import diff as tdiff
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render import renderer as tren
@@ -154,7 +156,8 @@ def test_curves_without_quads_match_jax():
     s.environments = [EnvironmentData(emission=np.float32([0.8, 0.9, 1.0]))]
     dj, cj = jax_build_device_scene(to_jax_scene(s))
     dt, ct = build_device_scene(s, device="cpu")
-    assert ct.n_prims == 0 and tint.build_intersector(dt, ct).inner is None
+    # no quad route: no kernel tables
+    assert ct.n_prims == 0 and tint.build_intersector(dt, ct).tables is None
     _render_vs_jax(dj, cj, dt, ct, to_jax_scene(s), 16)
 
 
@@ -189,7 +192,7 @@ def test_render_matches_jax(scene, built):
 
 def test_regroup_wrap_keeps_primary(scene):
     """With regroup on, the wrap routes camera rays (and the light pdf's
-    march) through the regroup intersector's `.primary`, the worklist
+    march) through the regroup intersector's `primary`, the worklist
     over the same tables, each wrapped apart; the hits agree. A sphere
     of 256 quads behind the ball takes the scene past the dense
     intersector's 112."""
@@ -203,9 +206,9 @@ def test_regroup_wrap_keeps_primary(scene):
     d, c = build_device_scene(scene, device="cpu")
     assert c.n_prims > tint.BRUTEFORCE_THRESHOLD
     isect = tint.build_intersector(d, c, regroup="on", regroup_min_prims=0)
-    assert isect.livegate is not None and isect.tables is isect.inner.tables
-    assert isect.primary is not isect.inner.primary
-    assert isect.primary.inner is isect.inner.primary
+    assert isect.livegate == rg.DEF_LIVEGATE
+    assert isinstance(isect.tables, wl.WorklistTables)
+    assert isect.primary is not isect.hit
     rays = [torch.from_numpy(x) for x in _rays(800, seed=2)]
     a, b = isect(*rays), isect.primary(*rays)
     for x, y in zip(a, b, strict=True):

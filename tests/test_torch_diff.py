@@ -41,6 +41,7 @@ from julia_raytracer_tpu.render.scene_device import build_device_scene as j_buil
 from julia_raytracer_tpu.utils import rng as j_rng
 from julia_raytracer_tpu.ops.camera import sample_camera as j_sample_camera
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
+from julia_raytracer_tpu_torch.ops.traversal import Intersector
 from julia_raytracer_tpu_torch.ops.diff_hit import (
     make_diff_intersect, retest_quad,
 )
@@ -202,11 +203,34 @@ def test_backward_recomputes_each_bounce_once(cornell):
     c = tr.dscene.materials.color.clone().requires_grad_()
     d = tr.dscene._replace(materials=tr.dscene.materials._replace(color=c))
     rad = tdiff.render_radiance(d, tr.config, opts, tr.cam_arrays, RES, RES,
-                                _pix(RES * RES), 0, intersect=counting)
+                                _pix(RES * RES), 0,
+                                intersector=Intersector(counting))
     assert len(calls) == 1 + opts.fixed_iterations
     rad.sum().backward()
     assert len(calls) == 1 + 2 * opts.fixed_iterations
     assert c.grad.abs().sum() > 0
+
+
+def test_fixed_trip_camera_rays_reach_primary(cornell):
+    """The fixed-trip render sends its camera rays through the
+    Intersector's `primary` and its bounce rays through `hit`, as the
+    while loop does (on a regroup route `primary` is the worklist)."""
+    tr, _ = cornell
+    calls = {"hit": [], "primary": []}
+
+    def spy(name):
+        def query(ro, rd, tmin, tmax):
+            calls[name].append(ro.shape[0])
+            return tr.intersect(ro, rd, tmin, tmax)
+        return query
+
+    opts = tdiff.diff_options(tr.options, tr.config)
+    with torch.no_grad():
+        tdiff.render_radiance(tr.dscene, tr.config, opts, tr.cam_arrays, RES,
+                              RES, _pix(RES * RES), 0, intersector=Intersector(
+                                  spy("hit"), spy("primary")))
+    assert calls["primary"] == [RES * RES]
+    assert calls["hit"] == [RES * RES] * opts.fixed_iterations
 
 
 def test_diff_hit_forward_is_the_kernels():
@@ -435,7 +459,7 @@ def test_sphere_grid_vertex_grads_match_jax():
     pv = r.dscene.prim_verts.clone().requires_grad_()
     rad = tdiff.render_radiance(r.dscene._replace(prim_verts=pv), r.config,
                                 opts, r.cam_arrays, res, res, _pix(n), 0,
-                                intersect=r.intersect)
+                                intersector=r.intersect)
     torch.mean(rad * rad).backward()
     got = pv.grad.numpy()
     assert np.isfinite(got).all()

@@ -1,5 +1,5 @@
-"""The port's differentiable path on instanced and hybrid scenes
-(render/integrator.py `_diff_intersect`, ops/diff_hit.py
+"""The port's differentiable path on instanced and hybrid scenes (the
+Intersector's differentiable form, ops/diff_hit.py
 make_diff_intersect_instanced) against the JAX package's, on the CPU.
 
 The scene is tests/test_instanced.py's (torch_parity.instanced_test_scene
@@ -41,6 +41,7 @@ from julia_raytracer_tpu.render import integrator as jint
 from julia_raytracer_tpu.render import renderer as jren
 from julia_raytracer_tpu.render import scene_device as jsd
 from julia_raytracer_tpu.utils import rng as j_rng
+from julia_raytracer_tpu_torch.ops import diff_hit
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
 from julia_raytracer_tpu_torch.ops.diff_hit import (
     make_diff_intersect_instanced, retest_quad,
@@ -129,9 +130,9 @@ def test_fixed_trip_equals_while_loop(built):
     isect = tint.build_intersector(d, cfg)
     with torch.no_grad():
         want = tint.trace_wavefront(d, cfg, opts._replace(fixed_iterations=0),
-                                    *_rays(), intersect=isect)
+                                    *_rays(), intersector=isect)
         syncs = tint.trace_wavefront.host_syncs
-        got = tint.trace_wavefront(d, cfg, opts, *_rays(), intersect=isect)
+        got = tint.trace_wavefront(d, cfg, opts, *_rays(), intersector=isect)
     assert tint.trace_wavefront.host_syncs == syncs
     # radiance, hit, albedo, normal (the rng streams run on in the
     # fixed-trip loop's extra bodies)
@@ -189,7 +190,7 @@ def test_vertex_grads_match_jax(built):
     want = np.asarray(jax.jit(jax.grad(jloss))(dj.prim_verts))
     pv = d.prim_verts.clone().requires_grad_()
     rad = tint.trace_wavefront(d._replace(prim_verts=pv), cfg, opts, ro, rd,
-                               rng, intersect=tint.build_intersector(d, cfg))[0]
+                               rng, intersector=tint.build_intersector(d, cfg))[0]
     rad = torch.where(torch.isfinite(rad).all(dim=-1)[:, None], rad, 0.0)
     torch.mean(rad * rad).backward()
     got = pv.grad.numpy()
@@ -199,10 +200,11 @@ def test_vertex_grads_match_jax(built):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def _work_items(isect):
-    """The work-item intersector: the whole of a pure two-level scene's,
-    the hybrid's instanced branch."""
-    return getattr(isect, "inst_part", isect)
+def _work_items(cfg):
+    """The work-item intersector over the scene's work items: the whole of
+    a pure two-level scene's route, the hybrid's instanced branch."""
+    return ii.make_instanced_intersect(cfg.inst_tables, "cpu",
+                                       diff_hit.instanced_diff)
 
 
 @pytest.mark.parametrize("scene,budget", [
@@ -219,7 +221,7 @@ def test_work_item_uv_follows_intersect_quad(scene, budget):
     data = scene()
     d, cfg = tsd.build_device_scene_instanced(data, hybrid_budget=budget,
                                               device="cpu")
-    items = _work_items(tint.build_intersector(d, cfg))
+    items = _work_items(cfg)
     res = 96
     pix = torch.arange(res * res, dtype=torch.int32)
     ij = torch.stack([pix % res, pix // res], dim=-1)
@@ -241,20 +243,18 @@ def test_work_item_uv_follows_intersect_quad(scene, budget):
 
 def test_diff_intersect_forward_is_the_intersectors(built):
     """The wrapped intersector returns the intersector's values bit for
-    bit (make_diff_intersect_instanced alone, and the fixed-trip loop's
-    composition of a hybrid), and its gradient reaches the shape-space
-    vertices and the rays."""
+    bit (make_diff_intersect_instanced alone, and the route's
+    differentiable form, the fixed-trip loop's: a hybrid's composition),
+    and its gradient reaches the shape-space vertices and the rays."""
     d, cfg, _, _ = built[0]
     isect = tint.build_intersector(d, cfg)
     ro, rd, tmin, tmax = _aimed_rays()
     rd = rd.clone().requires_grad_()
     pv = d.prim_verts.clone().requires_grad_()
     rows = torch.as_tensor(cfg.inst_tables.inst_rows)
-    items = _work_items(isect)
-    wrapped = [(make_diff_intersect_instanced(items, pv, rows), items)]
-    if items is not isect:
-        wrapped.append((tint._diff_intersect(isect, d._replace(prim_verts=pv),
-                                             cfg), isect))
+    items = _work_items(cfg)
+    wrapped = [(make_diff_intersect_instanced(items, pv, rows), items),
+               (isect.differentiable(d._replace(prim_verts=pv)), isect)]
     for diff_fn, fn in wrapped:
         got = diff_fn(ro, rd, tmin, tmax)
         want = fn(ro, rd.detach(), tmin, tmax)
@@ -289,8 +289,8 @@ def test_diff_hit_grads_match_jax(built):
     w = np.random.default_rng(5).normal(size=(N_RAYS, 9)).astype(np.float32)
     pv = d.prim_verts.clone().requires_grad_()
     ro_g, rd_g = ro.clone().requires_grad_(), rd.clone().requires_grad_()
-    isect = tint._diff_intersect(tint.build_intersector(d, cfg),
-                                 d._replace(prim_verts=pv), cfg)
+    isect = tint.build_intersector(d, cfg).differentiable(
+        d._replace(prim_verts=pv))
     h = isect(ro_g, rd_g, tmin, tmax)
     _hit_loss(h, h.hit, torch.from_numpy(w), torch).backward()
     hit = h.hit.numpy()
@@ -317,30 +317,30 @@ def test_train_step_reaches_the_wrapped_intersector(built, monkeypatch):
     """shard_train_step (one process) and make_param_loss on the instanced
     scene build the scene's own intersector (the work items' tables, or
     the hybrid's branches) and trace through the instanced re-test: each
-    render wraps the bounce and camera intersectors once."""
+    render wraps the work items once, one query for the bounce and
+    camera rays, under their instance rows."""
     d, cfg, cam, _ = built[0]
     calls = []
-    real = tint.make_diff_intersect_instanced
+    real = diff_hit.make_diff_intersect_instanced
 
     def counting(*args):
-        calls.append(args[0])
+        calls.append(args[2])  # the instance rows
         return real(*args)
 
-    monkeypatch.setattr(tint, "make_diff_intersect_instanced", counting)
+    monkeypatch.setattr(diff_hit, "make_diff_intersect_instanced", counting)
     opts = tint.TraceOptions(sampler="path", bounces=BOUNCES)
     res = 8
     pix = torch.arange(res * res, dtype=torch.int32)
     target = torch.zeros((res * res, 3))
     step = pm.shard_train_step(pm.make_mesh("cpu"), d, cfg, opts, cam, res,
                                res)
-    items = _work_items(step.intersect)
-    assert isinstance(items.tables, ii.InstancedDeviceTables)
-    assert hasattr(step.intersect, "compose") == (cfg.hyb_world_verts
-                                                   is not None)
+    tables = step.intersect.tables
+    items = tables if cfg.hyb_world_verts is None else tables[1]
+    assert isinstance(items, ii.InstancedDeviceTables)
     _, color, _ = step(d.materials.color, d.materials.emission, pix, target, 1)
-    assert calls == [items, items]
+    assert len(calls) == 1 and calls[0] is items.inst_rows
     assert not torch.equal(color, d.materials.color)
     loss = tdiff.make_param_loss(d, cfg, opts, cam, res, res)
     c = d.materials.color.clone().requires_grad_()
     loss(c, d.materials.emission, pix, target, 1).backward()
-    assert len(calls) == 4 and c.grad.abs().sum() > 0
+    assert len(calls) == 2 and c.grad.abs().sum() > 0

@@ -28,6 +28,7 @@ from julia_raytracer_tpu.render import scene_device as jsd
 from julia_raytracer_tpu.scene import flatten as jflat
 from julia_raytracer_tpu.scene import instanced as jinst
 from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
+from julia_raytracer_tpu_torch.ops.diff_hit import instanced_diff
 from julia_raytracer_tpu_torch.ops.traversal import intersect_bruteforce
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render import scene_device as tsd
@@ -185,7 +186,8 @@ def test_instanced_plain_matches_jax_kernel(builds):
     jr, tr = _both(instanced_test_rays())
     want = make_cluster_intersect_instanced(cfg_j.inst_tables, interpret=True,
                                             k_items=8)(*jr)
-    got = ii.make_instanced_intersect(cfg.inst_tables, "cpu")(*tr)
+    got = ii.make_instanced_intersect(cfg.inst_tables, "cpu",
+                                     instanced_diff)(*tr)
     _check_vs_jax(want, got)
 
 

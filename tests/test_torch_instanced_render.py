@@ -36,7 +36,7 @@ def _trace(d, cfg, rays, intersect=None):
     rng = trng.seed_state(torch.arange(N_RAYS, dtype=torch.int32), 0, 0)
     return tint.trace_wavefront(
         d, cfg, tint.TraceOptions(sampler="path", bounces=BOUNCES), ro, rd,
-        rng, intersect=intersect)
+        rng, intersector=intersect)
 
 
 def test_trace_wavefront_instanced_matches_jax():

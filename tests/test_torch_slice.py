@@ -67,7 +67,8 @@ def renders(request):
     syncs = rg.regroup_intersect.host_syncs
     tr.trace_samples(tst)
     if port_fields:  # the bounces went through the regroup intersector
-        assert tr.options.sort_rays and hasattr(tr.intersect, "primary")
+        assert tr.options.sort_rays
+        assert tr.intersect.primary is not tr.intersect.hit
         assert rg.regroup_intersect.host_syncs > syncs
     return jr, jst, tr, tst
 
@@ -175,12 +176,14 @@ def test_heavy_scene_routing(capsys, monkeypatch):
 
     default = build()
     assert not default.options.sort_rays
-    assert not hasattr(default.intersect, "primary")  # worklist: 262 < 150k
+    # worklist: 262 < 150k
+    assert default.intersect.primary is default.intersect.hit
     on = build(regroup="on", regroup_min_prims=0)
     assert on.intersect.livegate == rg.DEF_LIVEGATE
-    assert on.intersect.primary.tables is on.intersect.tables
+    assert on.intersect.primary is not on.intersect.hit
+    assert isinstance(on.intersect.tables, wl.WorklistTables)
     off = build(regroup="off", regroup_min_prims=0)
-    assert not hasattr(off.intersect, "primary")
+    assert off.intersect.primary is off.intersect.hit
     assert build(sort_rays=True).options.sort_rays
     monkeypatch.setattr(tren, "SORT_MIN_PRIMS", 100)
     assert build().options.sort_rays
@@ -194,6 +197,7 @@ def test_heavy_scene_routing(capsys, monkeypatch):
         line = capsys.readouterr().out
         assert line.startswith(f"bounce kernel: {kernel} (predicted "
                                f"regroup/worklist ratio {ratio}, threshold 0.35)")
-        assert hasattr(auto.intersect, "primary") == (kernel == "regroup")
+        assert ((auto.intersect.primary is not auto.intersect.hit)
+                == (kernel == "regroup"))
         if kernel == "regroup":
             assert auto.intersect.livegate == (0.2 if ratio < 0.25 else 0.45)

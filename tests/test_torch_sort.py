@@ -23,6 +23,7 @@ from julia_raytracer_tpu.render.scene_device import (
     build_device_scene as jax_build_device_scene,
 )
 from julia_raytracer_tpu.utils import rng as jrng
+from julia_raytracer_tpu_torch.ops.traversal import Intersector
 from julia_raytracer_tpu_torch.render import integrator as tint
 from julia_raytracer_tpu_torch.render.scene_device import device_scene_from_numpy
 from julia_raytracer_tpu_torch.testing import image_close
@@ -120,7 +121,7 @@ def test_sort_on_and_off_agree_bit_for_bit(cornell_case, monkeypatch):
         def counted(ro, rd, tmin, tmax):
             widths.append(ro.shape[0])
             return isect(ro, rd, tmin, tmax)
-        return counted
+        return Intersector(counted)
 
     monkeypatch.setattr(tint, "build_intersector", spy)
     base = tint.TraceOptions(sampler="path", bounces=BOUNCES)

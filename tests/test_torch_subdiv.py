@@ -23,6 +23,7 @@ from julia_raytracer_tpu.scene import loader as jloader
 from julia_raytracer_tpu.scene import objio as jobjio
 from julia_raytracer_tpu.scene import subdiv as jsubdiv
 from julia_raytracer_tpu.scene import types as jt
+from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.render import renderer as tren
 from julia_raytracer_tpu_torch.scene import loader as tloader
 from julia_raytracer_tpu_torch.scene import objio, subdiv
@@ -172,7 +173,7 @@ def test_tessellated_scene_renders(tmp_path):
     params = tren.Params(resolution=8, samples=1, bounces=2)
     r = tren.Renderer(scene, params, device="cpu")
     assert r.config.n_prims == 18 + 6 * 4 ** 2
-    assert hasattr(r.intersect, "tables")  # the worklist's plain version
+    assert isinstance(r.intersect.tables, wl.WorklistTables)  # not dense
     st = tren.make_trace_state(scene, params, device="cpu")
     r.trace_samples(st)
     img = r.get_image(st)
