@@ -17,9 +17,13 @@ sorted bounce rays (with a sweep of the candidate lists' group size), and
 the whole work-item intersector meets the worklist intersector over the same
 scene flattened; the two cluster kernels
 without a work list (reached only through their factories, as in the JAX
-package) run on the sphere grid's bounce rays. Then it drives the five main
-paths through the kernels, each with the launch counters zeroed just before
-it:
+package) run on the sphere grid's bounce rays. The precull's device_span
+runs eager and captured in a CUDA graph at the sphereflake's body shapes
+(1280², 22,143 work items): the counts its clock stamps copy equal the
+cull kernel's and span_stamp's plain version's, and its clock lies
+within CUDA events around the call (a `span_stamp:` line). Then it drives
+the five main paths through the kernels, each with the launch counters
+zeroed just before it:
   - the 512 x 512, 8-bounce path-traced Cornell box (18 quads: the dense
     intersector, the lane compactor);
   - the 512 x 512, 8-bounce sphere grid (102,406 quads: the wavefront sort,
@@ -150,6 +154,7 @@ from julia_raytracer_tpu_torch.parallel.mesh import make_mesh, shard_train_step
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import row_gather as rgat
+from julia_raytracer_tpu_torch.ops import span_stamp
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.traversal import Intersector
 from julia_raytracer_tpu_torch.render.integrator import (
@@ -166,6 +171,7 @@ from julia_raytracer_tpu_torch.render.renderer import (
     Params, Renderer, TraceState, adaptive_cdf, adaptive_draw,
     inclusive_scan, make_trace_state, pixel_sums,
 )
+from julia_raytracer_tpu_torch.render import body_graphs as bg
 from julia_raytracer_tpu_torch.render import scene_device
 from julia_raytracer_tpu_torch.render.scene_device import (
     auto_hybrid_budget, build_device_scene,
@@ -180,6 +186,7 @@ from julia_raytracer_tpu_torch.testing import (
     cornell_scene, grads_close, hairball_scene, heavy_scene, hybrid_scene,
     image_close, instanced_scene, many_lights_scene, param_grads,
     render_instanced, require, same_lists, sphere_grid_scene,
+    sphereflake_scene,
     subdiv_cube_scene, vertex_grads, write_cube_cage, write_yocto_scene,
 )
 from julia_raytracer_tpu_torch.utils import diskcache, kernel_flops as kf
@@ -232,6 +239,7 @@ HOST_WORLD_RTOL = 4 * float(np.finfo(np.float32).eps)
 COST_TOP_OPS, COST_CHECK_RES, COST_CPU_RTOL = 10, 64, 0.01
 CORNELL_QUADS = 18
 N_RAYS = MAIN_RES * MAIN_RES  # lanes per main-path dispatch (262,144)
+FLAKE_RES = 1280  # the flake-path8 cell's frame: 1,638,400 lanes a body
 COMPACT_CAP = N_RAYS // 4  # first two-phase boundary of the main path
 STATE_PLANES = 45  # int32 planes of the integrator state (TraceVars)
 OUTPUT_PLANES = 11  # radiance 3, hit 1, albedo 3, normal 3, rng 1
@@ -535,14 +543,15 @@ def phase_expand(dev) -> dict:
                                                  N_RAYS)))
 
 
-def _primary_rays(renderer, dev):
-    """The camera rays of sample 0 of the 512 x 512 frame."""
-    pix = torch.arange(N_RAYS, dtype=torch.int32, device=dev)
+def _primary_rays(renderer, dev, res=MAIN_RES):
+    """The camera rays of sample 0 of the res x res frame (default 512 x
+    512)."""
+    pix = torch.arange(res * res, dtype=torch.int32, device=dev)
     rng = rng_mod.seed_state(pix, 0, 0)
     puv, rng = rng_mod.rand2f(rng)
     luv, rng = rng_mod.rand2f(rng)
-    ij = torch.stack([pix % MAIN_RES, pix // MAIN_RES], dim=-1)
-    ro, rd = sample_camera(renderer.cam_arrays, ij, (MAIN_RES, MAIN_RES),
+    ij = torch.stack([pix % res, pix // res], dim=-1)
+    ro, rd = sample_camera(renderer.cam_arrays, ij, (res, res),
                            puv, luv, False)
     n = ro.shape[0]
     return (ro.contiguous(), rd.contiguous(),
@@ -1252,6 +1261,80 @@ def phase_cull(tables, rays) -> dict:
         f"tests, {counts['spills']} spills, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']}), library call: none")
+    return out
+
+
+def phase_span_stamp(dev) -> dict:
+    """The `precull` device_span (utils/timing.py, its clock stamps from
+    ops/span_stamp.py) at the sphereflake's body shapes: FLAKE_RES² sorted
+    bounce rays against its 22,143 work items. Eager, the span's
+    device_ns is > 0 and at most the CUDA events' time around the call,
+    and its counts are the cull kernel's. Captured into a CUDA graph under
+    timing.capturing (render/body_graphs.py CudaCapture, as a body is)
+    and replayed twice: the record's copied counts (candidates, tested,
+    spills) equal the eager tensors and stamp's CPU plain version on
+    them, bit for bit, and its clock slot is > 0 and at most the CUDA
+    events' time around the same replay."""
+    scene = sphereflake_scene()
+    flake = Renderer(scene, Params(
+        resolution=FLAKE_RES, samples=1, batch=1, bounces=MAIN_BOUNCES,
+        sampler="path"), device=dev)
+    cl = flake.intersect.tables[1].clusters
+    primary = _sorted(_primary_rays(flake, dev, FLAKE_RES), flake)
+    bounce = _sorted(_bounce_rays(flake.intersect(*primary), primary[1],
+                                  dev), flake)
+    del primary
+    _, _, cnt, counts = ii.candidate_lists_kernel(*bounce, cl)
+    eager = torch.stack([cnt.sum(dtype=torch.int64), counts["tested"],
+                         counts["spills"]]).cpu()
+    plain = torch.zeros(3, dtype=torch.int64)
+    span_stamp.stamp(torch.zeros((), dtype=torch.int64), True,
+                     list(eager.unbind()), plain)
+    require(torch.equal(plain, eager), "span_stamp's plain copy differs")
+
+    def eager_span():
+        with timing.span("frame"):
+            ii.precull(*bounce, cl)
+
+    eager_ms = event_ms(eager_span)[0]
+    row = timing.units()[-1]["table"]["frame/precull"]
+    require(torch.equal(torch.tensor([row["candidates"], row["tested"],
+                                      row["spills"]]), eager),
+            "the eager precull span's counts differ from the kernel's")
+    require(0 < row["device_ns"] <= eager_ms * 1e6,
+            f"the eager precull span's clock reads {row['device_ns']} ns "
+            f"against {eager_ms * 1e6:.0f} ns of CUDA events")
+
+    spans = timing.CapturedSpans(dev)
+    static = [x.clone() for x in bounce]
+
+    def run():
+        with timing.capturing(spans):
+            ii.precull(*static, cl)
+
+    replay = bg.CudaCapture()(run, static)
+    (path, _, slot, slots), = spans.spans
+    require(path == "precull" and spans.used == 4,
+            f"the captured precull noted {spans.spans}, {spans.used} slots")
+    replays = []
+    for _ in range(2):
+        ms = event_ms(replay)[0]
+        rec = spans.record.cpu()
+        got = rec[[slots[k] for k in ("candidates", "tested", "spills")]]
+        require(torch.equal(got, eager) and torch.equal(got, plain),
+                f"the replayed precull's counts {got.tolist()} differ from "
+                f"the eager {eager.tolist()}")
+        require(0 < int(rec[slot]) <= ms * 1e6,
+                f"the replayed precull's clock reads {int(rec[slot])} ns "
+                f"against {ms * 1e6:.0f} ns of CUDA events")
+        replays.append((int(rec[slot]) / 1e6, ms))
+    out = dict(rays=bounce[0].shape[0], items=cl.boxes.shape[0],
+               **dict(zip(("candidates", "tested", "spills"),
+                          eager.tolist())),
+               eager_span_ms=row["device_ns"] / 1e6, eager_event_ms=eager_ms,
+               replay_span_ms=[r[0] for r in replays],
+               replay_event_ms=[r[1] for r in replays])
+    del flake, bounce, static, replay
     return out
 
 
@@ -2731,7 +2814,8 @@ def main() -> int:
                           "regroup_intersect": rg.FLAGS,
                           "instanced_intersect": ii.FLAGS,
                           "candidate_cull": ii.FLAGS,
-                          "cluster_intersect": ci.FLAGS})
+                          "cluster_intersect": ci.FLAGS,
+                          "span_stamp": ()})
     di._lib()
     lc._lib()
     wl._lib()
@@ -2739,6 +2823,7 @@ def main() -> int:
     ii._lib()
     ii._cull_lib()
     ci._lib()
+    span_stamp._lib()
     libs = timing.setup()
     log(f"build: {time.perf_counter() - t0:.2f} s, in parallel ("
         + ", ".join(f"{k} {v['libs']} libraries {v['ns'] / 1e9:.2f} s"
@@ -2833,6 +2918,10 @@ def main() -> int:
     log("worklist intersect under set_sync_debug_mode('error'): no host sync")
     no_host_sync(inst["instanced"], dev)
     log("instanced intersect under set_sync_debug_mode('error'): no host sync")
+    t0 = time.perf_counter()
+    stamp_phase = phase_span_stamp(dev)
+    log(f"span_stamp: {json.dumps(stamp_phase)} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     c_stats, c_launch = main_path(cornell, cornell_scene(), dev)
     for name in ("dense_intersect", "lane_compact", "lane_expand"):

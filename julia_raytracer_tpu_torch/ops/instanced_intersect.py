@@ -45,7 +45,8 @@ _make_kernel_instanced and its fused-jnp candidate cull beam_precull
 CPU tensors or the kernels (one launch each for all rays) for CUDA
 tensors, and normalises the rotated normals. The precull and the walk
 are timed by the spans `precull` and `inst_walk` (utils/timing.py
-device_span: device time by CUDA events, the cull's counts).
+device_span: device time by CUDA events, or by clock stamps in a
+captured body, and the cull's counts).
 `candidate_lists_kernel.launches` and `instanced_intersect_kernel.launches`
 count the kernels' launches.
 
@@ -684,10 +685,14 @@ def make_instanced_intersect(tables, device, diff) -> Intersector:
     """The Intersector over the work items of a scene/instanced.py
     InstancedTables, on `device`; `diff(intersect, inst_rows)` makes its
     fixed-trip form, which re-tests a hit in its instance's shape space
-    (ops/diff_hit.py instanced_diff, which imports this module)."""
+    (ops/diff_hit.py instanced_diff, which imports this module). It is
+    `graph_safe`: on the card both kernels allocate at shapes fixed by
+    the inputs' and read nothing back, and the spans record into a
+    capture's record (utils/timing.py CapturedSpans)."""
     dt = upload(tables, device)
 
     def intersect(ro, rd, tmin, tmax):
         return instanced_intersect(dt, ro, rd, tmin, tmax)
 
-    return Intersector(intersect, tables=dt, diff=diff(intersect, dt.inst_rows))
+    return Intersector(intersect, graph_safe=True, tables=dt,
+                       diff=diff(intersect, dt.inst_rows))

@@ -42,6 +42,17 @@ The program's counters that a body ticks from Python (utils/timing.py
 `counters()`, every one registered) tick once, at the capture. The
 change they made there is added again at every later replay, so they
 read what eager bodies would.
+
+The device_spans a body opens (the work-item intersector's `precull`
+and `inst_walk`) are captured under utils/timing.py `capturing`: their
+clock stamps and tensor counts go to an int64 record of the graph, the
+stamps on the same %globaltimer clock as an eager span's, and they add
+nothing at the capture. After each replay, the one right after the
+capture included, the record is copied out of the graph (one small
+copy) and filed under the open `body` span, one row entry per span with
+`n`, its integer counts and, read when the units are, `device_ns` and
+its tensor counts. A graph whose body opens no device_span keeps no
+record and adds no launch at replay.
 """
 
 from __future__ import annotations
@@ -115,7 +126,8 @@ class Kept:
 
 
 class _Graph:
-    __slots__ = ("state", "buffers", "replay", "deltas", "held", "step")
+    __slots__ = ("state", "buffers", "replay", "deltas", "held", "step",
+                 "spans")
 
     def __init__(self, state, step):
         self.state = state  # the static state, in the graph's buffers
@@ -124,6 +136,13 @@ class _Graph:
         self.replay = None
         self.deltas = []  # (holder, attribute, change a replay adds)
         self.held = []  # weak references to Kept states in the buffers
+        self.spans = None  # timing.CapturedSpans, where the body has any
+
+    def run(self):
+        """Replay, and file the replay's device_spans."""
+        self.replay()
+        if self.spans is not None:
+            self.spans.file(self.spans.record[:self.spans.used].clone())
 
 
 class BodyGraphs:
@@ -178,11 +197,11 @@ class BodyGraphs:
             g = self._capture(step, s, width)
             if g is None:
                 return step(s), False
-            g.replay()
+            g.run()
             self.replays += 1
             return g.state, True
         self._enter(g, s)
-        g.replay()
+        g.run()
         for holder, name, delta in g.deltas:
             setattr(holder, name, getattr(holder, name) + delta)
         self.replays += 1
@@ -192,9 +211,11 @@ class BodyGraphs:
         state = type(s)(*(x.clone(memory_format=torch.contiguous_format)
                           for x in s))
         g = _Graph(state, step)
+        spans = timing.CapturedSpans(s.alive.device)
 
         def run():
-            out = step(state)
+            with timing.capturing(spans):
+                out = step(state)
             # an output in a buffer it does not own is copied first, so
             # no write-back reads a buffer already written
             out = [o if o is d or _buffer(o) not in g.buffers else o.clone()
@@ -216,6 +237,8 @@ class BodyGraphs:
             return None
         g.deltas = [(holder, name, b - a) for (holder, name, a), (*_, b)
                     in zip(before, timing.counters()) if b != a]
+        # the graph's stamps write the record for as long as it lives
+        g.spans = spans if spans.used else None
         self.graphs[width] = g
         self.captures += 1
         return g

@@ -11,7 +11,8 @@ counts them). Spans (utils/timing.py) mark the layers: `wavefront`
 around the call, holding `primary_hit`, `loop_test` (each read), `body`
 (with the count its test read, `live=`, the state's `width=` and
 `graphed=`, 1 where a CUDA graph ran it; holding the bounce's
-`intersect`, which appears only on eager and captured bodies),
+`intersect`, which appears only on eager and captured bodies, and
+below it the work items' device_spans, which every replay files too),
 `compact` (`live=`, `width=`, `cap=`), `expand` and `unsort`.
 
 CUDA graphs (`graphs`, a render/body_graphs.py BodyGraphs that the
@@ -454,7 +455,9 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
     `_flat_intersector` (`regroup`, `regroup_min_prims` as in
     build_intersector) and the work items take
     ops/instanced_intersect.py, on the scene's device. `tables` is (the
-    soup's, the work items'); `livegate` the soup's. The differentiable
+    soup's, the work items'); `livegate` the soup's; `graph_safe` where
+    both parts are (a soup through the dense kernel over the work-item
+    kernels; not a worklist or regroup soup). The differentiable
     form composes the soup's over the world soup (a constant, as in the
     JAX package) with the work items' under their instance rows."""
     device = dscene.prim_verts.device
@@ -508,11 +511,10 @@ def make_intersect_hybrid(dscene: DeviceScene, config: SceneConfig,
         inst = items.differentiable(d).hit if items else None
         return Intersector(*flat.each(lambda f: compose(f, inst)))
 
-    # not graphed, with or without work items: the work items'
-    # device_spans record CUDA events, which a capture cannot hold
     return Intersector(
         *soup.each(lambda f: compose(f, items.hit if items else None)),
-        graph_safe=False, diff=diff,
+        graph_safe=soup.graph_safe and (items is None or items.graph_safe),
+        diff=diff,
         tables=(soup.tables, items.tables if items else None),
         livegate=soup.livegate)
 

@@ -17,10 +17,26 @@ takes the unit thread's innermost open span as its parent, so the
 checkpoint's recomputed bodies land under `train_step/backward`.
 
 `with device_span(name, device, **counts) as sp:` is a span that also
-counts `device_ns`, the device time of the work issued inside it (CUDA
-events at its ends on the card), and takes counts that are tensors on
-the device (`sp.add(...)`); both are read back when `units()` is read,
-so the span adds no host sync where it opens.
+counts `device_ns`, the device time of the work issued inside it, and
+takes counts that are tensors on the device (`sp.add(...)`); both are
+read back when `units()` is read, so the span adds no host sync where it
+opens. Its ends are clock stamps in the device's stream order
+(ops/span_stamp.py: on the card one one-thread launch at each end reading
+%globaltimer, the second turning the first's stamp into the ns between
+them; on the CPU the block's own ns), into an int64 slot of the span's
+own.
+
+A device_span in a body that a CUDA graph captures
+(render/body_graphs.py, inside `with capturing(spans):`, `spans` a
+CapturedSpans) stamps into a slot of the graph's own int64 record, and
+its end copies its tensor counts into the record beside the stamp. It
+adds nothing to its row at the capture; CapturedSpans notes its path
+below the span open at the capture (the body), its integer counts and
+its slots. After each replay, the graph's owner files a copy of the
+record (`file`): a row per noted span under the span then open, with
+`n` 1, its integer counts, and its `device_ns` and tensor counts
+deferred as views of the copy. So replayed bodies count as eager ones
+do, on one clock, with no host sync in the loop.
 
 Units: a span named in UNITS that opens while no unit is open (the
 renderer's `frame`, the train step's `train_step`) starts a table of
@@ -167,25 +183,19 @@ def _add(table, key, n, dur, self_ns, counts, deferred=()):
 
 
 def _resolve(rows) -> None:
-    """Add the rows' deferred counts (device_span's) to their counts:
-    tensors read back in one batch a device, CUDA event pairs as the ns
-    between them. Runs where units are read, never inside a frame."""
-    tensors = [(r, k, v) for r in rows for k, v in r[4]
-               if isinstance(v, torch.Tensor)]
+    """Add the rows' deferred counts (device_span's tensors) to their
+    counts, read back in one batch a device. Runs where units are read,
+    never inside a frame."""
     by_device = collections.defaultdict(list)
-    for item in tensors:
-        by_device[item[2].device].append(item)
+    for r in rows:
+        for k, v in r[4]:
+            by_device[v.device].append((r, k, v))
+        r[4] = []
     for items in by_device.values():
         values = torch.stack([v.reshape(()).to(torch.int64)
                               for _, _, v in items]).tolist()
         for (r, k, _), val in zip(items, values):
             r[3][k] = r[3].get(k, 0) + val
-    for r in rows:
-        for k, v in r[4]:
-            if isinstance(v, tuple):  # (start, end) CUDA events
-                v[1].synchronize()
-                r[3][k] = r[3].get(k, 0) + int(v[0].elapsed_time(v[1]) * 1e6)
-        r[4] = []
 
 
 def _rows(table) -> dict:
@@ -314,24 +324,88 @@ class span:
                                  "table": unit.table})
 
 
+class CapturedSpans:
+    """The device_spans of one captured body (module docstring): `record`,
+    int64 [SLOTS] on the body's device, which the captured stamps write;
+    `spans`, what `file` adds at each replay: (path below the span open
+    at the capture, integer counts, the record's slot of device_ns,
+    {count: slot}); `used`, the slots taken. A capture that needs more
+    than SLOTS slots raises RuntimeError."""
+
+    SLOTS = 256
+
+    def __init__(self, device):
+        self.record = torch.zeros(self.SLOTS, dtype=torch.int64,
+                                  device=device)
+        self.spans = []
+        self.base = ""  # the path of the span open at the capture
+        self.used = 0
+
+    def take(self, k: int) -> int:
+        """The first of k more slots of the record."""
+        if self.used + k > self.SLOTS:
+            raise RuntimeError(f"a captured body's device_spans take more "
+                               f"than {self.SLOTS} record slots")
+        self.used += k
+        return self.used - k
+
+    def close(self, sp, slot: int, tensors: dict) -> None:
+        """Stamp the end of `sp`, whose clock is the record's `slot`, copy
+        its tensor counts into the record, and note the span."""
+        from julia_raytracer_tpu_torch.ops import span_stamp
+
+        first = self.take(len(tensors))
+        span_stamp.stamp(
+            sp.clock, True,
+            [v.reshape(()).to(torch.int64) for v in tensors.values()],
+            self.record[first:first + len(tensors)])
+        path = sp.path[len(self.base) + 1:] if self.base else sp.path
+        self.spans.append((path, dict(sp.counts), slot,
+                           {k: first + i for i, k in enumerate(tensors)}))
+
+    def file(self, record) -> None:
+        """Add the noted spans, read from `record` (a copy of the record
+        after a replay), under the innermost open span on this thread."""
+        stack = getattr(_state.local, "stack", None)
+        if not stack or stack[-1].table is None:
+            return
+        top = stack[-1]
+        for path, ints, slot, slots in self.spans:
+            deferred = [("device_ns", record[slot])]
+            deferred += [(k, record[i]) for k, i in slots.items()]
+            _add(top.table, top.path + "/" + path, 1, 0, 0, ints, deferred)
+
+
+@contextmanager
+def capturing(spans: CapturedSpans):
+    """Record this thread's device_spans into `spans` inside the block, a
+    body that a CUDA graph captures (module docstring)."""
+    local = _state.local
+    stack = getattr(local, "stack", None)
+    spans.base = stack[-1].path if stack else ""
+    local.capture = spans
+    try:
+        yield spans
+    finally:
+        local.capture = None
+
+
 class device_span(span):
     """A span that also times the device work issued inside it, as the
-    count `device_ns`: on a CUDA device the ns between two CUDA events
-    recorded on the current stream at its ends (while the device is the
-    bottleneck, the device time of that work), on the CPU, whose ops run
-    as they are issued, the block's own ns. Counts may be integers or
-    tensors on the device (`add` them inside the block); events and
-    tensors are read when `units()` is, never inside the block, so the
-    span adds no host sync."""
+    count `device_ns`: the ns between clock stamps at its ends in the
+    order of the device's stream (ops/span_stamp.py; while the device is
+    the bottleneck, the device time of that work; on the CPU, whose ops
+    run as they are issued, the block's own ns). Counts may be integers
+    or tensors on the device (`add` them inside the block); the clock and
+    the tensors are read when `units()` is, never inside the block, so
+    the span adds no host sync. Inside `capturing`, the clock and the
+    counts go to the capture's record instead (CapturedSpans)."""
 
-    __slots__ = ("events",)
+    __slots__ = ("device", "clock", "capture", "slot")
 
     def __init__(self, name: str, device, **counts):
         super().__init__(name, **counts)
-        self.events = None
-        if torch.device(device).type == "cuda":
-            self.events = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
+        self.device = torch.device(device)
 
     def add(self, **counts) -> None:
         """Set counts (integers or tensors) of the span, as the keywords
@@ -339,24 +413,39 @@ class device_span(span):
         self.counts.update(counts)
 
     def __enter__(self):
+        from julia_raytracer_tpu_torch.ops import span_stamp
+
+        cap = self.capture = getattr(_state.local, "capture", None)
+        if cap is None:
+            self.clock = torch.empty((), dtype=torch.int64,
+                                     device=self.device)
+        else:
+            # before the span opens: a full record leaves no span open
+            self.slot = cap.take(1)
+            self.clock = cap.record[self.slot]
         super().__enter__()
-        if self.events is not None:
-            self.events[0].record()
+        span_stamp.stamp(self.clock, False)
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        deferred = [(k, v) for k, v in self.counts.items()
-                    if isinstance(v, torch.Tensor)]
-        if self.events is not None:
-            self.events[1].record()
-            deferred.append(("device_ns", self.events))
-        else:
-            self.counts["device_ns"] = _now() - self.t0
-        for k, _ in deferred:
-            self.counts.pop(k, None)
+        from julia_raytracer_tpu_torch.ops import span_stamp
+
+        tensors = {k: v for k, v in self.counts.items()
+                   if isinstance(v, torch.Tensor)}
+        for k in tensors:
+            del self.counts[k]
+        if self.capture is not None:
+            try:
+                self.capture.close(self, self.slot, tensors)
+            finally:
+                self.table = None  # each replay files the span
+                super().__exit__(exc_type, exc, tb)
+            return False
+        span_stamp.stamp(self.clock, True)
         super().__exit__(exc_type, exc, tb)
-        if deferred and self.table is not None:
-            self.table[self.path][4].extend(deferred)
+        if self.table is not None:
+            self.table[self.path][4].extend(
+                [*tensors.items(), ("device_ns", self.clock)])
         return False
 
 

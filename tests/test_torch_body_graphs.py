@@ -1,12 +1,16 @@
 """The bookkeeping of render/body_graphs.py on the CPU: eligibility (and
 the `graph_safe` and `primary` of each route's Intersector), the
 sightings of a lane width, the cache key, states kept out of a graph's
-buffers and the counters a replay adds. `StandIn` takes the place of the
-CUDA capture, as a capture behaves: the body's Python runs once at the
-capture and leaves the buffers as they were, and each replay does the
-body's tensor work while the program's counters stay as they were."""
+buffers, the counters a replay adds and the device_spans it files.
+`StandIn` takes the place of the CUDA capture, as a capture behaves: the
+body's Python runs once at the capture and leaves the buffers as they
+were, and each replay does the body's tensor work while the program's
+counters stay as they were and its spans only stamp the capture's
+record."""
 
+import copy
 import types
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import pytest
@@ -36,6 +40,34 @@ STAND_IN = types.ModuleType("stand_in_kernels")
 timing.counter(STAND_IN, "launches")
 
 
+@contextmanager
+def _replaying():
+    """The capture's Python run again as a replay's tensor work (a replay
+    runs no Python): no span opened inside the block is timed or counted,
+    and the device_spans stamp the same slots of the capture's record
+    through a copy of its CapturedSpans, whose notes are dropped."""
+    st, local = timing._state, timing._state.local
+    saved = (local.__dict__.get("stack"), st.unit, st.records)
+    real = timing.capturing
+
+    def again(spans):
+        twin = copy.copy(spans)
+        twin.spans, twin.used = [], 0
+        return real(twin)
+
+    local.stack, st.unit, st.records = [], None, None
+    timing.capturing = again
+    try:
+        yield
+    finally:
+        timing.capturing = real
+        st.unit, st.records = saved[1:]
+        if saved[0] is None:
+            del local.stack
+        else:
+            local.stack = saved[0]
+
+
 class StandIn:
     """A capture on the CPU (module docstring)."""
 
@@ -54,7 +86,8 @@ class StandIn:
             b.copy_(v)
         def replay():
             before = timing.counters()
-            run()
+            with _replaying():
+                run()
             for holder, name, v in before:
                 setattr(holder, name, v)
 
@@ -190,19 +223,24 @@ ROUTES = {
                 _tables(wl.WorklistTables), False),
     "instanced": (lambda: instanced_scene(3, (8, 6)),
                   dict(instancing=True, hybrid_budget=0), {},
-                  _tables(ii.InstancedDeviceTables), False),
+                  _tables(ii.InstancedDeviceTables), True),
     "hybrid": (lambda: hybrid_scene(4, 4, 3, 12),
                dict(instancing=True, hybrid_budget=300), {},
                _tables(wl.WorklistTables, ii.InstancedDeviceTables), False),
+    "hybrid_dense": (lambda: hybrid_scene(2, 4, 3, 12),
+                     dict(instancing=True, hybrid_budget=100), {},
+                     _tables(di.DenseTable, ii.InstancedDeviceTables), True),
 }
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_route_fields(route):
     """build_intersector's Intersector on each route that CPU scenes
-    reach: only the dense kernel, and curves merged over it, are
-    graph_safe; `primary` is `hit` except on regroup (the worklist over
-    the same tables); only regroup has a livegate."""
+    reach: the dense kernel, curves merged over it, the work items and a
+    hybrid whose soup takes the dense kernel (70 quads) are graph_safe;
+    the worklist, regroup, and a hybrid over a worklist soup (262 quads)
+    are not; `primary` is `hit` except on regroup (the worklist over the
+    same tables); only regroup has a livegate."""
     scene, build, fields, tables, safe = ROUTES[route]
     d, cfg = build_device_scene(scene(), device="cpu", **build)
     isect = tint.build_intersector(d, cfg, **fields)
@@ -360,3 +398,160 @@ def test_sample_kernel_cost_same_after_capture():
     assert r.body_graphs.replays == replays
     assert before["ops"] == after["ops"]
     assert before["kernels"] == after["kernels"]
+
+
+def _span_step(holder=di.dense_intersect):
+    """A body that ticks holder.launches and, inside `intersect`, opens a
+    device_span `precull` with an integer count and two tensor counts of
+    its state."""
+    def step(s):
+        holder.launches += 1
+        with timing.span("intersect"):
+            with timing.device_span("precull", s.x.device, groups=3) as sp:
+                x = s.x + 1.0
+                sp.add(candidates=(x > 2.0).sum(),
+                       tested=x[:, 0].sum().to(torch.int32))
+        return S(s.alive, x)
+
+    return step
+
+
+def _span_rows(bodies, graphs):
+    """`bodies` bodies of _span_step at width 8 in one frame, each in a
+    `body` span, from graphs or eager -> the frame's rows."""
+    step = _span_step()
+    s = _state(8)
+    with timing.span("frame"):
+        for _ in range(bodies):
+            with timing.span("body"):
+                s = graphs.run(step, s)[0] if graphs else step(s)
+    return timing.units()[-1]["table"]
+
+
+@pytest.mark.parametrize("replays", [1, 4])
+def test_replays_file_the_device_spans_of_the_capture(replays):
+    """After an eager body, the capture and `replays` more replays, the
+    `precull` row holds what replays + 2 eager bodies leave: the same n,
+    integer count and tensor counts, and a device_ns; the captured body
+    adds nothing at the capture itself (its replay files it), and the
+    plain `intersect` span counts the eager and captured bodies."""
+    graphs = bg.BodyGraphs(StandIn())
+    got = _span_rows(replays + 2, graphs)
+    want = _span_rows(replays + 2, None)
+    assert graphs.captures == 1 and graphs.replays == replays + 1
+    key = "frame/body/intersect/precull"
+    for field in ("n", "groups", "candidates", "tested"):
+        assert got[key][field] == want[key][field]
+    assert want[key]["n"] == replays + 2
+    assert want[key]["candidates"] == 24 * replays  # x > 2 from body 3
+    assert got[key]["device_ns"] > 0 and want[key]["device_ns"] > 0
+    assert got["frame/body/intersect"]["n"] == 2
+    # one record a graph: 1 clock slot and 2 count slots
+    spans = graphs.graphs[8].spans
+    assert spans.used == 3
+    assert [(p, c) for p, c, *_ in spans.spans] == [("intersect/precull",
+                                                     {"groups": 3})]
+
+
+def test_body_without_device_span_keeps_no_record(monkeypatch):
+    """A captured body that opens no device_span keeps no record, and its
+    replays copy and file nothing."""
+    filed = []
+    monkeypatch.setattr(timing.CapturedSpans, "file",
+                        lambda self, record: filed.append(record))
+    graphs = bg.BodyGraphs(StandIn())
+    s = _state(8)
+    with timing.span("frame"):
+        for _ in range(4):
+            with timing.span("body"):
+                s = graphs.run(_step([]), s)[0]
+    assert graphs.replays == 3 and graphs.graphs[8].spans is None
+    assert not filed
+    assert set(timing.units()[-1]["table"]) == {"frame", "frame/body"}
+
+
+def test_capture_outside_a_unit_keeps_its_spans():
+    """A width captured where no unit is open (under a span that is not
+    a unit, whose rows go nowhere) still notes its device_spans and keeps
+    the record its stamps write: the replays in a later frame file them."""
+    graphs = bg.BodyGraphs(StandIn())
+    step = _span_step()
+    s = _state(8)
+    with timing.span("warm"):
+        for _ in range(2):
+            with timing.span("body"):
+                s = graphs.run(step, s)[0]
+    spans = graphs.graphs[8].spans
+    assert spans is not None and spans.used == 3
+    with timing.span("frame"):
+        for _ in range(3):
+            with timing.span("body"):
+                s = graphs.run(step, s)[0]
+    row = timing.units()[-1]["table"]["frame/body/intersect/precull"]
+    assert row["n"] == 3 and row["groups"] == 9
+    assert row["candidates"] == 72 and row["device_ns"] > 0
+
+
+def test_capture_past_the_record_stays_eager(monkeypatch):
+    """A body whose device_spans need more slots than the record holds
+    cannot be captured: its width stays eager and its spans count."""
+    monkeypatch.setattr(timing.CapturedSpans, "SLOTS", 2)
+    graphs = bg.BodyGraphs(StandIn())
+    rows = _span_rows(4, graphs)
+    assert graphs.failed == {8} and graphs.captures == 0
+    assert rows["frame/body/intersect/precull"]["n"] == 4
+
+
+def _hybrid_frames(graphs, frames=3):
+    """`frames` frames of the small hybrid whose soup takes the dense
+    kernel (70 quads, 3 work items), from graphs or eager -> (image,
+    AOVs and hits; the frames' precull rows summed by field; the body
+    rows' n and graphed)."""
+    from julia_raytracer_tpu_torch.render import scene_device
+
+    real = scene_device._should_instance
+    scene_device._should_instance = lambda s: True
+    try:
+        scene = hybrid_scene(2, 4, 3, 12)
+        p = Params(resolution=32, samples=1 << 20, batch=1, bounces=8,
+                   seed=4, hybrid_budget=100)
+        r = Renderer(scene, p, device="cpu")
+    finally:
+        scene_device._should_instance = real
+    assert r.intersect.graph_safe
+    r.body_graphs = bg.BodyGraphs(StandIn()) if graphs else None
+    st = make_trace_state(scene, p, device="cpu")
+    t0 = timing._now()
+    for _ in range(frames):
+        r.trace_samples(st)
+    tables = [u["table"] for u in timing.units() if u["start_ns"] >= t0]
+    sums = {}
+    for t in tables:
+        for path, row in t.items():
+            name = path.rsplit("/", 1)[-1]
+            if name in ("precull", "inst_walk", "body"):
+                for k, v in row.items():
+                    sums[name, k] = sums.get((name, k), 0) + v
+    return (st.image, st.albedo, st.normal, st.hits), sums, r.body_graphs
+
+
+def test_hybrid_replays_equal_eager_with_their_spans():
+    """The hybrid over a dense-kernel soup, 3 frames at 1,024 lanes: the
+    graphed frames equal eager ones bit for bit, and the precull and
+    inst_walk rows count what eager frames count (n, groups, items, keys,
+    candidates, tested, spills), with a device_ns, though most bodies are
+    replays."""
+    got, got_sums, graphs = _hybrid_frames(True)
+    want, want_sums, _ = _hybrid_frames(False)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert graphs.captures == 1 and not graphs.failed
+    assert got_sums["body", "n"] == want_sums["body", "n"]
+    assert got_sums["body", "graphed"] == got_sums["body", "n"] - 1
+    for k in ("n", "groups", "items", "keys", "candidates", "tested",
+              "spills"):
+        assert got_sums["precull", k] == want_sums["precull", k], k
+    assert got_sums["inst_walk", "n"] == want_sums["inst_walk", "n"]
+    for name in ("precull", "inst_walk"):
+        assert got_sums[name, "device_ns"] > 0
+        assert want_sums[name, "device_ns"] > 0

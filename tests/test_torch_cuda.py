@@ -612,9 +612,9 @@ def test_instanced_render_on_card_matches_cpu(dev, hybrid):
 
 def test_instanced_spans_time_by_events_on_card(dev, monkeypatch):
     """The sphereflake at size factor 2 through the full cell's route on
-    the card: `precull` and `inst_walk` hold CUDA event pairs and the
-    candidate count as a tensor until units() reads them, then carry
-    device_ns; a frame with plain spans in their place makes the same
+    the card: `precull` and `inst_walk` hold their clock (a 0-d int64
+    tensor of stamps) and the candidate count as tensors on the card
+    until units() reads them, then carry device_ns; a frame with plain spans in their place makes the same
     host syncs and the same image."""
     from julia_raytracer_tpu_torch.render import scene_device
 
@@ -634,10 +634,12 @@ def test_instanced_spans_time_by_events_on_card(dev, monkeypatch):
     timing.reset()
     image, syncs = frame()
     raw = timing._state.units[-1]["table"]
-    pending = [v for path, row in raw.items() if path.endswith("/precull")
-               for _, v in row[4]]
-    assert any(isinstance(v, tuple) for v in pending)
-    assert any(isinstance(v, torch.Tensor) and v.is_cuda for v in pending)
+    pending = [(k, v) for path, row in raw.items()
+               if path.endswith("/precull") for k, v in row[4]]
+    clocks = [v for k, v in pending if k == "device_ns"]
+    assert clocks and all(v.is_cuda and v.dtype == torch.int64
+                          and v.dim() == 0 for v in clocks)
+    assert any(k == "candidates" and v.is_cuda for k, v in pending)
     table = timing.units()[-1]["table"]
     rows = [row for path, row in table.items()
             if path.endswith(("/precull", "/inst_walk"))]
@@ -935,6 +937,61 @@ def test_replayed_frames_equal_eager_on_card(dev, sort):
     assert [c[:3] for c in got_counts] == [c[:3] for c in want_counts]
     assert want_counts[0][0] > 0 and all(c[3] == 0 for c in want_counts)
     assert got_counts[2][3] == got_counts[2][2]  # every body a replay
+
+
+def _flake_frames(dev, graphed, frames=3):
+    """`frames` frames of the sphereflake at size factor 2 through the full
+    cell's route (a 4-quad soup through the dense kernel, 91 work items)
+    at 1280², 8 bounces, from graphs or eager -> (image, AOVs and hits;
+    the frames' precull rows; the body rows; the Renderer)."""
+    from julia_raytracer_tpu_torch.render import scene_device
+
+    real = scene_device._should_instance
+    scene_device._should_instance = lambda s: True
+    try:
+        scene = sphereflake_scene(2, 4)
+        params = Params(resolution=1280, samples=1 << 20, batch=1,
+                        bounces=8, seed=5, hybrid_budget=8)
+        r = Renderer(scene, params, device=dev)
+    finally:
+        scene_device._should_instance = real
+    assert isinstance(r.intersect.tables[0], di.DenseTable)
+    if not graphed:
+        r.body_graphs = None
+    st = make_trace_state(scene, params, device=dev)
+    t0 = timing._now()
+    for _ in range(frames):
+        r.trace_samples(st)
+    torch.cuda.synchronize()
+    tables = [u["table"] for u in timing.units() if u["start_ns"] >= t0]
+
+    def rows(name):
+        return [row for t in tables for path, row in t.items()
+                if path.endswith("/" + name)]
+
+    return ([x.clone() for x in (st.image, st.albedo, st.normal, st.hits)],
+            rows("precull"), rows("body"), r)
+
+
+def test_replayed_flake_frames_equal_eager_on_card(dev):
+    """The instanced hybrid over a dense-kernel soup replays its bodies
+    from CUDA graphs: over 3 frames the graphed frames equal eager ones
+    bit for bit, widths capture and none fails, and the precull rows,
+    replays included, count what the eager trace counts (n, candidates,
+    tested), each with a positive device_ns."""
+    got, got_pre, got_body, r = _flake_frames(dev, True)
+    want, want_pre, want_body, _ = _flake_frames(dev, False)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    graphs = r.body_graphs
+    assert r.intersect.graph_safe
+    assert graphs.captures >= 1 and not graphs.failed
+    assert sum(row["graphed"] for row in got_body) > 0
+    assert sum(row["graphed"] for row in want_body) == 0
+    for key in ("n", "candidates", "tested"):
+        assert (sum(row[key] for row in got_pre)
+                == sum(row[key] for row in want_pre)), key
+    assert all(row["device_ns"] > 0 for row in got_pre + want_pre)
 
 
 def test_two_renderers_render_in_turn(dev):

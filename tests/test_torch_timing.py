@@ -302,8 +302,9 @@ def test_train_step_bodies_forward_and_backward():
 
 
 def test_device_span_defers_tensor_counts_to_units():
-    """A device_span's tensor counts stay tensors until units() reads
-    them; on the CPU its device_ns is the block's own time."""
+    """A device_span's tensor counts and its clock stay tensors until
+    units() reads them; on the CPU its device_ns is the block's own
+    time."""
     with span("frame"):
         with span("body"):
             with timing.device_span("precull", "cpu", groups=2) as sp:
@@ -311,7 +312,7 @@ def test_device_span_defers_tensor_counts_to_units():
             with timing.device_span("precull", "cpu", groups=3) as sp:
                 sp.add(candidates=torch.tensor(7, dtype=torch.int32))
     raw = timing._state.units[-1]["table"]["frame/body/precull"]
-    assert [k for k, _ in raw[4]] == ["candidates", "candidates"]
+    assert [k for k, _ in raw[4]] == ["candidates", "device_ns"] * 2
     (unit,) = timing.units()
     row = unit["table"]["frame/body/precull"]
     assert _counts(row)["groups"] == 5 and row["candidates"] == 12
