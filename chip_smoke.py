@@ -146,6 +146,7 @@ from julia_raytracer_tpu_torch import cli
 from julia_raytracer_tpu_torch.ops import cluster_intersect as ci
 from julia_raytracer_tpu_torch.ops import cluster_tables, native
 from julia_raytracer_tpu_torch.ops import cuda_build, dense_intersect as di
+from julia_raytracer_tpu_torch.ops import curve_intersect as cw
 from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops.camera import sample_camera
 from julia_raytracer_tpu_torch.ops.dense_intersect import _moller
@@ -1338,6 +1339,112 @@ def phase_span_stamp(dev) -> dict:
     return out
 
 
+def phase_curve_walk(dev) -> dict:
+    """The culled curve walk (ops/curve_intersect.py) at the tree-path8
+    cell's body shapes: the SPD tree (benchmark/scenes/spd_tree.py, 4,095
+    lines and 4,095 points over 4 quads) at FLAKE_RES², on camera rays
+    and on bounce rays, each at 1,048,576 and 262,144 lanes. On each set
+    the kernel equals curve_walk_plain bit for bit (closest line and
+    point, and the pairs tested) on the same lists, and the route's hits
+    equal the plain sweep's (merge_curves without tables) in every field.
+    Then three frames replayed from CUDA graphs equal three eager ones bit
+    for bit, and every `body` span after a width's first two is
+    `graphed`. Returns the cull's and the walk's counts and times."""
+    from benchmark.modes.render_curves import to_program_scene
+    from benchmark.scenes import spd_tree
+
+    from julia_raytracer_tpu_torch.render import integrator as tint
+
+    scene = to_program_scene(spd_tree.build())
+    params = Params(resolution=FLAKE_RES, samples=1 << 20, batch=1,
+                    bounces=MAIN_BOUNCES, sampler="path", seed=9)
+    tree = Renderer(scene, params, device=dev)
+    tables = tree.intersect.curves
+    require(tables is not None, "the tree's route has no culled curve walk")
+    with mock.patch.object(tint, "CURVE_WALK_DEVICES", ()):
+        sweep = tint.build_intersector(tree.dscene, tree.config)
+    with mock.patch.object(tint, "curve_wrap", lambda q, d, c: q):
+        quads = tint.build_intersector(tree.dscene, tree.config)
+    require(sweep.curves is None and quads.curves is None,
+            "the sweep's and the quads' routes took the walk")
+    q = tree.config.n_prims
+    primary = _primary_rays(tree, dev, FLAKE_RES)
+    camera_hit = tree.intersect(*primary)
+    bounce = _bounce_rays(camera_hit, primary[1], dev)
+    out = dict(camera_curve_share=float(
+        (camera_hit.hit & (camera_hit.prim >= q)).float().mean()),
+        camera_hit_share=float(camera_hit.hit.float().mean()))
+    del camera_hit
+    for label, rays in (("camera", primary), ("bounce", bounce)):
+        for n in (1 << 20, 1 << 18):
+            ro, rd, tmin, tmax = (x[:n].contiguous() for x in rays)
+            qh = quads(ro, rd, tmin, tmax)
+            bt = torch.where(qh.hit, qh.t, tmax)
+            lists = ii.precull(ro, rd, tmin, bt, tables.clusters)
+            got, tested = cw.curve_intersect_kernel(tables, ro, rd, tmin, bt,
+                                                    *lists)
+            t0 = time.perf_counter()
+            ref, ref_tested = cw.curve_walk_plain(tables, ro, rd, tmin, bt,
+                                                  *lists)
+            plain_s = time.perf_counter() - t0
+            require(_bit_equal(got, ref) and int(tested) == int(ref_tested),
+                    f"the curve walk kernel differs from its plain version "
+                    f"on {label} rays at {n} lanes")
+            walk_hit = tree.intersect(ro, rd, tmin, tmax)
+            sweep_hit = sweep(ro, rd, tmin, tmax)
+            require(_bit_equal(walk_hit, sweep_hit),
+                    f"the culled curve route's hits differ from the sweep's "
+                    f"on {label} rays at {n} lanes: " + ", ".join(
+                        f"{f} {int((a != b).reshape(n, -1).any(1).sum())}"
+                        for f, a, b in zip(walk_hit._fields, walk_hit,
+                                           sweep_hit)))
+            _, _, cnt, counts = ii.candidate_lists_kernel(ro, rd, tmin, bt,
+                                                          tables.clusters)
+            out[f"{label}_{n}"] = dict(
+                candidates=int(cnt.sum()), max_list=int(cnt.max()),
+                cull_tested=int(counts["tested"]),
+                spills=int(counts["spills"]), walk_tested=int(tested),
+                tested_share=int(tested) / (n * tables.elems.shape[0]),
+                cull_ms=device_ms(lambda: ii.precull(ro, rd, tmin, bt,
+                                                     tables.clusters), 5),
+                walk_ms=device_ms(lambda: cw.curve_intersect_kernel(
+                    tables, ro, rd, tmin, bt, *lists), 5),
+                bound_ms=cost_bound(kf.curve_walk_cost(
+                    n, tables.elems.shape[0]))["bound_ms"],
+                sweep_ms=profiled_ms(lambda: sweep(ro, rd, tmin, tmax), 1),
+                plain_s=plain_s,
+                curve_hits=int((walk_hit.hit & (walk_hit.prim >= q)).sum()))
+            log(f"curve walk {label} {n}: {json.dumps(out[f'{label}_{n}'])}")
+            del lists, qh, bt, got, ref, walk_hit, sweep_hit
+    del primary, bounce
+
+    def frames(graphs: bool):
+        r = Renderer(scene, params, device=dev)
+        if not graphs:
+            r.body_graphs = None
+        st = make_trace_state(scene, params, device=dev)
+        for _ in range(3):
+            r.trace_samples(st)
+        torch.cuda.synchronize()
+        # the third frame: every width seen twice before
+        rows = [row for path, row in timing.units()[-1]["table"].items()
+                if path.endswith("/body")]
+        return (st.image, st.albedo, st.normal, st.hits), rows, r
+
+    got, rows, r = frames(True)
+    want, _, _ = frames(False)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "the tree's frames from CUDA graphs differ from eager frames")
+    bodies, graphed = sum(x["n"] for x in rows), sum(x["graphed"] for x in rows)
+    require(not r.body_graphs.failed and graphed == bodies,
+            f"{graphed} of the third frame's {bodies} tree bodies graphed, "
+            f"failed {r.body_graphs.failed}")
+    out["frames"] = dict(bodies=bodies, graphed=graphed,
+                         captures=r.body_graphs.captures)
+    del got, want, r, tree
+    return out
+
+
 def cull_per_sample(renderer, scene, dev) -> dict:
     """One sample of an instanced main path with the work-item precull
     (the cull kernel) bracketed by CUDA events: its device
@@ -2329,7 +2436,8 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
     def recording(ro, rd, tmin, tmax):
         h = di.dense_intersect(wrapped.tables, ro, rd, tmin, tmax)
         calls.append((h, ro, rd, tmin, tmax))
-        return merge_curves(r.dscene, cfg, h, ro, rd, tmin, tmax)
+        return merge_curves(r.dscene, cfg, h, ro, rd, tmin, tmax,
+                            wrapped.curves)
 
     r.intersect = Intersector(recording)
     try:
@@ -2351,6 +2459,10 @@ def phase_scene_content(dev) -> tuple[dict, dict]:
         for c in calls)
     stats["sweep_share"] = (stats["sweep_device_ms_per_sample"]
                             / stats["device_ms_per_sample"])
+    stats["walk_device_ms_per_sample"] = sum(
+        profiled_ms(lambda c=c: merge_curves(r.dscene, cfg, *c,
+                                             wrapped.curves), reps=1)
+        for c in calls)
     del calls, widest, r
     stats["agreement"] = agreement(
         dev, hairball_scene(HAIR_HAIRS, HAIR_SEGMENTS, HAIR_POINTS),
@@ -2815,7 +2927,8 @@ def main() -> int:
                           "instanced_intersect": ii.FLAGS,
                           "candidate_cull": ii.FLAGS,
                           "cluster_intersect": ci.FLAGS,
-                          "span_stamp": ()})
+                          "span_stamp": (),
+                          "curve_intersect": cw.FLAGS})
     di._lib()
     lc._lib()
     wl._lib()
@@ -2824,6 +2937,7 @@ def main() -> int:
     ii._cull_lib()
     ci._lib()
     span_stamp._lib()
+    cw._lib()
     libs = timing.setup()
     log(f"build: {time.perf_counter() - t0:.2f} s, in parallel ("
         + ", ".join(f"{k} {v['libs']} libraries {v['ns'] / 1e9:.2f} s"
@@ -2921,6 +3035,10 @@ def main() -> int:
     t0 = time.perf_counter()
     stamp_phase = phase_span_stamp(dev)
     log(f"span_stamp: {json.dumps(stamp_phase)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    curve_phase = phase_curve_walk(dev)
+    log(f"curve_walk: {json.dumps(curve_phase)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     c_stats, c_launch = main_path(cornell, cornell_scene(), dev)

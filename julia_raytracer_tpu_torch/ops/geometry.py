@@ -68,13 +68,20 @@ def intersect_quad(ro, rd, tmin, tmax, p1, p2, p3, p4):
     return hit, u, v, t
 
 
+def dot3(a, b):
+    """(a0 b0 + a1 b1) + a2 b2: the order of the CPU's sum over the last
+    axis, written out so that every device (and csrc/curve_intersect.cu)
+    adds in it; a sum on the card may add in another."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
 def intersect_point(ro, rd, tmin, tmax, p, r):
     """Ray vs radius-point -> (hit, t)."""
     w = p - ro
-    t = dot(w, rd) / dot(rd, rd)
+    t = dot3(w, rd) / dot3(rd, rd)
     rp = ro + rd * t[..., None]
     prp = p - rp
-    hit = (t >= tmin) & (t <= tmax) & (dot(prp, prp) <= r * r)
+    hit = (t >= tmin) & (t <= tmax) & (dot3(prp, prp) <= r * r)
     return hit, t
 
 
@@ -83,11 +90,11 @@ def intersect_line(ro, rd, tmin, tmax, p1, p2, r1, r2):
     u_ = rd
     v_ = p2 - p1
     w_ = ro - p1
-    a = dot(u_, u_)
-    b = dot(u_, v_)
-    c = dot(v_, v_)
-    d = dot(u_, w_)
-    e = dot(v_, w_)
+    a = dot3(u_, u_)
+    b = dot3(u_, v_)
+    c = dot3(v_, v_)
+    d = dot3(u_, w_)
+    e = dot3(v_, w_)
     det = a * c - b * b
     safe = torch.where(det == 0.0, 1.0, det)
     t = (b * e - c * d) / safe
@@ -95,7 +102,7 @@ def intersect_line(ro, rd, tmin, tmax, p1, p2, r1, r2):
     pr = ro + rd * t[..., None]
     pl = p1 + (p2 - p1) * s[..., None]
     prl = pr - pl
-    d2 = dot(prl, prl)
+    d2 = dot3(prl, prl)
     r = r1 * (1.0 - s) + r2 * s
     hit = (det != 0.0) & (t >= tmin) & (t <= tmax) & (d2 <= r * r)
     return hit, s, torch.sqrt(d2) / torch.where(r == 0, 1.0, r), t

@@ -45,8 +45,9 @@ _make_kernel_instanced and its fused-jnp candidate cull beam_precull
 CPU tensors or the kernels (one launch each for all rays) for CUDA
 tensors, and normalises the rotated normals. The precull and the walk
 are timed by the spans `precull` and `inst_walk` (utils/timing.py
-device_span: device time by CUDA events, or by clock stamps in a
-captured body, and the cull's counts).
+device_span: device time by %globaltimer stamps at the span's ends, in an
+eager body or a captured one, and the cull's counts). ops/curve_intersect.py
+runs the same precull over the curve elements' boxes.
 `candidate_lists_kernel.launches` and `instanced_intersect_kernel.launches`
 count the kernels' launches.
 

@@ -52,7 +52,10 @@ class Intersector:
     call's scene (None: a flat route's, make_diff_intersect over
     dscene.prim_verts); `tables`, a diagnostic only tests and chip_smoke.py
     read: the route's kernel tables, the hybrid's (soup's, work items');
-    `livegate`, regroup's liveness gate."""
+    `livegate`, regroup's liveness gate; `curves`, the culled curve walk's
+    tables (ops/curve_intersect.py CurveTables) where the route merges
+    lines and points through it (render/integrator.py curve_wrap), else
+    None."""
 
     hit: Callable[..., Hit]
     primary: Callable[..., Hit] | None = None
@@ -60,6 +63,7 @@ class Intersector:
     diff: Callable[[Any], Intersector] | None = None
     tables: Any = None
     livegate: float | None = None
+    curves: Any = None
 
     def __post_init__(self):
         if self.primary is None:

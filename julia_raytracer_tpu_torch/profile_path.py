@@ -61,6 +61,7 @@ OWN_KERNELS = {
     "regroup_unpack": ("::unpack_kernel(",),
     "instanced_intersect": ("::instanced_intersect_kernel(",),
     "candidate_cull": ("::candidate_cull_kernel(",),
+    "curve_intersect": ("::curve_walk_kernel(",),
 }
 
 

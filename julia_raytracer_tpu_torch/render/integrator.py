@@ -94,6 +94,9 @@ from julia_raytracer_tpu_torch.ops import lane_compact
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
 from julia_raytracer_tpu_torch.ops.diff_hit import instanced_diff
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
+from julia_raytracer_tpu_torch.ops.curve_intersect import (
+    CurveBest, CurveTables, curve_intersect, upload as upload_curves,
+)
 from julia_raytracer_tpu_torch.ops.geometry import (
     F32_MAX, RAY_EPS, intersect_line, intersect_point, intersect_quad,
     quad_normal,
@@ -211,14 +214,18 @@ def _sweep_closest(test, n_elems: int, n: int, device):
     return best
 
 
-def merge_curves(dscene: DeviceScene, config: SceneConfig, best: Hit, ro, rd,
-                 tmin, tmax) -> Hit:
-    """The line/point sweep of curve_wrap: `best` (the quad hit, or a miss)
-    with every line, then every point, that the rays hit closer merged
-    in."""
-    Q, L, P = dscene.prim_verts.shape[0], config.n_lines, config.n_points
-    n = ro.shape[0]
-    bt = torch.where(best.hit, best.t, tmax)
+def sweep_curves(dscene: DeviceScene, config: SceneConfig, ro, rd, tmin,
+                 bt) -> CurveBest:
+    """The plain sweep of every line, then every point, as
+    ops/curve_intersect.py CurveBest: the first minimum of t over the
+    lines hit in [tmin, bt], then over the points hit in [tmin, bt'] (bt'
+    the line's t where it is below bt), chunked by `_sweep_closest`. On a
+    miss the index is 0 and t F32_MAX."""
+    L, P = config.n_lines, config.n_points
+    n, dev = ro.shape[0], ro.device
+    none_i = torch.zeros(n, dtype=torch.int64, device=dev)
+    none_t = torch.full((n,), F32_MAX, device=dev)
+    li, ltb, s_, v_, pi, ptb = none_i, none_t, none_t, none_t, none_i, none_t
     ro_, rd_, tmin_ = ro[:, None], rd[:, None], tmin[:, None]
     if L > 0:
         lv, lr = dscene.line_verts, dscene.line_radius
@@ -229,9 +236,37 @@ def merge_curves(dscene: DeviceScene, config: SceneConfig, best: Hit, ro, rd,
                 lv[None, lo:hi, 1], lr[None, lo:hi, 0], lr[None, lo:hi, 1])
             return h, t, s_, v_
 
-        li, ltb, s_, v_ = _sweep_closest(test, L, n, ro.device)
-        upd = ltb < bt
-        lp1, lp2 = lv[li, 0], lv[li, 1]
+        li, ltb, s_, v_ = _sweep_closest(test, L, n, dev)
+        bt = torch.where(ltb < bt, ltb, bt)
+    if P > 0:
+        pp, pr = dscene.point_pos, dscene.point_radius
+
+        def test(lo, hi):
+            return intersect_point(ro_, rd_, tmin_, bt[:, None],
+                                   pp[None, lo:hi], pr[None, lo:hi])
+
+        pi, ptb = _sweep_closest(test, P, n, dev)
+    return CurveBest(li, ltb, s_, v_, pi, ptb)
+
+
+def merge_curves(dscene: DeviceScene, config: SceneConfig, best: Hit, ro, rd,
+                 tmin, tmax, tables: CurveTables | None = None) -> Hit:
+    """The line/point merge of curve_wrap: `best` (the quad hit, or a miss)
+    with the closest line, then the closest point, that the rays hit closer
+    merged in. The closest line and point come from the culled walk
+    (ops/curve_intersect.py) over `tables`, or from the plain sweep
+    (sweep_curves) where `tables` is None; the two give the same hits bit
+    for bit."""
+    Q, L = dscene.prim_verts.shape[0], config.n_lines
+    bt = torch.where(best.hit, best.t, tmax)
+    if tables is None:
+        c = sweep_curves(dscene, config, ro, rd, tmin, bt)
+    else:
+        c = curve_intersect(tables, ro, rd, tmin, bt)
+    if L > 0:
+        li, s_ = c.line.long().clamp(min=0), c.line_u
+        upd = c.line_t < bt
+        lp1, lp2 = dscene.line_verts[li, 0], dscene.line_verts[li, 1]
         axis_pt = lp1 + (lp2 - lp1) * s_[:, None]
         la = dscene.line_attr
         tan = normalize(la[li, 0, 0:3] * (1.0 - s_[:, None])
@@ -241,34 +276,34 @@ def merge_curves(dscene: DeviceScene, config: SceneConfig, best: Hit, ro, rd,
             hit=best.hit | upd,
             prim=torch.where(upd, Q + li.to(torch.int32), best.prim),
             u=torch.where(upd, s_, best.u),
-            v=torch.where(upd, v_, best.v),
-            t=torch.where(upd, ltb, best.t),
+            v=torch.where(upd, c.line_v, best.v),
+            t=torch.where(upd, c.line_t, best.t),
             position=torch.where(up3, axis_pt, best.position),
             gnormal=torch.where(up3, tan, best.gnormal),
             instance=torch.where(upd, dscene.line_instance[li], best.instance),
         )
         bt = torch.where(best.hit, best.t, tmax)
-    if P > 0:
-        pp, pr = dscene.point_pos, dscene.point_radius
-
-        def test(lo, hi):
-            return intersect_point(ro_, rd_, tmin_, bt[:, None],
-                                   pp[None, lo:hi], pr[None, lo:hi])
-
-        pi, ptb = _sweep_closest(test, P, n, ro.device)
-        upd = ptb < bt
+    if config.n_points > 0:
+        pi = c.point.long().clamp(min=0)
+        upd = c.point_t < bt
         up3 = upd[:, None]
+        pp = dscene.point_pos
         best = Hit(
             hit=best.hit | upd,
             prim=torch.where(upd, Q + L + pi.to(torch.int32), best.prim),
             u=torch.where(upd, 0.0, best.u),
             v=torch.where(upd, 0.0, best.v),
-            t=torch.where(upd, ptb, best.t),
+            t=torch.where(upd, c.point_t, best.t),
             position=torch.where(up3, pp[pi], best.position),
             gnormal=torch.where(up3, -normalize(rd), best.gnormal),
             instance=torch.where(upd, dscene.point_instance[pi], best.instance),
         )
     return best
+
+
+# device types whose curve route is the culled walk (ops/curve_intersect.py);
+# the others sweep (sweep_curves)
+CURVE_WALK_DEVICES = ("cuda",)
 
 
 def curve_wrap(quads: Intersector | None, dscene: DeviceScene,
@@ -278,17 +313,28 @@ def curve_wrap(quads: Intersector | None, dscene: DeviceScene,
     Curve hits are prim ids >= Q: Q..Q+L-1 lines, then points. Their
     `position` is the point on the line's axis, or the point's centre;
     `gnormal` carries the interpolated tangent of a line, or
-    -normalize(rd) for a point, for the shading-normal rules. Lines and
-    points are a plain PyTorch sweep of every element (merge_curves),
-    chunked by `_sweep_closest`, on the scene's device; their tmax is the
-    quad hit's t. With Q == 0 (`quads` None) no quad intersector is
-    called. The merge keeps the quad route's tables, livegate and
-    graph_safe (the sweep reads nothing back), merges into its `primary`
-    apart, and its differentiable form into the quad route's (a curve
-    hit's prim id >= Q names no quad to re-test)."""
+    -normalize(rd) for a point, for the shading-normal rules. On a device
+    of CURVE_WALK_DEVICES the lines and points go through the culled walk
+    (merge_curves over ops/curve_intersect.py CurveTables, built here,
+    once, and kept as the route's `curves`); elsewhere, and in the
+    differentiable form, through the plain sweep of every element. Their
+    tmax is the quad hit's t. With Q == 0 (`quads` None) no quad
+    intersector is called. The merge keeps the quad route's tables,
+    livegate and graph_safe (neither reads anything back), merges into its
+    `primary` apart, and its differentiable form into the quad route's (a
+    curve hit's prim id >= Q names no quad to re-test)."""
     if config.n_lines == 0 and config.n_points == 0:
         return quads
+    device = dscene.line_verts.device
+    tables = (upload_curves(dscene.line_verts, dscene.line_radius,
+                            dscene.point_pos, dscene.point_radius, device)
+              if device.type in CURVE_WALK_DEVICES else None)
+    return _curve_route(quads, dscene, config, tables)
 
+
+def _curve_route(quads: Intersector | None, dscene: DeviceScene,
+                 config: SceneConfig, tables: CurveTables | None):
+    """curve_wrap's Intersector over `tables` (None: the sweep)."""
     def merged(quad_fn):
         def intersect(ro, rd, tmin, tmax):
             if quad_fn is not None:
@@ -301,17 +347,19 @@ def curve_wrap(quads: Intersector | None, dscene: DeviceScene,
                            z, z, tmax, torch.zeros_like(ro),
                            torch.zeros_like(ro),
                            torch.zeros(n, dtype=torch.int32, device=dev))
-            return merge_curves(dscene, config, best, ro, rd, tmin, tmax)
+            return merge_curves(dscene, config, best, ro, rd, tmin, tmax,
+                                tables)
 
         return intersect
 
     if quads is None:
-        return Intersector(merged(None),
-                           diff=lambda d: curve_wrap(None, d, config))
+        return Intersector(
+            merged(None), curves=tables,
+            diff=lambda d: _curve_route(None, d, config, None))
     return Intersector(
         *quads.each(merged), graph_safe=quads.graph_safe,
-        diff=lambda d: curve_wrap(quads.differentiable(d), d, config),
-        tables=quads.tables, livegate=quads.livegate)
+        diff=lambda d: _curve_route(quads.differentiable(d), d, config, None),
+        tables=quads.tables, livegate=quads.livegate, curves=tables)
 
 
 def _host_prims(dscene: DeviceScene, config: SceneConfig):

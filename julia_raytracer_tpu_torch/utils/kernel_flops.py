@@ -58,6 +58,15 @@ OPS_PER_TRI_TEST = 40
 CULL_OPS_PER_TEST = 28
 # the same test of a ray against the root or a cluster box: no clamp, no min
 MAY_ENTER_OPS = 26
+# fp32 operations of one line and one point test, counted in
+# csrc/curve_intersect.cu line_test (6 differences, 5 dot products of 5,
+# det 3, t 4, the segment parameter and its clamp 6, the two points and
+# their difference 15, d2 5, the radius 4, sqrt and divide, r * r) and
+# point_test (3, two dot products, a divide, 6, 3, 5, 1)
+LINE_TEST_OPS = 71
+POINT_TEST_OPS = 29
+CURVE_ELEM_BYTES = 32  # an element of the walk's table
+CURVE_HIT_BYTES = 24  # line, t, u, v, point, t
 # fp32 operations of the regroup merge a ray (regroup_intersect.merge):
 # the triangle test's arithmetic on the winner, the odd-triangle flip (2)
 # and the position (6)
@@ -121,6 +130,17 @@ def instanced_intersect_cost(n_rays: int, n_groups: int, steps: int,
                  + steps * 16 + supers * sup * 32 + instances * 96
                  + clusters * CLUSTER_BYTES,
                  pairs * TRIS * OPS_PER_TRI_TEST)
+
+
+def curve_walk_cost(n_rays: int, elements: int) -> dict:
+    """The curve walk (not a pallas_call; csrc/curve_intersect.cu): the
+    rays in, their closest line and point out, the element table read
+    once; one line test and one point test a ray, the least a ray whose
+    closest element is one of each needs (a floor: the walk tests every
+    candidate its warp reaches)."""
+    return _cost(n_rays * (RAY_IN_BYTES + CURVE_HIT_BYTES)
+                 + elements * CURVE_ELEM_BYTES,
+                 n_rays * (LINE_TEST_OPS + POINT_TEST_OPS))
 
 
 def candidate_cull_cost(n_rays: int, n_groups: int, group: int, items: int,

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from julia_raytracer_tpu_torch.ops import curve_intersect as cw
 from julia_raytracer_tpu_torch.ops import dense_intersect as di
 from julia_raytracer_tpu_torch.ops import instanced_intersect as ii
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
@@ -555,3 +556,69 @@ def test_hybrid_replays_equal_eager_with_their_spans():
     for name in ("precull", "inst_walk"):
         assert got_sums[name, "device_ns"] > 0
         assert want_sums[name, "device_ns"] > 0
+
+
+def _curve_frames(graphs, frames=3):
+    """`frames` frames of the SPD tree at size factor 3 (15 lines and 15
+    points over 4 quads, the dense kernel's route with the curve walk),
+    from graphs or eager -> (image, AOVs and hits; the frames' precull,
+    curve_walk and body rows summed by field; the curve kernel's launches
+    over the frames; the graphs)."""
+    from benchmark.modes.render_curves import to_program_scene
+    from benchmark.scenes import spd_tree
+
+    scene = to_program_scene(spd_tree.build(3))
+    p = Params(resolution=32, samples=1 << 20, batch=1, bounces=8, seed=4)
+    r = Renderer(scene, p, device="cpu")
+    assert r.intersect.graph_safe and r.intersect.curves is not None
+    r.body_graphs = bg.BodyGraphs(StandIn()) if graphs else None
+    st = make_trace_state(scene, p, device="cpu")
+    launches = cw.curve_intersect_kernel.launches
+    t0 = timing._now()
+    for _ in range(frames):
+        r.trace_samples(st)
+    sums = {}
+    for u in timing.units():
+        if u["start_ns"] < t0:
+            continue
+        for path, row in u["table"].items():
+            name = path.rsplit("/", 1)[-1]
+            if name in ("precull", "curve_walk", "body"):
+                for k, v in row.items():
+                    sums[name, k] = sums.get((name, k), 0) + v
+    return ((st.image, st.albedo, st.normal, st.hits), sums,
+            cw.curve_intersect_kernel.launches - launches, r.body_graphs)
+
+
+def test_curve_replays_file_their_spans_and_counter(monkeypatch):
+    """The culled curve route (forced onto the CPU, its kernel's launch
+    stood in for by a tick of curve_intersect_kernel.launches around the
+    plain walk) over 3 frames at 1,024 lanes: the graphed frames equal
+    eager ones bit for bit; the replays file the `curve_walk` span (n,
+    rays, elements, candidates, tested, a device_ns) and the `precull`
+    span as eager bodies do, and add the kernel's counter as eager bodies
+    tick it."""
+    monkeypatch.setattr(tint, "CURVE_WALK_DEVICES", ("cpu",))
+    plain = cw.curve_walk_plain
+
+    def launching(*args, **kw):
+        cw.curve_intersect_kernel.launches += 1
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(cw, "curve_walk_plain", launching)
+    got, got_sums, got_launches, graphs = _curve_frames(True)
+    want, want_sums, want_launches, _ = _curve_frames(False)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert graphs.captures == 1 and not graphs.failed
+    assert got_sums["body", "graphed"] == got_sums["body", "n"] - 1
+    for k in ("n", "rays", "elements", "candidates", "tested"):
+        assert got_sums["curve_walk", k] == want_sums["curve_walk", k], k
+    for k in ("n", "groups", "items", "keys", "candidates", "tested",
+              "spills"):
+        assert got_sums["precull", k] == want_sums["precull", k], k
+    assert want_sums["curve_walk", "n"] == want_sums["body", "n"] + 3
+    for name in ("precull", "curve_walk"):
+        assert got_sums[name, "device_ns"] > 0
+        assert want_sums[name, "device_ns"] > 0
+    assert got_launches == want_launches == want_sums["curve_walk", "n"]

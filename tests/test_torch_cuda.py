@@ -1097,3 +1097,85 @@ def test_refused_capture_leaves_the_width_eager_on_card(dev):
         flags.append(graphed)
     assert flags == [False, True, True, True]
     assert torch.equal(t.x, torch.full((2048, 3), 15.0, device=dev))
+
+
+def _hairball_rays(g, n, dev):
+    """Rays at the hairball from all round it, n not a multiple of the
+    warp: a tenth dead (tmax -1), a few with NaN or zero directions."""
+    ro = g.uniform(-1.5, 1.5, (n, 3)) + [0.0, 1.0, 0.0]
+    rd = g.normal(size=(n, 3)) - 0.5 * (ro - [0.0, 1.0, 0.0])
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    rd[:7] = np.nan
+    rd[7:11] = 0.0
+    tmax = np.where(g.random(n) < 0.1, -1.0, 3.4e38)
+    return tuple(torch.tensor(x, dtype=torch.float32, device=dev)
+                 for x in (ro, rd, np.full(n, 1e-4), tmax))
+
+
+@pytest.mark.parametrize("group", [32, 256])
+def test_curve_walk_kernel_equals_plain(dev, group):
+    """The hairball's 4,352 lines and points (testing.hairball_scene)
+    against 5,001 rays: the walk kernel equals curve_walk_plain on the
+    same lists bit for bit (closest line and point, and the pairs
+    tested), and the route's merged hits equal the plain sweep's."""
+    from julia_raytracer_tpu_torch.ops import curve_intersect as cw
+
+    scene = hairball_scene(1024, 4, 256)
+    r = Renderer(scene, Params(resolution=64, samples=1, batch=1),
+                 device=dev)
+    tables = r.intersect.curves
+    assert tables is not None and r.intersect.graph_safe
+    rays = _hairball_rays(np.random.default_rng(group), 5001, dev)
+    qh = di.dense_intersect(r.intersect.tables, *rays)
+    bt = torch.where(qh.hit, qh.t, rays[3])
+    lists = ii.precull(*rays[:3], bt, tables.clusters, group)
+    got, tested = cw.curve_intersect_kernel(tables, *rays[:3], bt, *lists,
+                                            group)
+    want, want_tested = cw.curve_walk_plain(tables, *rays[:3], bt, *lists,
+                                            group)
+    assert _same_bits(got, want) and int(tested) == int(want_tested) > 0
+    assert (got.line >= 0).sum() > 100 and (got.point >= 0).sum() > 10
+    hit = tint.merge_curves(r.dscene, r.config, qh, *rays, tables)
+    sweep = tint.merge_curves(r.dscene, r.config, qh, *rays)
+    assert _same_bits(hit, sweep)
+
+
+def test_replayed_tree_frames_equal_eager_on_card(dev):
+    """The SPD tree (benchmark/scenes/spd_tree.py, 4,095 lines and 4,095
+    points over 4 quads) at 256², 8 bounces: 3 frames from CUDA graphs
+    equal 3 eager ones bit for bit, the third frame's bodies are all
+    graphed, and the curve_walk rows count what eager frames count (n,
+    rays, candidates, tested), each with a positive device_ns."""
+    from benchmark.modes.render_curves import to_program_scene
+    from benchmark.scenes import spd_tree
+
+    scene = to_program_scene(spd_tree.build())
+    params = Params(resolution=256, samples=1 << 20, batch=1, bounces=8,
+                    seed=6)
+
+    def frames(graphed):
+        r = Renderer(scene, params, device=dev)
+        assert r.intersect.curves is not None and r.intersect.graph_safe
+        if not graphed:
+            r.body_graphs = None
+        st = make_trace_state(scene, params, device=dev)
+        t0 = timing._now()
+        for _ in range(3):
+            r.trace_samples(st)
+        torch.cuda.synchronize()
+        units = [u["table"] for u in timing.units() if u["start_ns"] >= t0]
+        walk = [row for t in units for path, row in t.items()
+                if path.endswith("/curve_walk")]
+        last = [row for path, row in units[-1].items()
+                if path.endswith("/body")]
+        return ((st.image, st.albedo, st.normal, st.hits), walk, last)
+
+    got, got_walk, got_last = frames(True)
+    want, want_walk, _ = frames(False)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert sum(r["graphed"] for r in got_last) == sum(r["n"] for r in got_last)
+    for key in ("n", "rays", "candidates", "tested"):
+        assert (sum(r[key] for r in got_walk)
+                == sum(r[key] for r in want_walk)), key
+    assert all(r["device_ns"] > 0 for r in got_walk + want_walk)

@@ -233,3 +233,25 @@ def test_instanced_and_cull_report_their_models():
     assert counter.kernels["instanced_intersect"][1:] == list(
         ii.call_cost(tables, rays[0], rays[1], rays[2], hit.t, order,
                      cnt).values())
+
+
+def test_curve_walk_reports_its_model():
+    """The culled curve route on the CPU (curve_intersect: the cull, then
+    curve_walk_plain) reports one cull and one walk, the walk at
+    curve_walk_cost's floor: the rays, their hits, the element table once
+    and one line and one point test a ray."""
+    from julia_raytracer_tpu_torch.ops import curve_intersect as cw
+    from julia_raytracer_tpu_torch.testing import hairball_scene
+
+    d, _ = build_device_scene(hairball_scene(200, 2, 40), device="cpu")
+    tables = cw.upload(d.line_verts, d.line_radius, d.point_pos,
+                       d.point_radius, "cpu")
+    rays = _rays(600, 7)
+    rays = (torch.from_numpy(rays[0]) * 2.0 - 1.0 + torch.tensor(
+        [0.0, 1.0, 0.0]),) + tuple(torch.from_numpy(x) for x in rays[1:])
+    best, counter = count_cost(lambda: cw.curve_intersect(tables, *rays))
+    assert set(counter.kernels) == {"candidate_cull", "curve_intersect"}
+    assert (best.line >= 0).any()
+    assert counter.kernels["curve_intersect"][1:] == list(
+        kf.curve_walk_cost(600, 440).values())
+    assert kf.curve_walk_cost(1, 0) == dict(ops=100.0, bytes=56.0)
