@@ -21,7 +21,15 @@ package) run on the sphere grid's bounce rays. The precull's device_span
 runs eager and captured in a CUDA graph at the sphereflake's body shapes
 (1280², 22,143 work items): the counts its clock stamps copy equal the
 cull kernel's and span_stamp's plain version's, and its clock lies
-within CUDA events around the call (a `span_stamp:` line). Then it drives
+within CUDA events around the call (a `span_stamp:` line). The culled
+curve walk meets its plain version and the sweep at the SPD tree's body
+shapes (a `curve_walk:` line). The shading kernel (csrc/shade_path.cu)
+meets the eager shading on every lane of every body of a 1280² frame of
+the Cornell box, the SPD sphereflake and the SPD tree, and on a
+1,048,576-lane body of each its device ms, the eager shading's and its
+share of its bound are timed, with ptxas's registers and spills (a
+`shade_path:` line; under SHADE_MIN_SHARE of the bound, or a spill,
+fails). Then it drives
 the five main paths through the kernels, each with the launch counters
 zeroed just before it:
   - the 512 x 512, 8-bounce path-traced Cornell box (18 quads: the dense
@@ -131,6 +139,7 @@ import json
 import inspect
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -155,6 +164,7 @@ from julia_raytracer_tpu_torch.parallel.mesh import make_mesh, shard_train_step
 from julia_raytracer_tpu_torch.ops import lane_compact as lc
 from julia_raytracer_tpu_torch.ops import regroup_intersect as rg
 from julia_raytracer_tpu_torch.ops import row_gather as rgat
+from julia_raytracer_tpu_torch.ops import shade_path as sp
 from julia_raytracer_tpu_torch.ops import span_stamp
 from julia_raytracer_tpu_torch.ops import worklist_intersect as wl
 from julia_raytracer_tpu_torch.ops.traversal import Intersector
@@ -1442,6 +1452,89 @@ def phase_curve_walk(dev) -> dict:
     out["frames"] = dict(bodies=bodies, graphed=graphed,
                          captures=r.body_graphs.captures)
     del got, want, r, tree
+    return out
+
+
+# the least share of its bytes bound the shading kernel must reach at
+# 1,048,576 lanes of each render cell's scene
+SHADE_MIN_SHARE = 0.30
+
+
+def _ptxas_counts(info: str) -> dict:
+    """Registers and spill bytes from a ptxas report."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", info)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill", info)]
+    return dict(registers=max(regs), spill_bytes=sum(spills))
+
+
+def phase_shade_path(dev) -> dict:
+    """The shading kernel (ops/shade_path.py, csrc/shade_path.cu) at the
+    render cells' body shapes: one FLAKE_RES² frame, 8 bounces, of the
+    Cornell box, the SPD sphereflake (benchmark/scenes/sphereflake.py,
+    size factor 4) and the SPD tree (benchmark/scenes/spd_tree.py) with
+    eager bodies, each body's kernel shading held to the eager shading
+    (integrator.shade_plain) on the same state, bit for bit on every
+    lane. On each frame's second body of 1,048,576 lanes: the kernel's
+    device ms and the eager shading's, by CUDA-graph replay (device_ms),
+    the kernel's bound (kernel_flops.shade_path_cost) and its share.
+    ptxas's registers and spills. Fails on a differing lane, a spill, or a
+    scene below SHADE_MIN_SHARE of the bound."""
+    from benchmark.modes import render_curves
+    from benchmark.modes.common import build_scene, load_json, to_program_scene
+
+    info = cuda_build.ptxas_info.get("shade_path", "")
+    require("registers" in info, "no ptxas report for the shading kernel")
+    out = dict(ptxas=_ptxas_counts(info))
+    require(out["ptxas"]["spill_bytes"] == 0, "the shading kernel spills")
+    params = Params(resolution=FLAKE_RES, samples=1 << 20, batch=1,
+                    bounces=MAIN_BOUNCES, sampler="path", seed=23)
+    scenes = dict(
+        cornell=cornell_scene(),
+        flake=to_program_scene(build_scene(load_json("configs",
+                                                     "sphereflake"))),
+        tree=render_curves.to_program_scene(build_scene(load_json(
+            "configs", "spd_tree"))))
+    real = sp.shade_path
+    for name, scene in scenes.items():
+        r = Renderer(scene, params, device=dev)
+        r.body_graphs = None
+        kept, differ, lanes = [], 0, 0
+
+        def checking(tables, s, plain):
+            nonlocal differ, lanes
+            got = real(tables, s, plain)
+            n = s.alive.shape[0]
+            for a, b in zip(got, plain(s), strict=True):
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                differ += int((a != b).reshape(n, -1).any(1).sum())
+            lanes += n
+            if n == 1 << 20:
+                kept.append((tables, s, plain))
+            return got
+
+        checking.launches = 0
+        with mock.patch.object(sp, "shade_path", checking):
+            r.trace_samples(make_trace_state(scene, params, device=dev))
+        torch.cuda.synchronize()
+        require(differ == 0, f"the shading kernel differs from the eager "
+                f"shading on {differ} of {name}'s lanes")
+        require(len(kept) >= 2, f"{name}: no second 1,048,576-lane body")
+        tables, s, plain = kept[1]
+        ms = device_ms(lambda: real(tables, s, plain))
+        cost = kf.shade_path_cost(1 << 20,
+                                  r.config.light_counts.total_inst_elems)
+        b = cost_bound(cost)
+        out[name] = dict(
+            lanes=lanes, bodies=len(kept), live=int(s.alive.sum()),
+            kernel_ms=ms, eager_ms=device_ms(lambda: plain(s)),
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            share=b["bound_ms"] / ms)
+        log(f"shade_path {name}: {json.dumps(out[name])}")
+        require(out[name]["share"] >= SHADE_MIN_SHARE,
+                f"the shading kernel reads {out[name]['share']:.3f} of its "
+                f"bound on {name}")
+        del kept, r
     return out
 
 
@@ -2928,7 +3021,8 @@ def main() -> int:
                           "candidate_cull": ii.FLAGS,
                           "cluster_intersect": ci.FLAGS,
                           "span_stamp": (),
-                          "curve_intersect": cw.FLAGS})
+                          "curve_intersect": cw.FLAGS,
+                          "shade_path": sp.FLAGS})
     di._lib()
     lc._lib()
     wl._lib()
@@ -2938,6 +3032,7 @@ def main() -> int:
     ci._lib()
     span_stamp._lib()
     cw._lib()
+    sp._lib()
     libs = timing.setup()
     log(f"build: {time.perf_counter() - t0:.2f} s, in parallel ("
         + ", ".join(f"{k} {v['libs']} libraries {v['ns'] / 1e9:.2f} s"
@@ -3039,6 +3134,10 @@ def main() -> int:
     t0 = time.perf_counter()
     curve_phase = phase_curve_walk(dev)
     log(f"curve_walk: {json.dumps(curve_phase)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    shade_phase = phase_shade_path(dev)
+    log(f"shade_path: {json.dumps(shade_phase)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     c_stats, c_launch = main_path(cornell, cornell_scene(), dev)

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled on first
 use with nvcc for Hopper (`sm_90a`) into a shared library under
 `csrc/_build/` (listed in .gitignore), keyed by a hash of the source, the
 shared headers `csrc/*.cuh` and the flags, then loaded with ctypes. `build_all` starts one nvcc per
-source, all at once. The nvcc runs and the loads are the set-up spans
+source, all at once. ptxas's report of each build is kept beside its
+library (`.ptxas`), so `ptxas_info` holds it for a library built by an
+earlier process too. The nvcc runs and the loads are the set-up spans
 `lib_build` and `lib_load` (utils/timing.py). Nothing here runs at
 import time: the CPU tests import every module on machines without nvcc
 or a card.
@@ -64,6 +66,9 @@ def build_all(specs: dict[str, tuple]) -> None:
     for name, extra in specs.items():
         src, flags, lib_path = _lib_path(name, extra)
         if os.path.exists(lib_path):
+            if os.path.exists(lib_path + ".ptxas"):
+                with open(lib_path + ".ptxas") as f:
+                    ptxas_info[name] = f.read()
             continue
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *flags, "-o", tmp, src]
@@ -80,6 +85,8 @@ def build_all(specs: dict[str, tuple]) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}:\n{' '.join(cmd)}\n{out}\n{err}")
         else:
+            with open(lib_path + ".ptxas", "w") as f:
+                f.write(ptxas_info[name])
             os.replace(tmp, lib_path)
     if failed:
         raise RuntimeError("\n".join(failed))

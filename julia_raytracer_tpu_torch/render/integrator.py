@@ -21,6 +21,14 @@ Renderer owns): on the card, a while-loop body whose Intersector is
 replayed from then on; the replay launches the same kernels on
 the same data, so the outputs are the eager loop's bit for bit.
 
+The shading kernel (ops/shade_path.py, csrc/shade_path.cu): where
+`shade_route` allows it (the path sampler's unsorted while loop on the
+card, on scenes whose weight update reads nothing of the next hit), a
+body's shading is one launch before its intersect, and its outputs are
+the eager bounce's bit for bit; `shade_plain` (`eager_bounce` with
+its intersect stood in for) is its plain version. `body` spans carry
+`shaded=`, 1 on that route.
+
 Wavefront sort (`TraceOptions.sort_rays`; the renderer turns it on for
 scenes of >= 50,000 quads, as the JAX package does): camera rays, and
 every bounce's rays after the shading, are reordered by a 30-bit key
@@ -87,10 +95,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.utils.checkpoint
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from julia_raytracer_tpu_torch.ops import bsdf as bsdf_ops
 from julia_raytracer_tpu_torch.ops import eval as eval_ops
-from julia_raytracer_tpu_torch.ops import lane_compact
+from julia_raytracer_tpu_torch.ops import lane_compact, shade_path
 from julia_raytracer_tpu_torch.ops.dense_intersect import make_dense_intersect
 from julia_raytracer_tpu_torch.ops.diff_hit import instanced_diff
 from julia_raytracer_tpu_torch.ops.cluster_tables import PRIMS_PER_CLUSTER
@@ -104,6 +113,7 @@ from julia_raytracer_tpu_torch.ops.geometry import (
 from julia_raytracer_tpu_torch.ops.instanced_intersect import (
     make_instanced_intersect,
 )
+from julia_raytracer_tpu_torch.ops.shade_path import ShadeOut
 from julia_raytracer_tpu_torch.ops.traversal import (
     Hit, Intersector, intersect_bruteforce,
 )
@@ -712,6 +722,464 @@ def _take(xs, perm):
             else x[perm] for x in xs]
 
 
+class Bounce(NamedTuple):
+    """What a bounce reads besides the lane state: the scene, its config,
+    the options, the fixed-trip loop's trip count (0: the while loop), the
+    sort's scene box (sort_bounds; None: unsorted) and the route's
+    `primary` intersect, which the light pdf's march takes."""
+
+    dscene: DeviceScene
+    config: SceneConfig
+    options: TraceOptions
+    fixed: int
+    sort_box: tuple | None
+    primary: object
+
+
+def eager_bounce(b: Bounce, s: TraceVars, query) -> TraceVars:
+    """One bounce of the lane state `s`, in the module docstring's control
+    flow: the shading of the current hit, the next ray (sorted where
+    `b.sort_box` is set), `query(ro, rd, tmin, tmax) -> Hit` for its hit,
+    then the weight update. Width-polymorphic: the two-phase dispatch
+    re-enters with a narrowed state, so lane-shaped constants derive from
+    the state."""
+    dscene, config, options, fixed = b.dscene, b.config, b.options, b.fixed
+    do_sort = b.sort_box is not None
+    if do_sort:
+        scene_vmin, scene_vmax = b.sort_box
+    is_path = options.sampler == "path"
+    counts = config.light_counts
+    has_lights = counts.total > 0
+    present = config.present_types
+    n_prim = dscene.prim_verts.shape[0]
+    n_inst = dscene.inst_frame.shape[0]
+    dev = s.alive.device
+
+    def full(shape, value, dtype=torch.float32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    n = s.alive.shape[0]
+    alive = s.alive
+    bounce = torch.where(alive, s.bounce + 1, s.bounce)
+    rng = s.rng
+    radiance, weight = s.radiance, s.weight
+    outgoing = -s.rd
+
+    # ---- miss: environment lookup
+    miss = alive & ~s.isec_hit
+    if config.n_envs > 0:
+        env_ok = (bounce > 0) if options.envhidden else full((n,), True, torch.bool)
+        env = eval_ops.eval_environment(dscene, s.rd)
+        radiance = radiance + torch.where(_vec(miss & env_ok), weight * env, 0.0)
+    alive = alive & s.isec_hit
+
+    # ---- volume transmittance
+    if is_path and config.has_volumes:
+        in_med = alive & s.has_vol
+        rl, rng = rng_mod.rand1f(rng)
+        rdist, rng = rng_mod.rand1f(rng)
+        dist = bsdf_ops.sample_transmittance(s.vol_density, s.isec_t, rl, rdist)
+        trans = bsdf_ops.eval_transmittance(s.vol_density, dist)
+        tpdf = bsdf_ops.sample_transmittance_pdf(
+            s.vol_density, dist, s.isec_t).detach()  # JAX integrator.py:746
+        weight = torch.where(
+            _vec(in_med),
+            weight * trans / torch.clamp(tpdf, min=1e-30)[..., None],
+            weight,
+        )
+        in_volume = in_med & (dist < s.isec_t)
+    else:
+        in_volume = full((n,), False, torch.bool)
+        dist = s.isec_t
+
+    surf = alive & ~in_volume
+
+    # ---- surface evaluation; position and element normal come from
+    # the intersector
+    prim = s.isec_prim.clamp(0, max(n_prim - 1, 0))
+    # slack lanes of a packed state hold unspecified bits: clamp ids
+    # before they index a table
+    inst = s.isec_inst.clamp(0, n_inst - 1)
+    u, v = s.isec_u, s.isec_v
+    position = s.isec_pos
+    need_attrs = (
+        config.has_texcoords or config.has_colors
+        or config.has_vertex_normals or config.has_normal_maps
+    )
+    if need_attrs:
+        vidx = dscene.prim_vidx[prim]
+        flags = dscene.prim_flags[prim]
+    else:
+        vidx = flags = None
+    verts = dscene.prim_verts[prim] if config.has_normal_maps else None
+    if config.has_texcoords:
+        texcoord = eval_ops.eval_texcoord(dscene, vidx, flags, u, v)
+    else:
+        texcoord = torch.stack([u, v], dim=-1)
+    if config.has_colors:
+        shp_color = eval_ops.eval_color_attr(dscene, vidx, flags, u, v)
+    else:
+        shp_color = full(u.shape + (4,), 1.0)
+    # curve attribute overrides (prim ids >= Q: lines, then points)
+    has_curves = config.n_lines > 0 or config.n_points > 0
+    if has_curves:
+        is_line = (s.isec_hit & (s.isec_prim >= n_prim)
+                   & (s.isec_prim < n_prim + config.n_lines))
+        is_point = s.isec_hit & (s.isec_prim >= n_prim + config.n_lines)
+        if config.n_lines > 0:
+            lat = dscene.line_attr[
+                (s.isec_prim - n_prim).clamp(0, config.n_lines - 1)]
+            wu = u[:, None]
+            l_tc = lat[:, 0, 3:5] * (1.0 - wu) + lat[:, 1, 3:5] * wu
+            l_col = lat[:, 0, 5:9] * (1.0 - wu) + lat[:, 1, 5:9] * wu
+            texcoord = torch.where(_vec(is_line), l_tc, texcoord)
+            shp_color = torch.where(_vec(is_line), l_col, shp_color)
+        if config.n_points > 0:
+            pat = dscene.point_attr[(s.isec_prim - n_prim - config.n_lines)
+                                    .clamp(0, config.n_points - 1)]
+            texcoord = torch.where(_vec(is_point), pat[:, 3:5], texcoord)
+            shp_color = torch.where(_vec(is_point), pat[:, 5:9], shp_color)
+    # folded per-instance material rows for small scenes; not in the
+    # fixed-trip loop, whose gradients flow to dscene.materials (JAX
+    # integrator.py:812)
+    dense_mats = 0 < config.n_instances <= 64 and not fixed
+    if dense_mats and not config.has_textures:
+        material = eval_ops.eval_material_dense(dscene, inst, shp_color)
+        normal_tex = full((n,), -1, torch.int32)
+    elif dense_mats:
+        rows = dscene.inst_mat_dense[inst]
+        material = eval_ops.eval_material_rows(dscene, rows, texcoord, shp_color)
+        normal_tex = rows[..., 20].to(torch.int32)
+    else:
+        material = eval_ops.eval_material(dscene, inst, texcoord, shp_color)
+        normal_tex = dscene.materials.normal_tex[dscene.inst_material[inst]]
+    normal = eval_ops.eval_shading_normal(
+        dscene, s.isec_gn, verts, vidx, inst, flags, u, v, outgoing,
+        material.type, normal_tex, texcoord,
+        with_normalmap=config.has_normal_maps,
+        with_vertex_normals=config.has_vertex_normals,
+        refractive_present=4 in present,
+        instanced=config.inst_tables is not None,
+    )
+    if has_curves:
+        # lines: the tangent framed against the view; points: the
+        # normal is the outgoing direction
+        if config.n_lines > 0:
+            normal = torch.where(
+                _vec(is_line), orthonormalize(outgoing, s.isec_gn), normal)
+        if config.n_points > 0:
+            normal = torch.where(_vec(is_point), outgoing, normal)
+
+    max_roughness = s.max_roughness
+    if is_path and options.nocaustics:
+        # clamp roughness to the running max
+        max_roughness = torch.where(
+            surf, torch.maximum(material.roughness, max_roughness),
+            max_roughness,
+        )
+        material = material._replace(
+            roughness=torch.where(surf, max_roughness, material.roughness)
+        )
+
+    # ---- stochastic opacity
+    if config.has_opacity:
+        r_op, rng = rng_mod.rand1f(rng)
+        op_skip = surf & (material.opacity < 1.0) & (r_op >= material.opacity)
+        op_dead = op_skip & (s.opbounce > 128)
+        alive = alive & ~op_dead
+        op_skip = op_skip & ~op_dead
+        opbounce = torch.where(op_skip, s.opbounce + 1, s.opbounce)
+        bounce = torch.where(op_skip, bounce - 1, bounce)
+        surf = surf & ~op_skip
+    else:
+        op_skip = full((n,), False, torch.bool)
+        opbounce = s.opbounce
+
+    # ---- first-hit AOVs
+    first = surf & (bounce == 0)
+    hit_flag = s.hit_flag | first
+    hit_albedo = torch.where(_vec(first), material.color, s.hit_albedo)
+    hit_normal = torch.where(_vec(first), normal, s.hit_normal)
+
+    # ---- emission
+    radiance = radiance + torch.where(
+        _vec(surf), weight * eval_ops.eval_emission(material, normal, outgoing),
+        0.0,
+    )
+
+    # ---- direction sampling
+    r_half, rng = rng_mod.rand1f(rng)
+    rnl, rng = rng_mod.rand1f(rng)
+    rn, rng = rng_mod.rand2f(rng)
+    if is_path and has_lights:
+        rl_pick, rng = rng_mod.rand1f(rng)
+        rl_el, rng = rng_mod.rand1f(rng)
+        rl_uv, rng = rng_mod.rand2f(rng)
+
+    delta = eval_ops.is_delta(material)
+    bsdf_dir = dispatch.sample_bsdfcos(
+        material, normal, outgoing, rnl, rn, present=present
+    )
+    d_incoming = dispatch.sample_delta(
+        material, normal, outgoing, rnl, present=present
+    )
+    if is_path:
+        if has_lights:
+            light_dir = lights_mod.sample_lights(
+                dscene, dscene.lights, counts, position, rl_pick, rl_el, rl_uv
+            )
+            nd_incoming = torch.where(_vec(r_half < 0.5), bsdf_dir, light_dir)
+        else:
+            nd_incoming = torch.where(_vec(r_half < 0.5), bsdf_dir, 0.0)
+        incoming = torch.where(_vec(delta), d_incoming, nd_incoming)
+    else:
+        # naive: bsdf-importance only; rough-vs-delta on roughness != 0
+        rough = material.roughness != 0.0
+        incoming = torch.where(_vec(rough), bsdf_dir, d_incoming)
+        delta = ~rough
+    # detached sampling: sampled directions are not differentiated
+    # (JAX integrator.py:926)
+    incoming = incoming.detach()
+
+    zero_inc = surf & (torch.abs(incoming).sum(dim=-1) == 0.0)
+    alive = alive & ~zero_inc
+    surf = surf & ~zero_inc
+
+    # ---- volume scatter direction
+    vol = alive & in_volume
+    if is_path and config.has_volumes:
+        vol_position = s.ro + s.rd * dist[..., None]
+        phase_dir = dispatch.sample_scattering(
+            s.vol_density, s.vol_aniso, outgoing, rn
+        )
+        if has_lights:
+            vol_light_dir = lights_mod.sample_lights(
+                dscene, dscene.lights, counts, vol_position, rl_pick,
+                rl_el, rl_uv,
+            )
+            vol_incoming = torch.where(
+                _vec(r_half < 0.5), phase_dir, vol_light_dir
+            )
+        else:
+            vol_incoming = phase_dir
+        vol_incoming = vol_incoming.detach()  # JAX integrator.py:943
+        vol_zero = vol & (torch.abs(vol_incoming).sum(dim=-1) == 0.0)
+        alive = alive & ~vol_zero
+        vol = vol & ~vol_zero
+    else:
+        vol_position = position
+        vol_incoming = incoming
+
+    # ---- next ray (opacity skips continue straight)
+    new_ro = torch.where(
+        _vec(op_skip),
+        position + s.rd * 0.01,
+        torch.where(_vec(vol), vol_position, position),
+    )
+    new_rd = torch.where(
+        _vec(op_skip), s.rd, torch.where(_vec(vol), vol_incoming, incoming)
+    )
+
+    # ---- wavefront sort before the traversal: lanes ordered by
+    # (liveness, octant, morton); dead lanes go to the tail
+    vol_density, vol_scattering = s.vol_density, s.vol_scattering
+    vol_aniso, has_vol, idx = s.vol_aniso, s.has_vol, s.idx
+    if do_sort:
+        key = _sort_key(new_ro, new_rd, scene_vmin, scene_vmax)
+        key = torch.where(alive, key, 0x7FFFFFFF)
+        perm = torch.argsort(key, stable=True)
+        (new_ro, new_rd, material, normal, outgoing, incoming,
+         vol_incoming, delta, surf, vol, op_skip, weight, radiance, rng,
+         bounce, opbounce, alive, hit_flag, hit_albedo, hit_normal,
+         max_roughness, vol_density, vol_scattering, vol_aniso, has_vol,
+         idx) = _take(
+            (new_ro, new_rd, material, normal, outgoing, incoming,
+             vol_incoming, delta, surf, vol, op_skip, weight, radiance,
+             rng, bounce, opbounce, alive, hit_flag, hit_albedo,
+             hit_normal, max_roughness, vol_density, vol_scattering,
+             vol_aniso, has_vol, idx), perm)
+
+    # ---- ONE traversal: the next bounce's hit. Dead lanes carry
+    # tmax = -1 so every test against them fails.
+    tmax = torch.where(alive, F32_MAX, -1.0)
+    nxt = query(new_ro, new_rd, full((n,), RAY_EPS), tmax)
+
+    # ---- weight updates
+    if is_path:
+        # the march (more than EXACT_ELEMS emissive elements) reuses
+        # this bounce's hit as its first step and re-traces through
+        # the primary intersector
+        lights_pdf = (
+            lights_mod.sample_lights_pdf(
+                dscene, dscene.lights, counts, new_ro, new_rd,
+                intersect_fn=b.primary, first_hit=nxt,
+                extra_steps=options.light_pdf_extra_steps,
+            )
+            if has_lights
+            else full((n,), 0.0)
+        )
+        # non-delta surface MIS
+        f_nd = dispatch.eval_bsdfcos(
+            material, normal, outgoing, incoming, present=present
+        )
+        pdf_b = dispatch.sample_bsdfcos_pdf(
+            material, normal, outgoing, incoming, present=present
+        )
+        # pdfs are detached: the sampling measure is not
+        # differentiated (JAX integrator.py:1032, :1038, :1053)
+        denom_nd = (0.5 * pdf_b + 0.5 * lights_pdf).detach()
+        w_nd = f_nd / torch.clamp(denom_nd, min=1e-30)[..., None]
+        # delta
+        f_d = dispatch.eval_delta(
+            material, normal, outgoing, incoming, present=present
+        )
+        pdf_d = dispatch.sample_delta_pdf(
+            material, normal, outgoing, incoming, present=present
+        ).detach()
+        w_d = f_d / torch.clamp(pdf_d, min=1e-30)[..., None]
+        w_surf = torch.where(_vec(delta), w_d, w_nd)
+        if config.has_volumes:
+            # in-volume MIS
+            f_v = dispatch.eval_scattering(
+                vol_scattering, vol_density, vol_aniso, outgoing,
+                vol_incoming,
+            )
+            pdf_v = dispatch.sample_scattering_pdf(
+                vol_density, vol_aniso, outgoing, vol_incoming
+            )
+            denom_v = (0.5 * pdf_v + 0.5 * lights_pdf).detach()
+            w_vol = f_v / torch.clamp(denom_v, min=1e-30)[..., None]
+            weight = torch.where(
+                _vec(surf), weight * w_surf,
+                torch.where(_vec(vol), weight * w_vol, weight),
+            )
+        else:
+            weight = torch.where(_vec(surf), weight * w_surf, weight)
+    else:
+        f_r = dispatch.eval_bsdfcos(
+            material, normal, outgoing, incoming, present=present
+        )
+        pdf_r = dispatch.sample_bsdfcos_pdf(
+            material, normal, outgoing, incoming, present=present
+        ).detach()  # JAX integrator.py:1073
+        f_d = dispatch.eval_delta(
+            material, normal, outgoing, incoming, present=present
+        )
+        pdf_d = dispatch.sample_delta_pdf(
+            material, normal, outgoing, incoming, present=present
+        ).detach()  # JAX integrator.py:1074
+        w_r = f_r / torch.clamp(pdf_r, min=1e-30)[..., None]
+        w_d = f_d / torch.clamp(pdf_d, min=1e-30)[..., None]
+        weight = torch.where(
+            _vec(surf), weight * torch.where(_vec(delta), w_d, w_r), weight
+        )
+
+    # ---- volume stack push/pop
+    if is_path and config.has_volumes:
+        transmitted = (
+            eval_ops.is_volumetric_type(material.type)
+            & (dot(normal, outgoing) * dot(normal, incoming) < 0)
+            & surf
+        )
+        push = transmitted & ~has_vol
+        pop = transmitted & has_vol
+        vol_density = torch.where(_vec(push), material.density, vol_density)
+        vol_scattering = torch.where(
+            _vec(push), material.scattering, vol_scattering
+        )
+        vol_aniso = torch.where(push, material.scanisotropy, vol_aniso)
+        has_vol = (has_vol | push) & ~pop
+
+    # ---- weight zero / non-finite break
+    stepped = (surf | vol) & alive
+    w_zero = torch.abs(weight).sum(dim=-1) == 0.0
+    w_bad = ~torch.isfinite(weight).all(dim=-1)
+    alive = alive & ~(stepped & (w_zero | w_bad))
+
+    # ---- Russian roulette
+    r_rr, rng = rng_mod.rand1f(rng)
+    rr_lane = stepped & alive & (bounce > 3)
+    # detached (JAX integrator.py:1107)
+    rr_prob = torch.clamp(weight.amax(dim=-1), max=0.99).detach()
+    rr_die = rr_lane & (r_rr >= rr_prob)
+    alive = alive & ~rr_die
+    weight = torch.where(
+        _vec(rr_lane & ~rr_die),
+        weight / torch.clamp(rr_prob, min=1e-30)[..., None],
+        weight,
+    )
+
+    # ---- loop condition (while bounce < bounces)
+    alive = alive & (bounce < options.bounces)
+
+    return TraceVars(
+        ro=new_ro, rd=new_rd,
+        isec_hit=nxt.hit, isec_prim=nxt.prim, isec_u=nxt.u,
+        isec_v=nxt.v, isec_t=nxt.t, isec_pos=nxt.position,
+        isec_gn=nxt.gnormal, isec_inst=nxt.instance,
+        radiance=radiance, weight=weight, rng=rng, bounce=bounce,
+        opbounce=opbounce, alive=alive, hit_flag=hit_flag,
+        hit_albedo=hit_albedo, hit_normal=hit_normal,
+        max_roughness=max_roughness, vol_density=vol_density,
+        vol_scattering=vol_scattering, vol_aniso=vol_aniso,
+        has_vol=has_vol, idx=idx,
+    )
+
+
+def _miss(ro, tmax) -> Hit:
+    """A miss of every ray of `ro`: shade_plain's stand-in for a hit."""
+    n, dev = ro.shape[0], ro.device
+    z = torch.zeros(n, device=dev)
+    return Hit(torch.zeros(n, dtype=torch.bool, device=dev),
+               torch.full((n,), -1, dtype=torch.int32, device=dev), z, z, tmax,
+               torch.zeros_like(ro), torch.zeros_like(ro),
+               torch.zeros(n, dtype=torch.int32, device=dev))
+
+
+def shade_plain(b: Bounce, s: TraceVars) -> ShadeOut:
+    """The eager bounce's shading, the plain version of csrc/shade_path.cu
+    (ops/shade_path.py): `eager_bounce` with a stand-in for its intersect
+    that keeps the query (the next ray, tmin, tmax) and reports a miss. On
+    the traces that shade_route covers the weight update reads nothing of
+    the hit (the light pdf is the exact sweep), so the fields are the
+    bounce's."""
+    kept = []
+
+    def query(ro, rd, tmin, tmax):
+        kept.append((ro, rd, tmin, tmax))
+        return _miss(ro, tmax)
+
+    out = eager_bounce(b, s, query)
+    return ShadeOut(*kept[0], out.radiance, out.weight, out.rng, out.bounce,
+                    out.alive, out.hit_flag, out.hit_albedo, out.hit_normal)
+
+
+# device types on which shade_route may take the shading kernel
+SHADE_PATH_DEVICES = ("cuda",)
+
+
+def shade_route(device, config: SceneConfig, options: TraceOptions) -> bool:
+    """Whether a trace shades its bodies in one kernel (ops/shade_path.py,
+    csrc/shade_path.cu) and not in the eager bounce: on a device of
+    SHADE_PATH_DEVICES, the path sampler's while loop, unsorted, without
+    nocaustics, on a scene with instances and with no environment,
+    volume, opacity, texture, normal map or vertex normal, at most
+    lights.EXACT_ELEMS emissive elements (the light pdf's exact sweep,
+    which reads the next ray and not its hit) and only matte and glossy
+    materials (no delta lobe on any lane). Vertex texcoords are then
+    unused and vertex colours are covered."""
+    return (device.type in SHADE_PATH_DEVICES
+            and options.sampler == "path" and not options.fixed_iterations
+            and not options.sort_rays and not options.nocaustics
+            and config.n_instances > 0 and config.n_envs == 0
+            and not config.has_volumes and not config.has_opacity
+            and not config.has_textures and not config.has_normal_maps
+            and not config.has_vertex_normals
+            and config.light_counts.total_inst_elems <= lights_mod.EXACT_ELEMS
+            and set(config.present_types) <= {0, 1})
+
+
+
 def trace_wavefront(dscene: DeviceScene, config: SceneConfig,
                     options: TraceOptions, ro, rd, rng_state,
                     intersector: Intersector | None = None, graphs=None):
@@ -743,12 +1211,7 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersector, graphs):
     if fixed:
         intersector = intersector.differentiable(dscene)
     do_sort = options.sort_rays and not fixed
-    is_path = options.sampler == "path"
-    counts = config.light_counts
-    has_lights = counts.total > 0
-    present = config.present_types
-    n_prim = dscene.prim_verts.shape[0]
-    n_inst = dscene.inst_frame.shape[0]
+    sort_box = None
 
     def full(shape, value, dtype=torch.float32):
         return torch.full(shape, value, dtype=dtype, device=dev)
@@ -756,10 +1219,9 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersector, graphs):
     with span("primary_hit"):
         idx0 = torch.arange(n, dtype=torch.int32, device=dev)
         if do_sort:
-            scene_vmin, scene_vmax = sort_bounds(dscene, config)
+            sort_box = sort_bounds(dscene, config)
             # camera rays arrive in scanline order: sort them too
-            perm0 = torch.argsort(_sort_key(ro, rd, scene_vmin, scene_vmax),
-                                  stable=True)
+            perm0 = torch.argsort(_sort_key(ro, rd, *sort_box), stable=True)
             ro, rd, rng_state, idx0 = (x[perm0]
                                        for x in (ro, rd, rng_state, idx0))
         h0 = intersector.primary(ro, rd, full((n,), RAY_EPS),
@@ -783,375 +1245,35 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersector, graphs):
         idx=idx0,
     )
 
-    def bounce_step(s: TraceVars) -> TraceVars:
-        # width-polymorphic: the two-phase dispatch re-enters with a
-        # narrowed state, so lane-shaped constants derive from the state
-        n = s.alive.shape[0]
-        alive = s.alive
-        bounce = torch.where(alive, s.bounce + 1, s.bounce)
-        rng = s.rng
-        radiance, weight = s.radiance, s.weight
-        outgoing = -s.rd
+    b = Bounce(dscene, config, options, fixed, sort_box, intersector.primary)
+    # the shading kernel's route, chosen once a trace; under a
+    # TorchDispatchMode (utils/roofline.py count_cost) the eager bounce,
+    # whose ops the mode counts
+    fused = (shade_route(dev, config, options)
+             and _get_current_dispatch_mode() is None)
+    tables = shade_path.make_tables(dscene, config, options) if fused else None
+    plain = functools.partial(shade_plain, b)
 
-        # ---- miss: environment lookup
-        miss = alive & ~s.isec_hit
-        if config.n_envs > 0:
-            env_ok = (bounce > 0) if options.envhidden else full((n,), True, torch.bool)
-            env = eval_ops.eval_environment(dscene, s.rd)
-            radiance = radiance + torch.where(_vec(miss & env_ok), weight * env, 0.0)
-        alive = alive & s.isec_hit
-
-        # ---- volume transmittance
-        if is_path and config.has_volumes:
-            in_med = alive & s.has_vol
-            rl, rng = rng_mod.rand1f(rng)
-            rdist, rng = rng_mod.rand1f(rng)
-            dist = bsdf_ops.sample_transmittance(s.vol_density, s.isec_t, rl, rdist)
-            trans = bsdf_ops.eval_transmittance(s.vol_density, dist)
-            tpdf = bsdf_ops.sample_transmittance_pdf(
-                s.vol_density, dist, s.isec_t).detach()  # JAX integrator.py:746
-            weight = torch.where(
-                _vec(in_med),
-                weight * trans / torch.clamp(tpdf, min=1e-30)[..., None],
-                weight,
-            )
-            in_volume = in_med & (dist < s.isec_t)
-        else:
-            in_volume = full((n,), False, torch.bool)
-            dist = s.isec_t
-
-        surf = alive & ~in_volume
-
-        # ---- surface evaluation; position and element normal come from
-        # the intersector
-        prim = s.isec_prim.clamp(0, max(n_prim - 1, 0))
-        # slack lanes of a packed state hold unspecified bits: clamp ids
-        # before they index a table
-        inst = s.isec_inst.clamp(0, n_inst - 1)
-        u, v = s.isec_u, s.isec_v
-        position = s.isec_pos
-        need_attrs = (
-            config.has_texcoords or config.has_colors
-            or config.has_vertex_normals or config.has_normal_maps
-        )
-        if need_attrs:
-            vidx = dscene.prim_vidx[prim]
-            flags = dscene.prim_flags[prim]
-        else:
-            vidx = flags = None
-        verts = dscene.prim_verts[prim] if config.has_normal_maps else None
-        if config.has_texcoords:
-            texcoord = eval_ops.eval_texcoord(dscene, vidx, flags, u, v)
-        else:
-            texcoord = torch.stack([u, v], dim=-1)
-        if config.has_colors:
-            shp_color = eval_ops.eval_color_attr(dscene, vidx, flags, u, v)
-        else:
-            shp_color = full(u.shape + (4,), 1.0)
-        # curve attribute overrides (prim ids >= Q: lines, then points)
-        has_curves = config.n_lines > 0 or config.n_points > 0
-        if has_curves:
-            is_line = (s.isec_hit & (s.isec_prim >= n_prim)
-                       & (s.isec_prim < n_prim + config.n_lines))
-            is_point = s.isec_hit & (s.isec_prim >= n_prim + config.n_lines)
-            if config.n_lines > 0:
-                lat = dscene.line_attr[
-                    (s.isec_prim - n_prim).clamp(0, config.n_lines - 1)]
-                wu = u[:, None]
-                l_tc = lat[:, 0, 3:5] * (1.0 - wu) + lat[:, 1, 3:5] * wu
-                l_col = lat[:, 0, 5:9] * (1.0 - wu) + lat[:, 1, 5:9] * wu
-                texcoord = torch.where(_vec(is_line), l_tc, texcoord)
-                shp_color = torch.where(_vec(is_line), l_col, shp_color)
-            if config.n_points > 0:
-                pat = dscene.point_attr[(s.isec_prim - n_prim - config.n_lines)
-                                        .clamp(0, config.n_points - 1)]
-                texcoord = torch.where(_vec(is_point), pat[:, 3:5], texcoord)
-                shp_color = torch.where(_vec(is_point), pat[:, 5:9], shp_color)
-        # folded per-instance material rows for small scenes; not in the
-        # fixed-trip loop, whose gradients flow to dscene.materials (JAX
-        # integrator.py:812)
-        dense_mats = 0 < config.n_instances <= 64 and not fixed
-        if dense_mats and not config.has_textures:
-            material = eval_ops.eval_material_dense(dscene, inst, shp_color)
-            normal_tex = full((n,), -1, torch.int32)
-        elif dense_mats:
-            rows = dscene.inst_mat_dense[inst]
-            material = eval_ops.eval_material_rows(dscene, rows, texcoord, shp_color)
-            normal_tex = rows[..., 20].to(torch.int32)
-        else:
-            material = eval_ops.eval_material(dscene, inst, texcoord, shp_color)
-            normal_tex = dscene.materials.normal_tex[dscene.inst_material[inst]]
-        normal = eval_ops.eval_shading_normal(
-            dscene, s.isec_gn, verts, vidx, inst, flags, u, v, outgoing,
-            material.type, normal_tex, texcoord,
-            with_normalmap=config.has_normal_maps,
-            with_vertex_normals=config.has_vertex_normals,
-            refractive_present=4 in present,
-            instanced=config.inst_tables is not None,
-        )
-        if has_curves:
-            # lines: the tangent framed against the view; points: the
-            # normal is the outgoing direction
-            if config.n_lines > 0:
-                normal = torch.where(
-                    _vec(is_line), orthonormalize(outgoing, s.isec_gn), normal)
-            if config.n_points > 0:
-                normal = torch.where(_vec(is_point), outgoing, normal)
-
-        max_roughness = s.max_roughness
-        if is_path and options.nocaustics:
-            # clamp roughness to the running max
-            max_roughness = torch.where(
-                surf, torch.maximum(material.roughness, max_roughness),
-                max_roughness,
-            )
-            material = material._replace(
-                roughness=torch.where(surf, max_roughness, material.roughness)
-            )
-
-        # ---- stochastic opacity
-        if config.has_opacity:
-            r_op, rng = rng_mod.rand1f(rng)
-            op_skip = surf & (material.opacity < 1.0) & (r_op >= material.opacity)
-            op_dead = op_skip & (s.opbounce > 128)
-            alive = alive & ~op_dead
-            op_skip = op_skip & ~op_dead
-            opbounce = torch.where(op_skip, s.opbounce + 1, s.opbounce)
-            bounce = torch.where(op_skip, bounce - 1, bounce)
-            surf = surf & ~op_skip
-        else:
-            op_skip = full((n,), False, torch.bool)
-            opbounce = s.opbounce
-
-        # ---- first-hit AOVs
-        first = surf & (bounce == 0)
-        hit_flag = s.hit_flag | first
-        hit_albedo = torch.where(_vec(first), material.color, s.hit_albedo)
-        hit_normal = torch.where(_vec(first), normal, s.hit_normal)
-
-        # ---- emission
-        radiance = radiance + torch.where(
-            _vec(surf), weight * eval_ops.eval_emission(material, normal, outgoing),
-            0.0,
-        )
-
-        # ---- direction sampling
-        r_half, rng = rng_mod.rand1f(rng)
-        rnl, rng = rng_mod.rand1f(rng)
-        rn, rng = rng_mod.rand2f(rng)
-        if is_path and has_lights:
-            rl_pick, rng = rng_mod.rand1f(rng)
-            rl_el, rng = rng_mod.rand1f(rng)
-            rl_uv, rng = rng_mod.rand2f(rng)
-
-        delta = eval_ops.is_delta(material)
-        bsdf_dir = dispatch.sample_bsdfcos(
-            material, normal, outgoing, rnl, rn, present=present
-        )
-        d_incoming = dispatch.sample_delta(
-            material, normal, outgoing, rnl, present=present
-        )
-        if is_path:
-            if has_lights:
-                light_dir = lights_mod.sample_lights(
-                    dscene, dscene.lights, counts, position, rl_pick, rl_el, rl_uv
-                )
-                nd_incoming = torch.where(_vec(r_half < 0.5), bsdf_dir, light_dir)
-            else:
-                nd_incoming = torch.where(_vec(r_half < 0.5), bsdf_dir, 0.0)
-            incoming = torch.where(_vec(delta), d_incoming, nd_incoming)
-        else:
-            # naive: bsdf-importance only; rough-vs-delta on roughness != 0
-            rough = material.roughness != 0.0
-            incoming = torch.where(_vec(rough), bsdf_dir, d_incoming)
-            delta = ~rough
-        # detached sampling: sampled directions are not differentiated
-        # (JAX integrator.py:926)
-        incoming = incoming.detach()
-
-        zero_inc = surf & (torch.abs(incoming).sum(dim=-1) == 0.0)
-        alive = alive & ~zero_inc
-        surf = surf & ~zero_inc
-
-        # ---- volume scatter direction
-        vol = alive & in_volume
-        if is_path and config.has_volumes:
-            vol_position = s.ro + s.rd * dist[..., None]
-            phase_dir = dispatch.sample_scattering(
-                s.vol_density, s.vol_aniso, outgoing, rn
-            )
-            if has_lights:
-                vol_light_dir = lights_mod.sample_lights(
-                    dscene, dscene.lights, counts, vol_position, rl_pick,
-                    rl_el, rl_uv,
-                )
-                vol_incoming = torch.where(
-                    _vec(r_half < 0.5), phase_dir, vol_light_dir
-                )
-            else:
-                vol_incoming = phase_dir
-            vol_incoming = vol_incoming.detach()  # JAX integrator.py:943
-            vol_zero = vol & (torch.abs(vol_incoming).sum(dim=-1) == 0.0)
-            alive = alive & ~vol_zero
-            vol = vol & ~vol_zero
-        else:
-            vol_position = position
-            vol_incoming = incoming
-
-        # ---- next ray (opacity skips continue straight)
-        new_ro = torch.where(
-            _vec(op_skip),
-            position + s.rd * 0.01,
-            torch.where(_vec(vol), vol_position, position),
-        )
-        new_rd = torch.where(
-            _vec(op_skip), s.rd, torch.where(_vec(vol), vol_incoming, incoming)
-        )
-
-        # ---- wavefront sort before the traversal: lanes ordered by
-        # (liveness, octant, morton); dead lanes go to the tail
-        vol_density, vol_scattering = s.vol_density, s.vol_scattering
-        vol_aniso, has_vol, idx = s.vol_aniso, s.has_vol, s.idx
-        if do_sort:
-            key = _sort_key(new_ro, new_rd, scene_vmin, scene_vmax)
-            key = torch.where(alive, key, 0x7FFFFFFF)
-            perm = torch.argsort(key, stable=True)
-            (new_ro, new_rd, material, normal, outgoing, incoming,
-             vol_incoming, delta, surf, vol, op_skip, weight, radiance, rng,
-             bounce, opbounce, alive, hit_flag, hit_albedo, hit_normal,
-             max_roughness, vol_density, vol_scattering, vol_aniso, has_vol,
-             idx) = _take(
-                (new_ro, new_rd, material, normal, outgoing, incoming,
-                 vol_incoming, delta, surf, vol, op_skip, weight, radiance,
-                 rng, bounce, opbounce, alive, hit_flag, hit_albedo,
-                 hit_normal, max_roughness, vol_density, vol_scattering,
-                 vol_aniso, has_vol, idx), perm)
-
-        # ---- ONE traversal: the next bounce's hit. Dead lanes carry
-        # tmax = -1 so every test against them fails.
-        tmax = torch.where(alive, F32_MAX, -1.0)
+    def query(ro, rd, tmin, tmax):
         with span("intersect"):
-            nxt = intersector.hit(new_ro, new_rd, full((n,), RAY_EPS), tmax)
+            return intersector.hit(ro, rd, tmin, tmax)
 
-        # ---- weight updates
-        if is_path:
-            # the march (more than EXACT_ELEMS emissive elements) reuses
-            # this bounce's hit as its first step and re-traces through
-            # the primary intersector
-            lights_pdf = (
-                lights_mod.sample_lights_pdf(
-                    dscene, dscene.lights, counts, new_ro, new_rd,
-                    intersect_fn=intersector.primary, first_hit=nxt,
-                    extra_steps=options.light_pdf_extra_steps,
-                )
-                if has_lights
-                else full((n,), 0.0)
-            )
-            # non-delta surface MIS
-            f_nd = dispatch.eval_bsdfcos(
-                material, normal, outgoing, incoming, present=present
-            )
-            pdf_b = dispatch.sample_bsdfcos_pdf(
-                material, normal, outgoing, incoming, present=present
-            )
-            # pdfs are detached: the sampling measure is not
-            # differentiated (JAX integrator.py:1032, :1038, :1053)
-            denom_nd = (0.5 * pdf_b + 0.5 * lights_pdf).detach()
-            w_nd = f_nd / torch.clamp(denom_nd, min=1e-30)[..., None]
-            # delta
-            f_d = dispatch.eval_delta(
-                material, normal, outgoing, incoming, present=present
-            )
-            pdf_d = dispatch.sample_delta_pdf(
-                material, normal, outgoing, incoming, present=present
-            ).detach()
-            w_d = f_d / torch.clamp(pdf_d, min=1e-30)[..., None]
-            w_surf = torch.where(_vec(delta), w_d, w_nd)
-            if config.has_volumes:
-                # in-volume MIS
-                f_v = dispatch.eval_scattering(
-                    vol_scattering, vol_density, vol_aniso, outgoing,
-                    vol_incoming,
-                )
-                pdf_v = dispatch.sample_scattering_pdf(
-                    vol_density, vol_aniso, outgoing, vol_incoming
-                )
-                denom_v = (0.5 * pdf_v + 0.5 * lights_pdf).detach()
-                w_vol = f_v / torch.clamp(denom_v, min=1e-30)[..., None]
-                weight = torch.where(
-                    _vec(surf), weight * w_surf,
-                    torch.where(_vec(vol), weight * w_vol, weight),
-                )
-            else:
-                weight = torch.where(_vec(surf), weight * w_surf, weight)
-        else:
-            f_r = dispatch.eval_bsdfcos(
-                material, normal, outgoing, incoming, present=present
-            )
-            pdf_r = dispatch.sample_bsdfcos_pdf(
-                material, normal, outgoing, incoming, present=present
-            ).detach()  # JAX integrator.py:1073
-            f_d = dispatch.eval_delta(
-                material, normal, outgoing, incoming, present=present
-            )
-            pdf_d = dispatch.sample_delta_pdf(
-                material, normal, outgoing, incoming, present=present
-            ).detach()  # JAX integrator.py:1074
-            w_r = f_r / torch.clamp(pdf_r, min=1e-30)[..., None]
-            w_d = f_d / torch.clamp(pdf_d, min=1e-30)[..., None]
-            weight = torch.where(
-                _vec(surf), weight * torch.where(_vec(delta), w_d, w_r), weight
-            )
-
-        # ---- volume stack push/pop
-        if is_path and config.has_volumes:
-            transmitted = (
-                eval_ops.is_volumetric_type(material.type)
-                & (dot(normal, outgoing) * dot(normal, incoming) < 0)
-                & surf
-            )
-            push = transmitted & ~has_vol
-            pop = transmitted & has_vol
-            vol_density = torch.where(_vec(push), material.density, vol_density)
-            vol_scattering = torch.where(
-                _vec(push), material.scattering, vol_scattering
-            )
-            vol_aniso = torch.where(push, material.scanisotropy, vol_aniso)
-            has_vol = (has_vol | push) & ~pop
-
-        # ---- weight zero / non-finite break
-        stepped = (surf | vol) & alive
-        w_zero = torch.abs(weight).sum(dim=-1) == 0.0
-        w_bad = ~torch.isfinite(weight).all(dim=-1)
-        alive = alive & ~(stepped & (w_zero | w_bad))
-
-        # ---- Russian roulette
-        r_rr, rng = rng_mod.rand1f(rng)
-        rr_lane = stepped & alive & (bounce > 3)
-        # detached (JAX integrator.py:1107)
-        rr_prob = torch.clamp(weight.amax(dim=-1), max=0.99).detach()
-        rr_die = rr_lane & (r_rr >= rr_prob)
-        alive = alive & ~rr_die
-        weight = torch.where(
-            _vec(rr_lane & ~rr_die),
-            weight / torch.clamp(rr_prob, min=1e-30)[..., None],
-            weight,
-        )
-
-        # ---- loop condition (while bounce < bounces)
-        alive = alive & (bounce < options.bounces)
-
+    def bounce_step(s: TraceVars) -> TraceVars:
+        if not fused:
+            return eager_bounce(b, s, query)
+        sh = shade_path.shade_path(tables, s, plain)
+        nxt = query(sh.ro, sh.rd, sh.tmin, sh.tmax)
         return TraceVars(
-            ro=new_ro, rd=new_rd,
+            ro=sh.ro, rd=sh.rd,
             isec_hit=nxt.hit, isec_prim=nxt.prim, isec_u=nxt.u,
             isec_v=nxt.v, isec_t=nxt.t, isec_pos=nxt.position,
             isec_gn=nxt.gnormal, isec_inst=nxt.instance,
-            radiance=radiance, weight=weight, rng=rng, bounce=bounce,
-            opbounce=opbounce, alive=alive, hit_flag=hit_flag,
-            hit_albedo=hit_albedo, hit_normal=hit_normal,
-            max_roughness=max_roughness, vol_density=vol_density,
-            vol_scattering=vol_scattering, vol_aniso=vol_aniso,
-            has_vol=has_vol, idx=idx,
+            radiance=sh.radiance, weight=sh.weight, rng=sh.rng,
+            bounce=sh.bounce, opbounce=s.opbounce, alive=sh.alive,
+            hit_flag=sh.hit_flag, hit_albedo=sh.hit_albedo,
+            hit_normal=sh.hit_normal, max_roughness=s.max_roughness,
+            vol_density=s.vol_density, vol_scattering=s.vol_scattering,
+            vol_aniso=s.vol_aniso, has_vol=s.has_vol, idx=s.idx,
         )
 
     def body(s: TraceVars, live: int | None = None) -> TraceVars:
@@ -1162,7 +1284,7 @@ def _trace(dscene, config, options, ro, rd, rng_state, intersector, graphs):
             with span("body"):
                 return bounce_step(s)
         with span("body", live=live, width=s.alive.shape[0],
-                  graphed=0) as sp:
+                  graphed=0, shaded=int(fused)) as sp:
             if graphs is None:
                 return bounce_step(s)
             s, graphed = graphs.run(bounce_step, s)

@@ -489,6 +489,52 @@ def cornell_scene() -> SceneData:
     )
 
 
+def _panel(y, x0, x1, z0, z1, nx, nz, triangles=False) -> ShapeData:
+    """A horizontal nx x nz grid of quads at height y facing down, or
+    each quad split in two triangles."""
+    xs, zs = np.linspace(x0, x1, nx + 1), np.linspace(z0, z1, nz + 1)
+    pos = _f32([(x, y, z) for z in zs for x in xs])
+    i, k = np.meshgrid(np.arange(nx), np.arange(nz), indexing="xy")
+    v = (k * (nx + 1) + i).reshape(-1)
+    quads = np.stack([v, v + nx + 1, v + nx + 2, v + 1], axis=-1)
+    if not triangles:
+        return ShapeData(quads=quads.astype(np.int32), positions=pos)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    return ShapeData(triangles=tris.astype(np.int32), positions=pos)
+
+
+def lit_panels_scene() -> SceneData:
+    """The Cornell room with the shading kernel's rarer inputs: the boxes
+    carry vertex colours, the tall one glossy (a dense material row of a
+    lobe other than matte); the light is two stacked emissive panels under
+    the ceiling, 20 quads at y 1.97 over 18 triangles at y 1.93, 38 light
+    elements, so the light pdf sums slabs of 16, 16 and 6, rays crossing
+    both panels add two terms, and the triangles take the triangle warp."""
+    white_walls, left, right, _ = _room()
+    boxes = [_box(0.33, 0.37, 0.6, 0.6, -17.0),
+             _box(-0.34, -0.29, 0.6, 1.2, 17.0)]
+    for b in boxes:
+        p = b.positions
+        b.colors = _f32(np.concatenate(
+            [0.4 + 0.5 * np.abs(np.sin(3.0 * p)), np.ones((len(p), 1))], 1))
+    shapes = [white_walls, left, right, *boxes,
+              _panel(1.97, -0.5, 0.5, -0.4, 0.4, 5, 4),
+              _panel(1.93, -0.3, 0.6, -0.5, 0.3, 3, 3, triangles=True)]
+    materials = [
+        MaterialData(color=_f32(WHITE)),
+        MaterialData(color=_f32(RED)),
+        MaterialData(color=_f32(GREEN)),
+        MaterialData(type=MaterialType.GLOSSY, color=_f32(WHITE),
+                     roughness=0.2, ior=1.5),
+        MaterialData(emission=_f32((4.0, 3.0, 2.0))),
+    ]
+    shape_material = [0, 1, 2, 0, 3, 4, 4]
+    return SceneData(
+        cameras=[_camera()], shapes=shapes, materials=materials,
+        instances=[InstanceData(shape=i, material=m)
+                   for i, m in enumerate(shape_material)])
+
+
 SPHERE_RADIUS = 0.14
 SPHERE_COLORS = ((0.8, 0.3, 0.2), (0.25, 0.5, 0.8), (0.85, 0.75, 0.4))
 

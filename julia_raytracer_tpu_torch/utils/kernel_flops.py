@@ -67,6 +67,19 @@ LINE_TEST_OPS = 71
 POINT_TEST_OPS = 29
 CURVE_ELEM_BYTES = 32  # an element of the walk's table
 CURVE_HIT_BYTES = 24  # line, t, u, v, point, t
+# the shading kernel (csrc/shade_path.cu) a lane: the state it reads (ray
+# direction 12, hit record 53, radiance and weight 24, RNG state, bounce
+# and flags 10, first-hit AOVs 24) and writes (next ray 24, tmin and tmax
+# 8, radiance and weight 24, RNG state, bounce and flags 10, AOVs 24)
+SHADE_IN_BYTES = 111
+SHADE_OUT_BYTES = 90
+# fp32 operations of a matte lane, counted in shade_path.cu: the facing
+# normal and emission 16, the basis and the cosine sample 57, the lobe's
+# value and pdf 30, the MIS weight and roulette 22; and of one light
+# triangle's test in the exact pdf (6 edge differences, 2 crosses 18, the
+# origin's difference 3, 4 dot products 20, the reciprocal and 3 products)
+SHADE_LANE_OPS = 125
+LIGHT_TRI_OPS = 51
 # fp32 operations of the regroup merge a ray (regroup_intersect.merge):
 # the triangle test's arithmetic on the winner, the odd-triangle flip (2)
 # and the position (6)
@@ -141,6 +154,18 @@ def curve_walk_cost(n_rays: int, elements: int) -> dict:
     return _cost(n_rays * (RAY_IN_BYTES + CURVE_HIT_BYTES)
                  + elements * CURVE_ELEM_BYTES,
                  n_rays * (LINE_TEST_OPS + POINT_TEST_OPS))
+
+
+def shade_path_cost(n_lanes: int, light_elements: int) -> dict:
+    """The shading kernel (not a pallas_call; csrc/shade_path.cu): each
+    lane's state in and out once (u, v and the prim counted whether or not
+    the scene reads them), the material rows and light elements, read
+    through the caches by every lane, not counted; a matte lane's
+    arithmetic and the exact light pdf's two triangle tests an element, the
+    least a lane needs (a floor: glossy lobes and the hits of the light
+    elements add more)."""
+    ops = SHADE_LANE_OPS + 2 * LIGHT_TRI_OPS * light_elements
+    return _cost(n_lanes * (SHADE_IN_BYTES + SHADE_OUT_BYTES), n_lanes * ops)
 
 
 def candidate_cull_cost(n_rays: int, n_groups: int, group: int, items: int,

@@ -7,7 +7,9 @@ available. Run them on a GPU machine with
 (`--noconftest`: tests/conftest.py imports jax, which the GPU machine
 need not have; this file imports only the port.)"""
 
+import functools
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -34,8 +36,9 @@ from julia_raytracer_tpu_torch.testing import (
     adversarial_rays, adversarial_trires, check_hits, check_vs_flat,
     cornell_scene, cull_boxes, cull_rays, dense_soup, grads_close,
     hairball_scene, hybrid_scene, image_close, instanced_scene,
-    many_lights_scene, param_grads, regroup_bits, render_instanced,
-    same_lists, sphere_grid_scene, sphereflake_scene, vertex_grads,
+    lit_panels_scene, many_lights_scene, param_grads, regroup_bits,
+    render_instanced, same_lists, sphere_grid_scene, sphereflake_scene,
+    vertex_grads,
 )
 from julia_raytracer_tpu_torch.utils import timing
 
@@ -1179,3 +1182,203 @@ def test_replayed_tree_frames_equal_eager_on_card(dev):
         assert (sum(r[key] for r in got_walk)
                 == sum(r[key] for r in want_walk)), key
     assert all(r["device_ns"] > 0 for r in got_walk + want_walk)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _slab_sum(x):
+    """ATen's float sum over the last axis of x [n, k] (1 <= k <= 16) on
+    the card as csrc/shade_path.cu slab_sum adds it: slots (x_t + x_t+W) +
+    0 for W = last_pow2(k), then a tree over halving offsets."""
+    k = x.shape[1]
+    w = 1 << (k.bit_length() - 1)
+    z = torch.zeros_like(x[:, 0])
+    v = [(x[:, t] + x[:, t + w] if t + w < k else x[:, t]) + z
+         for t in range(w)]
+    o = w // 2
+    while o:
+        v = [v[t] + v[t + o] for t in range(o)]
+        o //= 2
+    return v[0]
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_card_sum_order_is_the_shading_kernels(dev, k):
+    """ATen's sum over a contiguous last axis of k floats on the card adds
+    in the order csrc/shade_path.cu repeats (the light pdf's slabs, k up
+    to 16; every dot product, k = 3, as ((x0 + x2) + x1) + 0), on values
+    of mixed scales and signs where the order shows, -0.0 included."""
+    g = torch.Generator().manual_seed(k)
+    n = 200_000
+    x = (torch.randn(n, k, generator=g)
+         * 10.0 ** torch.randint(-6, 7, (n, k), generator=g)).to(dev)
+    x[::5] = torch.where(torch.rand(n // 5 + (n % 5 > 0), k, generator=g)
+                         .to(dev) < 0.3, -0.0, x[::5])
+    assert torch.equal(_bits(x.sum(-1)), _bits(_slab_sum(x)))
+    if k == 3:
+        want = ((x[:, 0] + x[:, 2]) + x[:, 1]) + 0.0
+        assert torch.equal(_bits(x.sum(-1)), _bits(want))
+
+
+def _shade_checked(dev, scene, params, frames=1):
+    """`frames` frames of `scene` with eager bodies on the card, each
+    body's shading by the kernel held to its plain version (the eager
+    bounce's) on the same state: {field: lanes that differ in any bit} and
+    the widths seen."""
+    from julia_raytracer_tpu_torch.ops import shade_path as sp
+
+    r = Renderer(scene, params, device=dev)
+    r.body_graphs = None
+    st = make_trace_state(scene, params, device=dev)
+    real = sp.shade_path
+    differ, widths = {f: 0 for f in sp.ShadeOut._fields}, []
+
+    def checking(tables, s, plain):
+        got = real(tables, s, plain)
+        want = plain(s)
+        n = s.alive.shape[0]
+        widths.append(n)
+        for f, a, b in zip(sp.ShadeOut._fields, got, want, strict=True):
+            differ[f] += int((_bits(a) != _bits(b)).reshape(n, -1)
+                             .any(1).sum())
+        return got
+
+    checking.launches = 0
+    with mock.patch.object(sp, "shade_path", checking):
+        for _ in range(frames):
+            r.trace_samples(st)
+    torch.cuda.synchronize()
+    return differ, widths
+
+
+def _shade_scene(name):
+    """(scene, extra Params) of the shading tests: the three render cells'
+    scenes (the flake at size factor 2, forced through its cell's route)
+    and lit_panels_scene."""
+    if name == "cornell":
+        return cornell_scene(), {}
+    if name == "tree":
+        from benchmark.modes.render_curves import to_program_scene
+        from benchmark.scenes import spd_tree
+
+        return to_program_scene(spd_tree.build()), {}
+    if name == "flake":
+        return sphereflake_scene(2, 4), dict(hybrid_budget=8)
+    return lit_panels_scene(), {}
+
+
+@pytest.mark.parametrize("name", ["cornell", "flake", "tree", "lit_panels"])
+def test_shade_kernel_equals_plain_on_every_lane(dev, name):
+    """A 1280² frame, 8 bounces, bodies at 1,048,576 lanes and at the
+    narrower widths after compaction (262,144 where the live lanes pass
+    through it; the tree's background rays die at once, so its survivors
+    fit 65,536): on every body the kernel's next ray, tmin, tmax,
+    radiance, weight, RNG state, bounce, alive, hit flag and AOVs equal
+    the eager shading's bit for bit on every lane, the dead lanes
+    included."""
+    from julia_raytracer_tpu_torch.render import scene_device
+
+    scene, extra = _shade_scene(name)
+    params = Params(resolution=1280, samples=1 << 20, batch=1, bounces=8,
+                    seed=13, **extra)
+    with mock.patch.object(scene_device, "_should_instance",
+                           lambda s: name == "flake"):
+        differ, widths = _shade_checked(dev, scene, params)
+    want = {1 << 20, 1 << 16} if name == "tree" else {1 << 20, 1 << 18}
+    assert want <= set(widths)
+    assert differ == {f: 0 for f in differ}
+
+
+def _shade_frames(dev, scene, params, graphed, fused, frames=2):
+    with mock.patch.object(tint, "SHADE_PATH_DEVICES",
+                           ("cuda",) if fused else ()):
+        r = Renderer(scene, params, device=dev)
+        if not graphed:
+            r.body_graphs = None
+        st = make_trace_state(scene, params, device=dev)
+        t0 = timing._now()
+        for _ in range(frames):
+            r.trace_samples(st)
+        torch.cuda.synchronize()
+    rows = [row for u in timing.units() if u["start_ns"] >= t0
+            for path, row in u["table"].items() if path.endswith("/body")]
+    return [x.clone() for x in (st.image, st.albedo, st.normal, st.hits)], rows
+
+
+@pytest.mark.parametrize("name", ["cornell", "tree"])
+def test_shaded_graphed_frames_equal_eager_frames_on_card(dev, name):
+    """Two 1280² frames replayed from CUDA graphs on the kernel's route
+    equal two eager frames of the eager bounce bit for bit (image, AOVs,
+    hits); every body of the first is `shaded`, none of the second."""
+    scene, extra = _shade_scene(name)
+    params = Params(resolution=1280, samples=1 << 20, batch=1, bounces=8,
+                    seed=17, **extra)
+    got, got_rows = _shade_frames(dev, scene, params, True, True)
+    want, want_rows = _shade_frames(dev, scene, params, False, False)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    bodies = sum(r["n"] for r in got_rows)
+    assert bodies == sum(r["n"] for r in want_rows) > 0
+    assert sum(r["shaded"] for r in got_rows) == bodies
+    assert sum(r["graphed"] for r in got_rows) > 0
+    assert sum(r["shaded"] for r in want_rows) == 0
+
+
+def test_uncovered_scene_is_not_shaded_on_card(dev):
+    """The Cornell box with its tall box refractive (a delta lobe, a
+    volume) stays on the eager bounce: no body `shaded`, no kernel launch,
+    and its frames equal those of a trace with the route switched off."""
+    from julia_raytracer_tpu_torch.ops import shade_path as sp
+    from julia_raytracer_tpu_torch.scene.types import (
+        MaterialData, MaterialType,
+    )
+
+    scene = cornell_scene()
+    scene.materials.append(MaterialData(
+        type=MaterialType.REFRACTIVE, color=np.full(3, 0.9, np.float32),
+        ior=1.5))
+    scene.instances[4].material = len(scene.materials) - 1
+    params = Params(resolution=256, samples=1 << 20, batch=1, bounces=8,
+                    seed=19)
+    sp.shade_path.launches = 0
+    got, rows = _shade_frames(dev, scene, params, True, True)
+    want, _ = _shade_frames(dev, scene, params, True, False)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert sum(r["n"] for r in rows) > 0
+    assert sum(r["shaded"] for r in rows) == 0
+    assert sp.shade_path.launches == 0
+
+
+def test_shade_kernel_rejects_bad_state_on_card(dev):
+    """A state of another dtype, shape or layout raises before a launch."""
+    from julia_raytracer_tpu_torch.ops import shade_path as sp
+
+    scene = cornell_scene()
+    params = Params(resolution=64, samples=1 << 20, batch=1, bounces=8)
+    r = Renderer(scene, params, device=dev)
+    r.body_graphs = None
+    kept = []
+    real = tint.eager_bounce
+
+    def keeping(b, s, query):
+        kept.append((b, s))
+        return real(b, s, query)
+
+    with mock.patch.object(tint, "SHADE_PATH_DEVICES", ()), \
+            mock.patch.object(tint, "eager_bounce", keeping):
+        r.trace_samples(make_trace_state(scene, params, device=dev))
+    b, s = kept[0]
+    tables = sp.make_tables(b.dscene, b.config, b.options)
+    plain = functools.partial(tint.shade_plain, b)
+    out = sp.shade_path(tables, s, plain)
+    assert all(torch.equal(_bits(x), _bits(y))
+               for x, y in zip(out, plain(s), strict=True))
+    for bad in (s._replace(weight=s.weight.double()),
+                s._replace(isec_prim=s.isec_prim.long()),
+                s._replace(rd=s.rd[:-1]),
+                s._replace(hit_normal=s.hit_normal.t().contiguous().t())):
+        with pytest.raises(ValueError, match="shade_path"):
+            sp.shade_path(tables, bad, plain)
