@@ -28,7 +28,9 @@ _make_kernel_worklist (julia_raytracer_tpu/ops/pallas_cluster.py).
     loads the kernel pays for.
 
 `worklist_intersect` runs the precull, then the plain version for CPU
-tensors and the kernel for CUDA tensors (or raises).
+tensors and the kernel for CUDA tensors (or raises), in one `worklist`
+device_span (utils/timing.py: `rays`, and `device_ns` read when the
+units are).
 `worklist_intersect_kernel.launches` counts the kernel's launches.
 
 Differences from the JAX function, none of which changes a hit: the work
@@ -450,20 +452,23 @@ def worklist_intersect(tables: WorklistTables, ro, rd, tmin, tmax) -> Hit:
     """Closest hit of rays ro/rd [N, 3], tmin/tmax [N] over the packed
     tables: precull (work lists per GROUP_RAYS rays), then the plain
     version for CPU tensors and the CUDA kernel for CUDA tensors; under
-    roofline.count_cost the walk reports call_cost."""
+    roofline.count_cost the walk reports call_cost. A `worklist` span
+    (utils/timing.py device_span, `rays=`) covers the precull and the
+    walk."""
     if ro.device.type not in ("cpu", "cuda"):
         raise ValueError(f"worklist_intersect: unsupported device {ro.device}")
-    order, cnt = precull(ro, rd, tmin, tmax, tables.sbbox)
-    with roofline.kernel_region() as counter:
-        if ro.device.type == "cpu":
-            hit = worklist_intersect_plain(tables, ro, rd, tmin, tmax, order,
-                                           cnt)[0]
-        else:
-            hit = worklist_intersect_kernel(tables, ro, rd, tmin, tmax, order,
-                                            cnt)
-        if counter is not None:
-            counter.add_kernel("worklist_intersect", call_cost(
-                tables, ro, rd, tmin, hit.t, order, cnt))
+    with timing.device_span("worklist", ro.device, rays=ro.shape[0]):
+        order, cnt = precull(ro, rd, tmin, tmax, tables.sbbox)
+        with roofline.kernel_region() as counter:
+            if ro.device.type == "cpu":
+                hit = worklist_intersect_plain(tables, ro, rd, tmin, tmax,
+                                               order, cnt)[0]
+            else:
+                hit = worklist_intersect_kernel(tables, ro, rd, tmin, tmax,
+                                                order, cnt)
+            if counter is not None:
+                counter.add_kernel("worklist_intersect", call_cost(
+                    tables, ro, rd, tmin, hit.t, order, cnt))
     return hit
 
 

@@ -33,6 +33,7 @@ from julia_raytracer_tpu_torch.ops.geometry import (
 from julia_raytracer_tpu_torch.scene.flatten import (
     FLAG_IS_TRIANGLE_SHAPE, FlatScene,
 )
+from julia_raytracer_tpu_torch.utils import timing
 from julia_raytracer_tpu_torch.utils.vecmath import (
     cross, dot, normalize, transform_direction, transform_normal,
 )
@@ -470,24 +471,43 @@ def area_lights_pdf_march(lights: DeviceLights, counts: LightCounts,
     and adds its hit's contribution at the accumulated distance. Lanes
     that stopped marching carry tmax = -1, which fails every slab test
     even when the origin sits inside a box (a small positive tmax would
-    not). The steps add in a fixed order."""
+    not). The steps add in a fixed order.
+
+    A `light_march` span (utils/timing.py device_span) covers the extra
+    steps: `lanes` and `steps` (integers), and tensors read when the
+    units are: `marching`, the lane-steps whose lane still marched when
+    the step was issued (every step runs at full width); `emitter_hits`,
+    the lane-steps whose hit added to the pdf; `truncated`, the lanes
+    whose last step still hit, whose pdf the budget cut short."""
     t_cum = first_hit.t
     hit = first_hit.hit
     pdf = area_light_hit_pdf(lights, first_hit.prim, t_cum * t_cum,
                              first_hit.gnormal, direction, hit,
                              total_elems=counts.total_inst_elems)
     marching = hit
-    for _ in range(extra_steps):
-        origin = position + direction * (t_cum + 1e-3)[..., None]
-        tmin = torch.full_like(t_cum, 1e-4)
-        tmax = torch.where(marching, F32_MAX, -1.0)
-        step = intersect_fn(origin, direction, tmin, tmax)
-        hit = step.hit & marching
-        t_cum = torch.where(hit, t_cum + 1e-3 + step.t, t_cum)
-        pdf = pdf + area_light_hit_pdf(lights, step.prim, t_cum * t_cum,
-                                       step.gnormal, direction, hit,
-                                       total_elems=counts.total_inst_elems)
-        marching = hit
+    with timing.device_span("light_march", position.device,
+                            lanes=t_cum.shape[0], steps=extra_steps) as sp:
+        # every hit of the march, the first's included, and the steps
+        # that added: a lane marches at step k while its first k hits hit
+        hits = hit.to(torch.int32)
+        added = torch.zeros_like(hits)
+        for _ in range(extra_steps):
+            origin = position + direction * (t_cum + 1e-3)[..., None]
+            tmin = torch.full_like(t_cum, 1e-4)
+            tmax = torch.where(marching, F32_MAX, -1.0)
+            step = intersect_fn(origin, direction, tmin, tmax)
+            hit = step.hit & marching
+            t_cum = torch.where(hit, t_cum + 1e-3 + step.t, t_cum)
+            term = area_light_hit_pdf(lights, step.prim, t_cum * t_cum,
+                                      step.gnormal, direction, hit,
+                                      total_elems=counts.total_inst_elems)
+            pdf = pdf + term
+            hits += hit
+            added += term > 0
+            marching = hit
+        truncated = marching.sum(dtype=torch.int64)
+        sp.add(marching=hits.sum(dtype=torch.int64) - truncated,
+               emitter_hits=added.sum(dtype=torch.int64), truncated=truncated)
     return pdf
 
 

@@ -1382,3 +1382,46 @@ def test_shade_kernel_rejects_bad_state_on_card(dev):
                 s._replace(hit_normal=s.hit_normal.t().contiguous().t())):
         with pytest.raises(ValueError, match="shade_path"):
             sp.shade_path(tables, bad, plain)
+
+
+def test_veach_route_and_spans_on_card(dev):
+    """Veach's MIS scene (benchmark/scenes/veach_mis.py, 30,720 emissive
+    quads) on the card routes as the manylights-path8 cell measures it:
+    the worklist, no sort, 8 extra march steps. A 128 x 128 frame's bodies
+    run eagerly and file a `light_march` span each (steps the budget,
+    marching at most lanes x steps, truncated at most lanes, stamped on
+    the card) and a `worklist` span for every call: the camera rays', and
+    each body's hit and march steps."""
+    from benchmark.modes import render_lights
+    from benchmark.modes.common import to_program_scene
+    from benchmark.scenes import veach_mis
+
+    scene = to_program_scene(veach_mis.build())
+    traffic = {"resolution": 128, "batch": 1, "bounces": 8,
+               "sampler": "path", "clamp": 10.0}
+    params = render_lights.params(traffic, 2 ** 31 + 5)
+    r = Renderer(scene, params, device=dev)
+    render_lights.check_route(r)
+    assert r.config.light_counts.total_inst_elems == 30720
+    state = make_trace_state(scene, params, device=dev)
+    timing.reset()
+    r.trace_samples(state)
+    torch.cuda.synchronize()
+    table = timing.units()[-1]["table"]
+
+    def rows(name):
+        return [row for path, row in table.items()
+                if path.endswith("/" + name)]
+
+    bodies = sum(row["n"] for row in rows("body"))
+    assert bodies > 0 and sum(row["graphed"] for row in rows("body")) == 0
+    march = rows("light_march")
+    assert sum(row["n"] for row in march) == bodies
+    for row in march:
+        assert row["steps"] == 8 * row["n"] and row["device_ns"] > 0
+        assert 0 < row["marching"] <= row["lanes"] * 8
+        assert 0 <= row["truncated"] <= row["lanes"]
+        assert 0 < row["emitter_hits"] <= row["marching"]
+    chunks = sum(row["n"] for row in rows("chunk"))
+    assert sum(row["n"] for row in rows("worklist")) == chunks + 9 * bodies
+    assert all(row["device_ns"] > 0 for row in rows("worklist"))
